@@ -1,0 +1,107 @@
+"""The whole slice: ``repro_torch.harness.run`` against a live run of the
+JAX reference with the same seed and the reference's initial weights, and
+the port's configuration matrix."""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+
+import repro_torch.harness.experiments as tex
+from repro_torch.harness import ExperimentConfig, ExperimentConfigError, run
+from repro_torch.harness.compat import PORT_RULES, resolve
+from repro_torch.models.small import params_from_numpy
+from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
+
+SLICES = {
+    "fcn-d1-u4": dict(model="fcn", dataset=1, num_clients=4, rounds=2,
+                      capacity=(16, 32)),
+    "mlp-d2-u16": dict(model="mlp", dataset=2, num_clients=16, rounds=3,
+                       capacity=(16, 32)),
+}
+EVAL = 64
+
+
+@pytest.mark.parametrize("slice_", sorted(SLICES))
+def test_run_matches_live_reference(reference, monkeypatch, slice_):
+    kw = SLICES[slice_]
+    want = reference.harness.run(
+        "osafl", reference.harness.ExperimentConfig(**kw), eval_samples=EVAL)
+    w0 = to_numpy_tree(reference.small.init_small(jax.random.PRNGKey(0),
+                                                  kw["model"]))
+    # the port cannot draw threefry weights: start it from the reference's
+    monkeypatch.setattr(tex, "init_small",
+                        lambda seed, name, device: params_from_numpy(
+                            name, w0, device))
+    got = run("osafl", ExperimentConfig(**kw), eval_samples=EVAL,
+              device="cpu")
+    n_eval = kw["num_clients"] * max(EVAL // kw["num_clients"], 4)
+    assert len(got) == len(want) == kw["rounds"]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert g["round"] == w["round"]
+        assert g["participants"] == w["participants"]      # same host draws
+        # f32 sums in another order, carried over a few rounds
+        np.testing.assert_allclose(g["test_loss"], w["test_loss"],
+                                   rtol=1e-4)
+        assert abs(g["test_acc"] - w["test_acc"]) <= 1.0 / n_eval + 1e-9
+    assert any(g["participants"] for g in got)
+
+
+BAD = [
+    dict(engine="warp"), dict(request_backend="gumbel"),
+    dict(round_backend="fused"), dict(resource_backend="f64"),
+    dict(engine="loop", request_backend="stacked"),
+    dict(cohort_size=99), dict(participation=0.5),
+    dict(round_backend="fused", request_backend="stacked", cohort_size=4),
+]
+
+
+@pytest.mark.parametrize("change", BAD)
+def test_reference_rules_name_the_same_failure(reference, change):
+    xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
+    rxc = dataclasses.replace(
+        reference.harness.ExperimentConfig(num_clients=8), **change)
+    with pytest.raises(reference.harness.ExperimentConfigError) as want:
+        reference.harness.resolve("osafl", rxc)
+    with pytest.raises(ExperimentConfigError) as got:
+        resolve("osafl", xc)
+    assert got.value.key == want.value.key
+    assert str(got.value).startswith("invalid experiment configuration [")
+
+
+@pytest.mark.parametrize("change,kwargs,key", [
+    (dict(engine="loop"), {}, "port-engine"),
+    (dict(), dict(alg="fedavg"), "port-algorithm"),
+    (dict(round_backend="fused", request_backend="stacked"), {},
+     "port-round-backend"),
+    (dict(request_backend="stacked"), {}, "port-request-backend"),
+    (dict(resource_backend="f32"), {}, "port-resource-backend"),
+    (dict(cohort_size=4), {}, "port-cohort"),
+    (dict(num_clusters=2), {}, "port-hierarchy"),
+    (dict(engine="stacked"), dict(mesh=object()), "port-mesh"),
+    (dict(scenario="churn(p_away=0.3)"), {}, "port-scenario"),
+    (dict(), dict(checkpoint=True), "port-checkpoint"),
+])
+def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
+    xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
+    alg = kwargs.pop("alg", "osafl")
+    with pytest.raises(ExperimentConfigError, match="not ported") as err:
+        resolve(alg, xc, **kwargs)
+    assert err.value.key == key
+    assert key in {r.key for r in PORT_RULES}
+
+
+@pytest.mark.parametrize("kwargs", [dict(save_every_k=2, checkpoint_dir="x"),
+                                    dict(resume_from="x"), dict(keep_last=1),
+                                    dict(checkpoint_async=False)])
+def test_run_rejects_checkpoint_arguments(kwargs):
+    with pytest.raises(ExperimentConfigError, match="port-checkpoint"):
+        run("osafl", ExperimentConfig(num_clients=2), device="cpu", **kwargs)
+
+
+def test_null_scenario_is_accepted():
+    plan = ExperimentConfig(scenario="null").validate()
+    assert plan == resolve("osafl", ExperimentConfig(scenario="null"))
+    assert plan.engine == "stacked"
+    assert "engine=stacked alg=osafl" in plan.describe()
