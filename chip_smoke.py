@@ -6,21 +6,31 @@ Phases, each fatal on failure:
   1. the card: its name and power limit (nvidia-smi) and torch's view;
   2. the build: every CUDA kernel of the port, compiled in parallel;
   3. the kernels: each kernel against its plain PyTorch version on the card
-     at the main path's shapes and at ragged ones, with times (CUDA events)
+     at its path's shapes and at ragged ones, with times (CUDA events)
      beside the least time the card could take and one PyTorch library
      call that computes the same function;
-  4. a small run on the card against the same run on the CPU (whose plain
-     path the CPU tests tie to the JAX reference);
-  5. the main path: ``repro_torch.harness.run("osafl", ...)`` on the FCN at
-     the paper's U=256 clients, with every kernel's launch count reset just
-     before and read just after;
-  6. a breakdown of a main-path round by stage.
+  4. small runs on the card against the same runs on the CPU (whose plain
+     paths the CPU tests tie to the JAX reference): the OSAFL harness, and
+     a reduced deepseek-coder-33b (7:1 head groups kept) through prefill
+     and decode;
+  5. the FL main path: ``repro_torch.harness.run("osafl", ...)`` on the FCN
+     at the paper's U=256 clients, with the kernels' launch counts reset
+     just before and read just after;
+  6. a breakdown of an FL main-path round by stage;
+  7. the serving path: deepseek-coder-33b at full width (d_model 7168,
+     56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
+     a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
+     ``serve_decode.run`` (batch 8, 32-token prompts, 32 decode steps,
+     4096-position cache), launch counts reset just before and read just
+     after; a profile of one prefill call by kernel; then the flash
+     prefill against the KV-cache decode path on one prompt.
 The line before the last is one JSON object with every kernel's numbers;
 the last line is the result. Exits non-zero, with no result, when there is
 no CUDA card or the port's sources are not beside this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +42,7 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 MAIN_U, MAIN_N = 256, 3_821_156     # FCN contribution buffer at U=256
 MAIN_RUN = dict(model="fcn", dataset=1, num_clients=MAIN_U,
@@ -40,6 +51,20 @@ MAIN_EVAL = 512
 # norms/mean_sq: the reference kernel test's rtol; dots: the same factor
 # times sqrt(norms * mean_sq), the size of the terms a dot sums
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+# flash attention: the serving path's prefill (B, H, Hkv, S, D), bf16,
+# causal; ragged and small shapes; tests/test_kernels.py:26's tolerances
+FLASH_MAIN = (4, 56, 8, 4096, 128)
+FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
+                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128))
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the serving path: deepseek-coder-33b, depth cut 62 -> 8 (f32 weights of
+# all 62 layers are 133 GB, more than the card holds)
+SERVE_LAYERS = 8
+SERVE_PREFILL = dict(batch=4, seq=4096)
+SERVE_DECODE = dict(batch=8, prompt_len=32, decode_steps=32, cache_len=4096,
+                    seed=1)
+LOGIT_TOL = 2e-2                 # bf16 (tests/test_kernels.py:26)
 
 
 def say(*parts) -> None:
@@ -141,6 +166,118 @@ def kernels_phase() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_scored_reduce(U, N, dtype, timed=False))
     return {"main": rows[0], "rows": rows}
+
+
+def check_flash(shape, dtype, causal: bool, timed: bool) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Hkv, S, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(S * 131 + H * 7 + D)
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[dtype]
+    err = float((out.float() - plain.float()).abs().max())
+    ok = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
+    same = torch.equal(out, fa.flash_attention_bhsd(q, k, v, causal=causal))
+    del plain
+    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "causal": causal, "max_abs_err": err, "tol": tol, "ok": ok,
+           "bitwise_repeat": same}
+    if timed:
+        flops = fa.bound_flops(q, k, causal=causal)
+        nbytes = fa.bound_bytes(q, k, v)
+        row["ms"] = time_ms(
+            lambda: fa.flash_attention_bhsd(q, k, v, causal=causal), 20)
+        row["plain_ms"] = time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal), 2,
+            warmup=1)
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, scale=D ** -0.5, enable_gqa=True),
+            5)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflop_per_s"] = flops / row["ms"] / 1e9
+    say("flash_attention " + json.dumps(row))
+    if not (ok and same):
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version or is not repeatable: {row}")
+    return row
+
+
+def flash_phase() -> dict:
+    main = check_flash(FLASH_MAIN, torch.bfloat16, causal=True, timed=True)
+    torch.cuda.empty_cache()
+    for shape in FLASH_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                check_flash(shape, dtype, causal, timed=False)
+    return main
+
+
+def _close_tokens(a_logits, b_logits, tol: float) -> bool:
+    """Greedy tokens agree wherever b's top-2 gap exceeds ``tol``."""
+    top2 = torch.topk(b_logits.float(), 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > tol
+    same = torch.argmax(a_logits, -1) == torch.argmax(b_logits, -1)
+    return bool((same | ~clear).all())
+
+
+def small_transformer_phase() -> None:
+    """Reduced deepseek-coder-33b with its 7:1 head groups (14 over 2,
+    d_model 448), the same imported weights on the card and on the CPU:
+    ``make_prefill_step`` on a prompt, then 8 decode steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b").reduced(),
+                              n_heads=14, n_kv_heads=2, d_model=448)
+    host = T.init_model(torch.Generator().manual_seed(5), cfg)
+    tree = tree_map(lambda t: t.numpy(), host)
+    B, S, steps = 2, 24, 8
+    prompt = torch.randint(0, cfg.vocab_size, (B, S + steps),
+                           generator=torch.Generator().manual_seed(6))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        params = T.params_from_numpy(tree, cfg, device=dev)
+        tok = prompt.to(dev)
+        with torch.inference_mode():
+            logits, _ = T.forward(params, {"tokens": tok[:, :S]}, cfg)
+            nxt = make_prefill_step(cfg)(params, {"tokens": tok[:, :S]})
+            # the prompt into the cache, then 8 steps (teacher-forced, so
+            # both devices see the same tokens)
+            cache = T.init_cache(cfg, B, S + steps, device=dev)
+            dec = []
+            for i in range(S + steps):
+                dl, cache = T.decode_step(params, cache, tok[:, i:i + 1], i,
+                                          cfg)
+                if i >= S:
+                    dec.append(dl[:, -1].float().cpu())
+        res[dev] = (logits.float().cpu(), nxt.cpu(), torch.stack(dec, 1))
+    (gl, gn, gd), (cl, cn, cd) = res["cuda"], res["cpu"]
+    err = {"prefill_logits": float((gl - cl).abs().max()),
+           "decode_logits": float((gd - cd).abs().max())}
+    ok = (torch.allclose(gl, cl, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+          and torch.allclose(gd, cd, atol=LOGIT_TOL, rtol=LOGIT_TOL)
+          and _close_tokens(gl[:, -1], cl[:, -1], LOGIT_TOL)
+          and _close_tokens(gd, cd, LOGIT_TOL)
+          and bool(torch.isfinite(gl).all() and torch.isfinite(gd).all()))
+    say(f"small transformer (reduced deepseek-coder-33b, 14/2 heads, "
+        f"d_model 448, bf16): cuda vs cpu max abs err {json.dumps(err)} "
+        f"(tol {LOGIT_TOL}); prefill next tokens {gn.tolist()} / "
+        f"{cn.tolist()}")
+    if not ok:
+        raise AssertionError("the transformer on the card drifted from the "
+                             f"CPU run: {err}")
 
 
 def small_run_phase() -> None:
@@ -253,14 +390,174 @@ def breakdown_phase(rounds: int = 2) -> None:
         say(f"breakdown round {t} (s): {json.dumps(stages)}")
 
 
+def _clock() -> float:
+    torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
+    """Last-position logits of ``forward`` (the flash path) against those
+    of sequential ``decode_step``s over a cache (``_sdpa``), same prompt.
+    ``exact``, the f32 run's forward logits, measures how far each path
+    is from it; the run's own forward logits are returned under
+    ``"logits"``."""
+    from repro_torch.models import transformer as T
+    from repro_torch.models.attention import init_gqa_cache
+    B, S = prompt.shape
+    with torch.inference_mode():
+        lf, _ = T.forward(params, {"tokens": prompt}, cfg)
+        cache = {"dense": init_gqa_cache(cfg, B, S, dtype=cache_dtype,
+                                         device=prompt.device,
+                                         lead=(cfg.n_layers,))}
+        for i in range(S):
+            ld, cache = T.decode_step(params, cache, prompt[:, i:i + 1], i,
+                                      cfg)
+    a, b = lf[:, -1].float(), ld[:, -1].float()
+    out = {"compute": cfg.dtype,
+           "cache": str(cache_dtype).replace("torch.", ""),
+           "max_abs_err": float((a - b).abs().max()),
+           "mean_abs_logit": float(b.abs().mean()),
+           "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
+           "allclose": torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL),
+           "tokens_agree": _close_tokens(a, b, LOGIT_TOL)}
+    if exact is not None:
+        out["forward_vs_f32_max_abs"] = float((a - exact).abs().max())
+        out["decode_vs_f32_max_abs"] = float((b - exact).abs().max())
+    return out, a
+
+
+def prefill_breakdown(prefill, params, tokens) -> dict:
+    """Device time of one prefill call by kernel (torch.profiler), grouped
+    into the flash kernel, matrix products and everything else."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if us > 0 and ev.device_type.name == "CUDA":
+            kernels.append((ev.key, us / 1e3, ev.count))
+    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        if "flash_bf16" in low:
+            groups["flash_attention"] += ms
+        elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass",
+                                    "sm90_")):     # cuBLAS's kernel names
+            groups["matmul"] += ms
+        else:
+            groups["other"] += ms
+    top = sorted(kernels, key=lambda k: -k[1])[:8]
+    return {"device_ms": sum(groups.values()), "by_group_ms": groups,
+            "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
+                            for n, ms, c in top]}
+
+
+def serving_phase() -> dict:
+    """deepseek-coder-33b at full width, 8 layers, seeded random weights on
+    the card: prefill, then batched decode, then flash against the cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b"),
+                              n_layers=SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = _clock()
+    params = T.init_model(gen, cfg)
+    init_s = _clock() - t0
+    n_params = T.param_count(params)
+    B, S = SERVE_PREFILL["batch"], SERVE_PREFILL["seq"]
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    prefill = make_prefill_step(cfg)
+
+    fa.flash_attention_bhsd.launches = 0
+    sr.scored_reduce.launches = 0
+    prefill_s, per_call = [], []
+    with torch.inference_mode():
+        for _ in range(2):                 # the first call warms up cuBLAS
+            before = fa.flash_attention_bhsd.launches
+            t0 = _clock()
+            nxt = prefill(params, {"tokens": tokens})
+            prefill_s.append(_clock() - t0)
+            per_call.append(fa.flash_attention_bhsd.launches - before)
+    launches = {"flash_attention": fa.flash_attention_bhsd.launches,
+                "scored_reduce": sr.scored_reduce.launches}
+    breakdown = prefill_breakdown(prefill, params, tokens)
+    breakdown["busy_share_of_timed_call"] = (breakdown["device_ms"] / 1e3
+                                             / prefill_s[-1])
+    prompt = tokens[:2, :SERVE_DECODE["prompt_len"]]
+    del tokens
+    gate, exact = forward_vs_decode(
+        params, dataclasses.replace(cfg, dtype="float32"), prompt,
+        torch.float32)
+    checks = [gate, forward_vs_decode(params, cfg, prompt, torch.bfloat16,
+                                      exact)[0]]
+    del params
+    torch.cuda.empty_cache()
+    # the second leg of the path (the checks above launch too, so the
+    # counts restart here)
+    fa.flash_attention_bhsd.launches = 0
+    sr.scored_reduce.launches = 0
+    dec = serve_decode.run(cfg, **SERVE_DECODE)
+    launches["flash_attention"] += fa.flash_attention_bhsd.launches
+    launches["scored_reduce"] += sr.scored_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    nb, npl, nd = (SERVE_DECODE["batch"], SERVE_DECODE["prompt_len"],
+                   SERVE_DECODE["decode_steps"])
+    out = {"config": f"{cfg.name} n_layers={cfg.n_layers} d_model="
+                     f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+                     f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+                     f"vocab={cfg.vocab_size}",
+           "params": n_params, "init_s": init_s,
+           "prefill": {"batch": B, "seq": S, "seconds": prefill_s,
+                       "tokens_per_s": [B * S / t for t in prefill_s],
+                       "flash_launches_per_call": per_call},
+           "decode": {**SERVE_DECODE, "prefill_s": dec["prefill_s"],
+                      "decode_s": dec["decode_s"],
+                      "prefill_tokens_per_s": nb * npl / dec["prefill_s"],
+                      "decode_tokens_per_s": nb * nd / dec["decode_s"]},
+           "max_memory_allocated": peak, "launches": launches,
+           "prefill_breakdown": breakdown, "forward_vs_decode": checks}
+    say("serving path " + json.dumps(out))
+    toks = dec["tokens"]
+    if per_call != [cfg.n_layers] * len(per_call):
+        raise AssertionError(f"flash_attention launched {per_call} times per "
+                             f"prefill call, not {cfg.n_layers}")
+    if not (bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all())
+            and toks.shape == (nb, nd)
+            and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+        raise AssertionError("the serving path gave tokens outside the "
+                             "vocabulary")
+    # the gate: f32 compute with an f32 cache, where the two paths differ
+    # only in their order of sums. In bf16 the cache path's _sdpa rounds
+    # its logits to bf16 (as the reference's does), so the bf16 row is
+    # printed beside it with each path's distance from the f32 logits.
+    if not (gate["finite"] and gate["allclose"] and gate["tokens_agree"]
+            and checks[1]["finite"]):
+        raise AssertionError(f"forward (flash) and decode (cache) disagree: "
+                             f"{checks}")
+    return out
+
+
 def main() -> int:
     name, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     build()
     kern = kernels_phase()
+    flash = flash_phase()
     small_run_phase()
+    small_transformer_phase()
     _, launches = main_path_phase()
     breakdown_phase()
+    serving = serving_phase()
     m = kern["main"]
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
@@ -269,7 +566,14 @@ def main() -> int:
         "launches": launches["scored_reduce"],
         "max_abs_err": max(m["max_abs_err"].values()),
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"]}]}
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": serving["launches"]["flash_attention"],
+        "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
+        "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -1,3 +1,41 @@
-from repro_torch.configs.base import ExperimentConfig, FLConfig
+"""Configurations and the architecture registry (``repro/configs``).
 
-__all__ = ["ExperimentConfig", "FLConfig"]
+``get_config(name)`` knows every architecture id of the reference. It
+returns the configs of the dense full-attention GQA decoders, which
+``repro_torch.models.transformer`` runs; any other architecture raises
+``NotImplementedError`` (ROADMAP.md queue A lists it).
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import (ExperimentConfig, FLConfig, MLAConfig,
+                                      ModelConfig, MoEConfig, SSMConfig)
+
+ARCH_IDS = (
+    "deepseek-v3-671b", "arctic-480b", "h2o-danube-3-4b", "nemotron-4-15b",
+    "zamba2-2.7b", "whisper-medium", "qwen1.5-4b", "llama-3.2-vision-11b",
+    "xlstm-350m", "deepseek-coder-33b",
+    "paper-fcn", "paper-cnn", "paper-squeezenet", "paper-lstm",
+)
+
+_MODULES = {
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "nemotron-4-15b": "nemotron_4_15b",
+    "qwen1.5-4b": "qwen1_5_4b",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in ARCH_IDS:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
+    if name not in _MODULES:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet (ported: "
+            f"{sorted(_MODULES)}); ROADMAP.md queue A lists what is left")
+    return importlib.import_module(
+        f"repro_torch.configs.{_MODULES[name]}").CONFIG
+
+
+__all__ = ["ARCH_IDS", "get_config", "ExperimentConfig", "FLConfig",
+           "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig"]

@@ -1,10 +1,153 @@
-"""Run configurations: ``FLConfig`` (the server round) and
-``ExperimentConfig`` (one harness run), copied field for field from
-``repro/configs/base.py`` and ``repro/harness/experiments.py`` so a config
-means the same thing in both packages."""
+"""Configurations, copied field for field from ``repro/configs/base.py``
+and ``repro/harness/experiments.py`` so a config means the same thing in
+both packages: ``ModelConfig`` (a transformer of the model zoo, with the
+nested dataclasses it refers to), ``FLConfig`` (the server round) and
+``ExperimentConfig`` (one harness run)."""
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 2048
+    num_shared_experts: int = 0
+    dense_residual_d_ff: int = 0
+    first_dense_layers: int = 0
+    d_ff_dense: int = 0
+    router_aux_coef: float = 0.001
+    capacity_factor: float = 1.25
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    kind: str = "mamba2"              # "mamba2" | "xlstm"
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    n_groups: int = 1
+    chunk_size: int = 256
+    slstm_every: int = 0
+    mlstm_proj_factor: float = 2.0
+    slstm_proj_factor: float = 1.3334
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    shared_attn_every: int = 6
+    shared_block_d_ff: int = 10240
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    n_layers: int = 24
+    n_frames: int = 1500
+    max_decoder_len: int = 448
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    cross_attn_every: int = 5
+    n_patches: int = 1601
+    d_vision: int = 1280
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture of the transformer zoo. The port runs the dense
+    full-attention GQA decoders so far (``repro_torch.models.transformer``);
+    the nested configs of the other families exist so that every field
+    means what it means in the reference."""
+    name: str
+    arch_type: str                    # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 => d_model // n_heads
+    attention: str = "gqa"            # gqa | mla | none
+    qkv_bias: bool = False
+    sliding_window: int = 0           # 0 => full attention
+    mlp: str = "swiglu"               # swiglu | relu2 | gelu
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    mtp_depth: int = 0
+    remat: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    encoder: Optional[EncoderConfig] = None
+    vision: Optional[VisionConfig] = None
+    source: str = ""                  # citation
+    dtype: str = "bfloat16"           # compute
+    param_dtype: str = "float32"
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: 2 layers, d_model<=256, <=4 experts, small
+        vocab; the same cut as the reference's."""
+        d_model = min(self.d_model, 256)
+        n_heads = min(self.n_heads, 4)
+        n_kv = max(1, min(self.n_kv_heads, n_heads))
+        if self.n_kv_heads < self.n_heads:      # keep GQA where possible
+            n_kv = max(1, n_heads // 2)
+        kw: dict = dict(
+            n_layers=2, d_model=d_model, n_heads=n_heads, n_kv_heads=n_kv,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=64 if self.head_dim else 0,
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            mtp_depth=min(self.mtp_depth, 1),
+        )
+        if self.moe is not None:
+            kw["moe"] = dataclasses.replace(
+                self.moe, num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                d_ff_expert=min(self.moe.d_ff_expert, 256),
+                d_ff_dense=(min(self.moe.d_ff_dense, 256)
+                            if self.moe.d_ff_dense else 0),
+                dense_residual_d_ff=(min(self.moe.dense_residual_d_ff, 256)
+                                     if self.moe.dense_residual_d_ff else 0),
+                first_dense_layers=min(self.moe.first_dense_layers, 1))
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=64, kv_lora_rank=32,
+                                  qk_nope_head_dim=32, qk_rope_head_dim=16,
+                                  v_head_dim=32)
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=min(self.ssm.d_state, 16), chunk_size=32)
+        if self.hybrid is not None:
+            kw["hybrid"] = dataclasses.replace(
+                self.hybrid, shared_attn_every=1,
+                shared_block_d_ff=min(self.hybrid.shared_block_d_ff, 256))
+        if self.encoder is not None:
+            kw["encoder"] = dataclasses.replace(
+                self.encoder, n_layers=2, n_frames=16, max_decoder_len=64)
+        if self.vision is not None:
+            kw["vision"] = dataclasses.replace(
+                self.vision, cross_attn_every=2, n_patches=16, d_vision=64)
+        return dataclasses.replace(self, **kw)
 
 
 @dataclass(frozen=True)

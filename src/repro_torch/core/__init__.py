@@ -1,1 +1,2 @@
-"""Server, client, buffer and resource layers of the port."""
+"""Server, client, buffer and resource layers of the port, and the
+transformer zoo's serving steps (``pod.py``)."""

@@ -1,0 +1,140 @@
+"""Grouped-query attention (``repro/models/attention.py``, the GQA part):
+optional qkv bias and sliding window, prefill and single-step decode over an
+explicit KV cache.
+
+Cache layout (full attention): {"k": (B, L, n_kv, hd), "v": (B, L, n_kv, hd)}
+with the write position passed separately. Sliding-window caches are ring
+buffers of length ``window``. Unlike the reference, whose arrays are
+immutable, decode writes the new key and value into the cache in place and
+returns the same cache: a functional copy would move the whole cache every
+step.
+
+Every causal, unwindowed attention whose query and key lengths agree
+(prefill and the training forward) goes through ``kernels.ops.
+flash_attention``: the CUDA kernel on the card, its plain version on the
+CPU. That is the reference with ``REPRO_USE_FLASH=1``; the port has no such
+switch. Decode over the cache, windowed and non-causal attention take
+``_sdpa``, plain torch ops at the reference's rounding points.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import apply_rope, dense_init
+
+
+def _sdpa(q, k, v, mask, scale):
+    """q: (B,S,H,D) k/v: (B,L,Hkv,D) mask: broadcastable (B,1,S,L) or None.
+    Logits in q's dtype, softmax in f32, probabilities back in q's dtype, as
+    the reference rounds. Each kv head serves its group of query heads by
+    broadcasting, so the repeated heads are never built."""
+    B, S, H, D = q.shape
+    L, Hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, D)
+    logits = torch.einsum("bsngd,btnd->bngst", qg, k) * scale
+    logits = logits.reshape(B, H, S, L)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    probs = probs.reshape(B, Hkv, H // Hkv, S, L)
+    return torch.einsum("bngst,btnd->bsngd", probs, v).reshape(B, S, H, D)
+
+
+def causal_mask(s_q: int, s_k: int, q_offset=0, window: int = 0,
+                device=None):
+    """(1,1,S,L) boolean mask; window>0 limits lookback (sliding window)."""
+    qi = torch.arange(s_q, device=device)[:, None] + q_offset
+    kj = torch.arange(s_k, device=device)[None, :]
+    m = kj <= qi
+    if window > 0:
+        m = m & (qi - kj < window)
+    return m[None, None]
+
+
+def _attention(q, k, v, mask, scale, *, causal_full: bool):
+    """The flash kernel for causal, unwindowed self-attention; else _sdpa."""
+    if causal_full and q.shape[1] == k.shape[1]:
+        return ops.flash_attention(q, k, v, causal=True, scale=scale)
+    return _sdpa(q, k, v, mask, scale)
+
+
+# ---------------------------------------------------------------------------
+# GQA
+# ---------------------------------------------------------------------------
+
+def init_gqa(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
+    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    p = {"wq": dense_init(gen, (*lead, d, H * hd), dtype=dtype),
+         "wk": dense_init(gen, (*lead, d, Hkv * hd), dtype=dtype),
+         "wv": dense_init(gen, (*lead, d, Hkv * hd), dtype=dtype),
+         "wo": dense_init(gen, (*lead, H * hd, d), dtype=dtype)}
+    if cfg.qkv_bias:
+        device = "meta" if gen is None else gen.device
+        for name, width in (("bq", H * hd), ("bk", Hkv * hd),
+                            ("bv", Hkv * hd)):
+            p[name] = torch.zeros((*lead, width), dtype=dtype, device=device)
+    return p
+
+
+def gqa_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
+            cache_pos=None, causal: bool = True, rope: bool = True):
+    """x: (B,S,d). Training/prefill when cache is None; else single-step
+    decode (S==1) writing into the cache at ``cache_pos`` (an int).
+
+    Returns (y, cache)."""
+    B, S, _ = x.shape
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = x @ params["wq"].to(dt)
+    k = x @ params["wk"].to(dt)
+    v = x @ params["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, Hkv, hd)
+    v = v.reshape(B, S, Hkv, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    scale = hd ** -0.5
+    window = cfg.sliding_window
+
+    if cache is None:
+        mask = (causal_mask(S, S, window=window, device=x.device)
+                if causal else None)
+        o = _attention(q, k, v, mask, scale,
+                       causal_full=causal and window == 0)
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per step, got S={S}")
+        pos = int(cache_pos)
+        L = cache["k"].shape[1]
+        slot = pos % L if window > 0 else pos     # ring buffer (L == window)
+        if not 0 <= slot < L:
+            raise IndexError(f"cache position {pos} is outside the cache "
+                             f"of length {L}")
+        cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+        idx = torch.arange(L, device=x.device)
+        if window > 0:
+            abs_pos = pos - torch.remainder(slot - idx, L)
+            valid = (abs_pos >= 0) & (abs_pos <= pos)
+        else:
+            valid = idx <= pos
+        o = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt),
+                  valid[None, None, None, :], scale)
+    y = o.reshape(B, S, H * hd) @ params["wo"].to(dt)
+    return y, cache
+
+
+def init_gqa_cache(cfg: ModelConfig, batch: int, length: int,
+                   dtype=torch.bfloat16, device=None, lead: tuple = ()):
+    L = min(length, cfg.sliding_window) if cfg.sliding_window else length
+    shape = (*lead, batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}

@@ -1,0 +1,129 @@
+"""Shared building blocks of the transformer zoo (``repro/models/layers.py``):
+plain functions on tensors over dict parameter trees in the reference's
+layout. Each function computes in the dtype and at the rounding points the
+reference does (norms and RoPE in f32 inside, cast back).
+
+Init draws from an explicit ``torch.Generator`` and puts the tensor on the
+generator's device. It cannot reproduce the reference's threefry numbers,
+so parity tests import the reference's weights instead
+(``repro_torch.models.transformer.params_from_numpy``). ``gen=None`` gives
+meta tensors: the layout without the numbers, which ``params_from_numpy``
+checks an imported tree against.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+
+
+def dense_init(gen, shape, scale: float = 0.02, dtype=torch.float32):
+    """``scale`` * N(0, 1) of ``shape`` on ``gen``'s device."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    return x.mul_(scale).to(dtype)
+
+
+def _full(gen, shape, value: float, dtype):
+    device = "meta" if gen is None else gen.device
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(gen, d: int, dtype=torch.float32, lead: tuple = ()):
+    return {"scale": _full(gen, (*lead, d), 1.0, dtype)}
+
+
+def rmsnorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(dtype)
+
+
+def init_layernorm(gen, d: int, dtype=torch.float32, lead: tuple = ()):
+    return {"scale": _full(gen, (*lead, d), 1.0, dtype),
+            "bias": _full(gen, (*lead, d), 0.0, dtype)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10_000.0):
+    """x: (..., seq, n_heads, head_dim); positions: (..., seq)."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # (hd/2,)
+    angles = positions[..., :, None].float() * freqs            # (..., seq, hd/2)
+    cos = torch.cos(angles)[..., :, None, :]                    # (..., seq, 1, hd/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen, cfg: ModelConfig, d_ff: int | None = None,
+             dtype=torch.float32, lead: tuple = ()):
+    d, f = cfg.d_model, (d_ff or cfg.d_ff)
+    params = {"w_up": dense_init(gen, (*lead, d, f), dtype=dtype),
+              "w_down": dense_init(gen, (*lead, f, d), dtype=dtype)}
+    if cfg.mlp == "swiglu":
+        params["w_gate"] = dense_init(gen, (*lead, d, f), dtype=dtype)
+    return params
+
+
+def mlp_fwd(params, x, kind: str):
+    dtype = x.dtype
+    up = x @ params["w_up"].to(dtype)
+    if kind == "swiglu":
+        h = F.silu(x @ params["w_gate"].to(dtype)) * up
+    elif kind == "relu2":                     # nemotron squared-ReLU
+        h = torch.square(torch.relu(up))
+    elif kind == "gelu":                      # jax.nn.gelu's default: tanh
+        h = F.gelu(up, approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp kind {kind!r}")
+    return h @ params["w_down"].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen, vocab: int, d: int, dtype=torch.float32):
+    return {"table": dense_init(gen, (vocab, d), dtype=dtype)}
+
+
+def embed(params, tokens, compute_dtype):
+    # gather, then cast: the reference's cast-then-gather rounds each value
+    # the same way without converting the whole table
+    return params["table"][tokens].to(compute_dtype)
+
+
+def unembed(params, x):
+    return x @ params["table"].to(x.dtype).T

@@ -4,9 +4,13 @@ there is no card. Run on the card with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import scored_reduce as sr
 
 pytestmark = pytest.mark.gpu
@@ -67,3 +71,75 @@ def test_harness_round_launches_the_kernel_once(cuda):
                eval_samples=64)
     assert sr.scored_reduce.launches == before + 2
     assert all(torch.isfinite(torch.tensor(h["test_loss"])) for h in hist)
+
+
+# -- flash attention ---------------------------------------------------------
+
+# chip_smoke.py's kernel-phase shapes (B, H, Hkv, S, D); tests/test_kernels.py
+FLASH_SHAPES = [(1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
+                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128)]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(cuda, B, H, Hkv, S, D, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=cuda).to(dtype)
+            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_plain_version(cuda, shape, dtype, causal):
+    q, k, v = _qkv(cuda, *shape, dtype)
+    before = fa.flash_attention_bhsd.launches
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    plain = fa.flash_attention_plain(q, k, v, causal=causal)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+
+
+def test_flash_attention_is_deterministic(cuda):
+    q, k, v = _qkv(cuda, 2, 14, 2, 300, 128, torch.bfloat16, seed=1)
+    assert torch.equal(fa.flash_attention_bhsd(q, k, v),
+                       fa.flash_attention_bhsd(q, k, v))
+
+
+def test_flash_attention_reads_model_layout_views(cuda):
+    q, k, v = _qkv(cuda, 2, 14, 2, 70, 64, torch.bfloat16, seed=2)
+    qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out = ops.flash_attention(qm, km, vm)        # (B, S, H, D), no copies
+    torch.testing.assert_close(out.transpose(1, 2),
+                               fa.flash_attention_plain(q, k, v),
+                               rtol=2e-2, atol=2e-2)
+
+
+def test_flash_attention_refuses_what_it_cannot_read(cuda):
+    q, k, v = _qkv(cuda, 1, 4, 2, 16, 64, torch.float32)
+    shifted = torch.randn(q.numel() + 2, device=cuda)[2:].view(q.shape)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_attention_bhsd(shifted, k, v)       # 8-byte offset
+    strided = torch.randn((1, 4, 16, 128), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_attention_bhsd(strided, k, v)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_bhsd(q.half(), k.half(), v.half())
+
+
+def test_prefill_step_launches_flash_once_per_layer(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("deepseek-coder-33b").reduced(),
+                              n_layers=3, n_heads=14, n_kv_heads=2,
+                              d_model=448)
+    params = init_model(torch.Generator(device=cuda).manual_seed(0), cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda)
+    before = fa.flash_attention_bhsd.launches
+    nxt = make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + cfg.n_layers
+    assert nxt.shape == (2,) and nxt.dtype == torch.int32

@@ -7,10 +7,18 @@ then aliases the name to ``jax.enable_x64(True)`` for as long as the test
 module runs, and on teardown removes the alias and forgets every ``repro``
 module imported under it. Nothing is patched at import time, so the
 collection of the JAX package's own test files is unchanged.
+
+The file also holds the port's entry-point device rule and its import
+guard: no file of ``src/repro_torch/`` and not ``chip_smoke.py`` imports
+jax, jaxlib or the JAX package, and the port imports with them blocked.
 """
+import ast
 import contextlib
+import os
+import subprocess
 import sys
 import types
+from pathlib import Path
 
 import jax
 import jax.experimental
@@ -19,11 +27,13 @@ import pytest
 import torch
 
 _REFERENCE_MODULES = (
-    "repro.configs.base", "repro.core.buffer_stacked", "repro.core.client",
-    "repro.core.flatten", "repro.core.osafl", "repro.core.resource",
-    "repro.core.resource_stacked", "repro.data.online",
-    "repro.data.video_caching", "repro.harness", "repro.kernels.ref",
-    "repro.kernels.scored_reduce", "repro.models.small",
+    "repro.configs", "repro.configs.base", "repro.core.buffer_stacked",
+    "repro.core.client", "repro.core.flatten", "repro.core.osafl",
+    "repro.core.pod", "repro.core.resource", "repro.core.resource_stacked",
+    "repro.data.online", "repro.data.video_caching", "repro.harness",
+    "repro.kernels.ops", "repro.kernels.ref", "repro.kernels.scored_reduce",
+    "repro.models.attention", "repro.models.layers", "repro.models.small",
+    "repro.models.transformer",
 )
 
 
@@ -84,3 +94,49 @@ def test_explicit_cpu_device_is_honoured():
 def test_reference_fixture_restores_jax(reference):
     # inside the fixture the reference imports; the alias is the fixture's
     assert hasattr(reference.resource_stacked, "optimize_round_batched")
+
+
+# -- the port stands alone: no jax, nothing of the JAX package --------------
+
+_ROOT = Path(__file__).resolve().parents[1]
+_FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_sources():
+    return sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + [
+        _ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_sources_import_no_jax_and_nothing_of_the_reference():
+    bad = [f"{p.relative_to(_ROOT)}:{line} imports {root}"
+           for p in _port_sources() for root, line in _imported_roots(p)
+           if root in _FORBIDDEN]
+    assert not bad, bad
+    assert len(_port_sources()) > 20
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,"
+        " 'repro_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "print(len(mods))\n")
+    env = {**os.environ, "PYTHONPATH": str(_ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 20
