@@ -8,7 +8,9 @@ Phases, each fatal on failure:
   3. the kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes and at ragged ones, with times (CUDA events)
      beside the least time the card could take and one PyTorch library
-     call that computes the same function;
+     call that computes the same function; flash attention is timed twice
+     at the prefill shape, on contiguous inputs and on the model's strided
+     (B, S, H, D) views;
   4. small runs on the card against the same runs on the CPU (whose plain
      paths the CPU tests tie to the JAX reference): the OSAFL harness, and
      a reduced deepseek-coder-33b (7:1 head groups kept) through prefill
@@ -53,10 +55,17 @@ MAIN_EVAL = 512
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 # flash attention: the serving path's prefill (B, H, Hkv, S, D), bf16,
-# causal; ragged and small shapes; tests/test_kernels.py:26's tolerances
+# causal, timed on contiguous (B, H, S, D) inputs and on the model's
+# (B, S, H, D) views; ragged and small shapes: S of one key, S ending
+# mid-tile above one tile, D = 40 (filled to the 64 bucket), D = 256 (the
+# mma.sync kernel); tests/test_kernels.py:26's tolerances
 FLASH_MAIN = (4, 56, 8, 4096, 128)
 FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
-                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128))
+                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
+                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256))
+# the kernels of csrc/flash_attention.cu, by symbol (prefill_breakdown)
+FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
+                 "flash_f32_kernel")
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the serving path: deepseek-coder-33b, depth cut 62 -> 8 (f32 weights of
 # all 62 layers are 133 GB, more than the card holds)
@@ -94,9 +103,12 @@ def build() -> None:
     say(f"build: {len(out)} kernel(s) in {time.perf_counter() - t0:.3f} s")
     for name, info in out.items():
         say(f"  {name}: {info['seconds']:.3f} s -> {info['path'].name}")
+        # ptxas per kernel: registers and shared memory, the stack and
+        # spill line under "Function properties", and any warning (a
+        # serialised wgmma among them)
         for line in info["log"].splitlines():
-            if "ptxas info" in line and ("registers" in line
-                                         or "Compiling" in line):
+            if any(w in line for w in ("registers", "Compiling", "spill",
+                                       "Function properties", "arning")):
                 say(f"    {line.strip()}")
 
 
@@ -168,30 +180,49 @@ def kernels_phase() -> dict:
     return {"main": rows[0], "rows": rows}
 
 
-def check_flash(shape, dtype, causal: bool, timed: bool) -> dict:
+def check_flash(shape, dtype, causal: bool, timed: bool,
+                model_layout: bool = False) -> dict:
+    """The kernel against its plain version on one draw. With
+    ``model_layout`` the inputs are (B, S, H, D) tensors that go through
+    ``ops.flash_attention`` as the model calls it (strided (B, H, S, D)
+    views, no copies); the plain version and the library call take the same
+    views."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
     B, H, Hkv, S, D = shape
     gen = torch.Generator(device="cuda").manual_seed(S * 131 + H * 7 + D)
-    q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
-    v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
-    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    if model_layout:
+        qm = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        km = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+        vm = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+        q, k, v = (x.transpose(1, 2) for x in (qm, km, vm))
+
+        def kernel():
+            return ops.flash_attention(qm, km, vm, causal=causal).transpose(1, 2)
+    else:
+        q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+
+        def kernel():
+            return fa.flash_attention_bhsd(q, k, v, causal=causal)
+    out = kernel()
     plain = fa.flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     tol = FLASH_TOL[dtype]
     err = float((out.float() - plain.float()).abs().max())
     ok = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
-    same = torch.equal(out, fa.flash_attention_bhsd(q, k, v, causal=causal))
+    same = torch.equal(out, kernel())
     del plain
     row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
-           "causal": causal, "max_abs_err": err, "tol": tol, "ok": ok,
+           "causal": causal, "layout": "BSHD views" if model_layout
+           else "BHSD", "max_abs_err": err, "tol": tol, "ok": ok,
            "bitwise_repeat": same}
     if timed:
         flops = fa.bound_flops(q, k, causal=causal)
         nbytes = fa.bound_bytes(q, k, v)
-        row["ms"] = time_ms(
-            lambda: fa.flash_attention_bhsd(q, k, v, causal=causal), 20)
+        row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=causal), 2,
             warmup=1)
@@ -215,6 +246,10 @@ def check_flash(shape, dtype, causal: bool, timed: bool) -> dict:
 
 def flash_phase() -> dict:
     main = check_flash(FLASH_MAIN, torch.bfloat16, causal=True, timed=True)
+    torch.cuda.empty_cache()
+    main["model_layout"] = check_flash(FLASH_MAIN, torch.bfloat16,
+                                       causal=True, timed=True,
+                                       model_layout=True)
     torch.cuda.empty_cache()
     for shape in FLASH_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -442,7 +477,7 @@ def prefill_breakdown(prefill, params, tokens) -> dict:
     groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
-        if "flash_bf16" in low:
+        if any(sym in low for sym in FLASH_SYMBOLS):
             groups["flash_attention"] += ms
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass",
                                     "sm90_")):     # cuBLAS's kernel names

@@ -10,43 +10,64 @@
 // over j <= i when causal, with an online softmax: a running row max m and
 // row sum l and the output accumulator, all f32, are carried over kv tiles,
 // so the (S, S) scores never reach device memory. Masked scores are -1e30
-// as in the TPU kernel, and the output is acc / max(l, 1e-30) in q's dtype.
+// as in the TPU kernel, the probabilities are rounded to bf16 for the
+// second product, and the output is acc / max(l, 1e-30) in q's dtype.
 //
 // Bound. At the serving path's prefill shape (B=4, S=4096, H=56, Hkv=8,
 // D=128, bf16, causal) the two products take 4*B*H*D*S(S+1)/2 = 962 GFLOP,
 // 0.97 ms at the H100's 989 TFLOP/s for bf16 tensor cores, while q, k, v and
 // o are 0.54 GB, 0.16 ms at 3.35 TB/s: the kernel is bound by operations.
-// What the design does about it:
-//   * bf16 inputs run both products on the tensor cores (mma.sync m16n8k16,
-//     bf16 operands, f32 accumulation); the probabilities are rounded to
-//     bf16 for the second product, the softmax statistics stay f32;
-//   * a block owns 64 query rows of one (b, h), four warps of 16 rows each,
-//     whose q fragments stay in registers, and loops over kv tiles of 64
-//     rows (32 at D > 128); each tile of k and v is read from device memory
-//     once per block and used by all its rows;
-//   * the tiles are double-buffered in shared memory: cp.async brings the
-//     next tile in while the warps compute on this one, and ldmatrix (.trans
-//     for v) turns the padded, bank-conflict-free rows into mma fragments;
-//   * a causal block stops at the diagonal, halving the work, and blocks
-//     are issued longest first so the short ones fill the tail;
-//   * kv heads are read in place through their own strides: the repeated
-//     heads of grouped-query attention are never materialised, and the
-//     model-layout (B, S, H, D) views go in without a copy.
-// Not yet done (a later speed PR): wgmma and TMA, warp specialisation,
-// overlap of the softmax with the next tile's products. f32 inputs take a
-// CUDA-core kernel (f32 FMA, exact f32 products as the TPU kernel's) that is
-// right, not fast.
 //
-// Ragged shapes: any S >= 1 (rows and keys past S are masked; nothing is
-// padded in memory) and any D that is a multiple of 8 up to 256 (the kernels
-// are instantiated for D buckets of 32, 64, 128 and 256 and mask the rest).
+// Three kernels; the entry point picks one by (dtype, D) alone, an explicit
+// choice by shape (no error is caught and retried another way):
+//   * bf16, D <= 128 (every config of the zoo has D = 128): the Hopper
+//     kernel, flash_bf16_wgmma_kernel. What its design does about the bound:
+//       - wgmma, the only path to the full tensor-core rate, for both
+//         products: S = q k^T with both operands in shared memory, and
+//         O += P v with P taken from registers (the f32 scores, rounded to
+//         bf16 pairs, already lie as wgmma's A fragment) and v read as a
+//         transposed (MN-major) operand;
+//       - 128 query rows per block, two consumer warpgroups of 64, so each
+//         k/v tile (96 keys) is staged once for 128 rows;
+//       - TMA loads through tensor maps built on the host from the (b, h, s)
+//         strides: no thread spends registers or instructions on copies,
+//         the model-layout (B, S, H, D) views go in as they are, and rows
+//         past S or columns past D come back as zeros (D rounds up to a
+//         bucket of 64 or 128, S needs no padding);
+//       - a ring of k/v stages with full and empty mbarriers, kept full by
+//         one producer thread, so loads run under the products; setmaxnreg
+//         moves registers from the producer warpgroup to the consumers;
+//       - the softmax is scheduled under the tensor cores two ways: the two
+//         consumer warpgroups take turns (named barriers) to issue their
+//         products, so one's softmax runs under the other's products, and
+//         within a warpgroup the softmax of tile j runs under P v of tile
+//         j - 1 (issued with the scores of tile j). That keeps the scores
+//         of one tile, P of the previous one and the output in registers
+//         at once, which is why a tile has 96 keys and not 128: at 128,
+//         ptxas spills them and then serialises every wgmma;
+//       - the mask is one branch per tile, taken only by tiles that cross
+//         the diagonal or S, so the softmax of every other tile is
+//         straight-line code;
+//       - causal: tiles wholly above the diagonal are skipped, only the one
+//         or two tiles that cross it (or S) are masked, the last tile comes
+//         first, and blocks are issued longest first;
+//       - the output is staged in shared memory and stored by TMA.
+//   * bf16, 128 < D <= 256 (no config reaches it): mma.sync m16n8k16 with
+//     cp.async double buffering, 64 query rows per block.
+//   * f32: a CUDA-core kernel (f32 FMA, exact f32 products as the TPU
+//     kernel's) that is right, not fast; no full-size path runs it.
+//
+// Ragged shapes: any S >= 1 and any D that is a multiple of 8 up to 256.
 // One block owns each output row and no atomics are used, so two runs on
 // the same inputs give bit-identical results. The C entry point launches on
-// the caller's stream, allocates nothing and returns cudaGetLastError().
+// the caller's stream, allocates nothing, and returns a nonzero code when a
+// tensor map cannot be encoded or the launch fails.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
@@ -184,7 +205,8 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores, mma.sync m16n8k16 (bf16 x bf16 -> f32).
+// bf16, 128 < D <= 256: tensor cores through mma.sync m16n8k16
+// (bf16 x bf16 -> f32), the Ampere path; no config of the zoo reaches it.
 // Fragment layout (PTX ISA, per lane: g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                      a3 (g+8, 2t+8..)
@@ -253,7 +275,7 @@ constexpr int kBf16Warps = 4;  // 16 query rows each
 template <int DP>
 struct Bf16Tiles {
   static constexpr int BM = 16 * kBf16Warps;
-  static constexpr int BN = DP <= 128 ? 64 : 32;
+  static constexpr int BN = 32;  // keys per tile (the kernel runs D = 256)
   static constexpr int LD = DP + 8;  // padded shared row, in bf16
   // k and v tiles, two of each: one in use, one arriving
   static constexpr size_t smem = 2 * 2 * BN * LD * sizeof(uint16_t);
@@ -437,6 +459,534 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D <= 128: TMA, an mbarrier ring, warp specialisation and wgmma.
+//
+// A block owns 128 query rows of one (b, h): 384 threads, warpgroup 0 the
+// producer (one thread issues every TMA load), warpgroups 1 and 2 the
+// consumers, 64 rows each. Shared memory holds q, kStages k tiles and
+// kStages v tiles of 96 keys, each tile 128-byte swizzled as TMA writes it
+// and wgmma reads it: D/64 boxes of R rows x 64 columns (128 bytes a row),
+// row r of a box at r * 128 bytes and its 16-byte chunk c at chunk
+// c ^ (r % 8), every box 1024-byte aligned.
+//
+// wgmma fragments (PTX ISA; per thread of a warpgroup, warp w = 0..3,
+// g = lane / 4, t = lane % 4): the f32 accumulator of m64nN holds, for each
+// 8-column chunk j, d[4j], d[4j+1] at (row 16w+g, cols 8j+2t, 8j+2t+1) and
+// d[4j+2], d[4j+3] at row 16w+g+8. The bf16 A fragment of m64k16 from
+// registers is a0 (16w+g, 2t..2t+1), a1 (16w+g+8, 2t..), a2 (16w+g, 2t+8..),
+// a3 (16w+g+8, 2t+8..). So the scores' accumulator, packed pairwise into
+// bf16x2, is P's A fragment: register i of P is (d[2i], d[2i+1]).
+// ---------------------------------------------------------------------------
+
+constexpr int kWsBM = 128;       // query rows per block, 64 per consumer
+constexpr int kWsBN = 96;        // keys per k/v tile
+constexpr int kWsStages = 2;     // depth of the k/v ring
+constexpr int kWsThreads = 384;  // producer warpgroup + two consumers
+constexpr int kBoxCols = 64;     // bf16 columns of one 128-byte box
+constexpr int kBoxRowBytes = 128;
+
+template <int DP>
+struct WsLayout {
+  static constexpr int boxes = DP / kBoxCols;
+  static constexpr uint32_t q_bytes = kWsBM * DP * 2;
+  static constexpr uint32_t kv_bytes = kWsBN * DP * 2;  // one k or v tile
+  static constexpr uint32_t k_off = q_bytes;
+  static constexpr uint32_t v_off = k_off + kWsStages * kv_bytes;
+  static constexpr uint32_t bar_off = v_off + kWsStages * kv_bytes;
+  // q full; per stage: k full, v full, k empty, v empty
+  static constexpr int n_bars = 1 + 4 * kWsStages;
+  static constexpr size_t smem = bar_off + 8 * n_bars + 1024;  // + alignment
+};
+
+struct WsParams {
+  int S, H, group, nq, causal;
+  float sl2;  // scale * log2(e): scores go to the log2 domain
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Wait until the phase of the given parity has completed. A wait of more
+// than 10 s means a phase was lost: trap, so the launch fails instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try(bar, parity)) {
+    if (global_ns() - t0 > 10000000000ull) __trap();
+  }
+}
+
+// One box of a 4-d tensor map into shared memory; completion (its bytes)
+// is reported to the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(&map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A shared-memory matrix descriptor for a 128-byte swizzled operand
+// (addresses and offsets in bytes; the descriptor keeps them >> 4).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tie registers that an asynchronous wgmma reads or writes to this point of
+// the program, so the compiler neither moves their uses across a wait nor
+// reuses them while the tensor cores hold them.
+template <int N>
+__device__ __forceinline__ void keep(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The two consumer warpgroups take turns on the tensor cores: a warpgroup
+// issues its products only in its turn and hands the turn over once they
+// are issued, so one warpgroup's softmax runs under the other's products.
+// Named barrier 3 + w holds warpgroup w's turn; warpgroup 0 goes first, and
+// warpgroup 1 keeps its last hand-over so every barrier's arrivals match.
+struct Turns {
+  int mine, other;
+  __device__ explicit Turns(int w) : mine(3 + w), other(4 - w) {
+    if (w == 1) named_arrive(3, 256);
+  }
+  __device__ void begin() const { named_sync(mine, 256); }
+  __device__ void end(bool last) const {
+    if (!(last && mine == 4)) named_arrive(other, 256);
+  }
+};
+
+// The online softmax of this thread's two rows (r_lo and r_hi, whose four
+// lanes share a row's max through shuffles), in the log2 domain.
+struct RowStats {
+  float m_lo = kMasked, m_hi = kMasked, l_lo = 0.f, l_hi = 0.f;
+
+  // Scores of the tile at keys n0.. into probabilities, in place: scale,
+  // the mask on a tile that crosses the diagonal or S, the new running max
+  // and sum; a_lo, a_hi rescale the output accumulator.
+  template <int N>
+  __device__ __forceinline__ void update(float (&sc)[N], int n0, int t,
+                                         int r_lo, int r_hi, int row0,
+                                         const WsParams& p, float& a_lo,
+                                         float& a_hi) {
+    const bool edge = n0 + 2 * N > p.S || (p.causal && n0 + 2 * N - 1 > row0);
+#pragma unroll
+    for (int i = 0; i < N; ++i) sc[i] *= p.sl2;
+    if (edge) {  // a branch per tile: the common path stays straight-line
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int key = n0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const int r = (i & 2) ? r_hi : r_lo;
+        if (key >= p.S || (p.causal && key > r)) sc[i] = kMasked;
+      }
+    }
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      mx_lo = fmaxf(mx_lo, fmaxf(sc[4 * j], sc[4 * j + 1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, x));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, x));
+    }
+    a_lo = ex2(m_lo - mx_lo);
+    a_hi = ex2(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    float sum_lo = 0.f, sum_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      sc[4 * j] = ex2(sc[4 * j] - m_lo);
+      sc[4 * j + 1] = ex2(sc[4 * j + 1] - m_lo);
+      sc[4 * j + 2] = ex2(sc[4 * j + 2] - m_hi);
+      sc[4 * j + 3] = ex2(sc[4 * j + 3] - m_hi);
+      sum_lo += sc[4 * j] + sc[4 * j + 1];
+      sum_hi += sc[4 * j + 2] + sc[4 * j + 3];
+    }
+    l_lo = l_lo * a_lo + sum_lo;  // this lane's share; lanes add at the end
+    l_hi = l_hi * a_hi + sum_hi;
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], float a_lo, float a_hi) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    o[4 * j] *= a_lo;
+    o[4 * j + 1] *= a_lo;
+    o[4 * j + 2] *= a_hi;
+    o[4 * j + 3] *= a_hi;
+  }
+}
+
+// D (64 x 96, f32) (+)= A (64 x 16, shared) B (16 x 96, shared, K-major).
+__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// S = q k^T of one tile into sc (64 rows of q at sq_w, kWsBN keys at kt),
+// D/16 steps of k16: within a 64-column box a step advances 32 bytes, past
+// it a box. Issued and committed as one group.
+template <int DP>
+__device__ __forceinline__ void issue_qk(float (&sc)[kWsBN / 2], uint32_t sq_w,
+                                         uint32_t kt) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    wgmma_ss(sc, wgmma_desc(sq_w + (kk / 4) * kWsBM * kBoxRowBytes + col,
+                                 16, 1024),
+                  wgmma_desc(kt + (kk / 4) * kWsBN * kBoxRowBytes + col, 16,
+                             1024),
+                  kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P v of one tile, P's A fragments in pa: v at vt (keys x D, D
+// contiguous) is the transposed B operand, 8 key rows 128 bytes apart, the
+// next 8 at 1024 bytes, the next 64 columns one box (kWsBN keys) further.
+template <int N>
+__device__ __forceinline__ void issue_pv(float (&o)[N],
+                                         const uint32_t (&pa)[kWsBN / 4],
+                                         uint32_t vt) {
+#pragma unroll
+  for (int kk = 0; kk < kWsBN / 16; ++kk) {
+    wgmma_rs(o, pa + 4 * kk,
+             wgmma_desc(vt + kk * 16 * kBoxRowBytes, kWsBN * kBoxRowBytes,
+                        1024));
+  }
+  wgmma_commit();
+}
+
+// Probabilities to P's A fragments: register i holds (sc[2i], sc[2i+1]).
+__device__ __forceinline__ void to_bf16(uint32_t (&pa)[kWsBN / 4],
+                                        const float (&sc)[kWsBN / 2]) {
+#pragma unroll
+  for (int i = 0; i < kWsBN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap to, const WsParams p) {
+  using L = WsLayout<DP>;
+  constexpr int NB = L::boxes;
+  constexpr uint32_t kQBox = kWsBM * kBoxRowBytes;   // one box of q
+  constexpr uint32_t kKVBox = kWsBN * kBoxRowBytes;  // one box of a k/v tile
+  extern __shared__ uint8_t ws_smem[];
+  const uint32_t sq = (smem_addr(ws_smem) + 1023u) & ~1023u;
+  const uint32_t sk = sq + L::k_off, sv = sq + L::v_off;
+  const uint32_t bars = sq + L::bar_off;
+  const uint32_t q_full = bars;
+  const uint32_t k_full = bars + 8, v_full = k_full + 8 * kWsStages;
+  const uint32_t k_empty = v_full + 8 * kWsStages;
+  const uint32_t v_empty = k_empty + 8 * kWsStages;
+
+  // blockIdx.x walks (b, h) fastest, so the blocks in flight share k/v;
+  // blockIdx.y walks the query tiles from the last (longest causal) down
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, hk = h / p.group;
+  const int q0 = (p.nq - 1 - static_cast<int>(blockIdx.y)) * kWsBM;
+  const int kv_end = p.causal ? min(p.S, q0 + kWsBM) : p.S;
+  const int n_tiles = (kv_end + kWsBN - 1) / kWsBN;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kWsStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(k_empty + 8 * s, 8);  // one arrival per consumer warp
+      mbar_init(v_empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // The producer: q once, then k/v tiles from the last one down, each
+    // into the next stage of the ring as soon as the consumers free it.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::q_bytes);
+      for (int c = 0; c < NB; ++c) {
+        tma_load(sq + c * kQBox, tq, q_full, c * kBoxCols, q0, h, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kWsStages;
+        const uint32_t freed = ((it / kWsStages) & 1) ^ 1;
+        const int n0 = (n_tiles - 1 - it) * kWsBN;
+        if (it >= kWsStages) mbar_wait(k_empty + 8 * s, freed);
+        mbar_expect_tx(k_full + 8 * s, L::kv_bytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(sk + s * L::kv_bytes + c * kKVBox, tk, k_full + 8 * s,
+                   c * kBoxCols, n0, hk, b);
+        }
+        if (it >= kWsStages) mbar_wait(v_empty + 8 * s, freed);
+        mbar_expect_tx(v_full + 8 * s, L::kv_bytes);
+        for (int c = 0; c < NB; ++c) {
+          tma_load(sv + s * L::kv_bytes + c * kKVBox, tv, v_full + 8 * s,
+                   c * kBoxCols, n0, hk, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, their f32 statistics and output.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int row0 = q0 + 64 * w;
+  const int r_lo = row0 + 16 * warp + lane / 4, r_hi = r_lo + 8;
+  const uint32_t sq_w = sq + w * 64 * kBoxRowBytes;  // this warpgroup's q rows
+  const Turns turns(w);
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  RowStats st;
+  float sc[kWsBN / 2];      // scores, then probabilities, of one tile
+  uint32_t pa[kWsBN / 4];   // those probabilities in bf16: P's A fragments
+
+  auto full = [&](uint32_t bar, int it) {
+    mbar_wait(bar + 8 * (it % kWsStages), (it / kWsStages) & 1);
+  };
+  auto release = [&](uint32_t bar, int it) {
+    if (lane == 0) mbar_arrive(bar + 8 * (it % kWsStages));
+  };
+  auto n0_of = [&](int it) { return (n_tiles - 1 - it) * kWsBN; };
+  auto k_tile = [&](int it) { return sk + (it % kWsStages) * L::kv_bytes; };
+  auto v_tile = [&](int it) { return sv + (it % kWsStages) * L::kv_bytes; };
+
+  // Tile 0 (the last in key order): its scores and softmax. Then for each
+  // next tile, in one turn: the scores of tile it, the output rescaled by
+  // the last softmax step, and P v of tile it - 1; the softmax of tile it
+  // runs under P v. Last, P v of the last tile.
+  float a_lo, a_hi;
+  mbar_wait(q_full, 0);
+  full(k_full, 0);
+  turns.begin();
+  wgmma_fence();
+  issue_qk<DP>(sc, sq_w, k_tile(0));
+  turns.end(false);
+  wgmma_wait<0>();
+  keep(sc);
+  release(k_empty, 0);
+  st.update(sc, n0_of(0), t, r_lo, r_hi, row0, p, a_lo, a_hi);
+  to_bf16(pa, sc);
+  for (int it = 1; it < n_tiles; ++it) {
+    full(k_full, it);
+    full(v_full, it - 1);
+    turns.begin();
+    wgmma_fence();
+    issue_qk<DP>(sc, sq_w, k_tile(it));
+    rescale(o, a_lo, a_hi);
+    wgmma_fence();
+    issue_pv(o, pa, v_tile(it - 1));
+    turns.end(false);
+    wgmma_wait<1>();
+    keep(sc);
+    release(k_empty, it);
+    st.update(sc, n0_of(it), t, r_lo, r_hi, row0, p, a_lo, a_hi);
+    wgmma_wait<0>();
+    keep(o);
+    keep(pa);
+    release(v_empty, it - 1);
+    to_bf16(pa, sc);
+  }
+  full(v_full, n_tiles - 1);
+  turns.begin();
+  rescale(o, a_lo, a_hi);
+  wgmma_fence();
+  issue_pv(o, pa, v_tile(n_tiles - 1));
+  turns.end(true);
+  wgmma_wait<0>();
+  keep(o);
+  keep(pa);
+  release(v_empty, n_tiles - 1);
+
+  // o / l into this warpgroup's q rows (free now), swizzled as the o map's
+  // boxes, then one thread stores them by TMA (rows past S, columns past D
+  // are not written)
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    st.l_lo += __shfl_xor_sync(0xffffffffu, st.l_lo, x);
+    st.l_hi += __shfl_xor_sync(0xffffffffu, st.l_hi, x);
+  }
+  const float inv_lo = 1.f / fmaxf(st.l_lo, 1e-30f);
+  const float inv_hi = 1.f / fmaxf(st.l_hi, 1e-30f);
+  const int rl = 16 * warp + lane / 4, rh = rl + 8;  // rows within the 64
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const uint32_t box = sq_w + (j / 8) * kQBox;
+    const uint32_t byte = 4 * t;  // within the 16-byte chunk j % 8
+    st_shared(box + rl * kBoxRowBytes + (((j % 8) ^ (rl % 8)) * 16) + byte,
+              pack_bf16(o[4 * j] * inv_lo, o[4 * j + 1] * inv_lo));
+    st_shared(box + rh * kBoxRowBytes + (((j % 8) ^ (rh % 8)) * 16) + byte,
+              pack_bf16(o[4 * j + 2] * inv_hi, o[4 * j + 3] * inv_hi));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(1 + w, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int c = 0; c < NB; ++c) {
+      tma_store(to, sq_w + c * kQBox, c * kBoxCols, row0, h, b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
 template <int DP>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   constexpr size_t smem = f32_smem_bytes<DP>();
@@ -449,8 +999,8 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+cudaError_t launch_bf16_mma(const Params& p, cudaStream_t stream) {
+  constexpr int DP = 256;
   using T = Bf16Tiles<DP>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -461,9 +1011,88 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no -lcuda. A failed encode returns kEncodeError + its CUresult.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+constexpr int kEncodeError = 100000;
+
+int encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) {
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    }
+    cached = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// A 4-d map {D, S, heads, B} of bf16 with byte strides {s, h, b}, boxes of
+// 64 columns x rows, 128-byte swizzled; out-of-bounds elements read as zero.
+int encode_map(CUtensorMap* map, const void* ptr, const Params& p, int heads,
+               long long sb, long long sh, long long ss, int rows) {
+  EncodeTiled fn;
+  const int err = encoder(&fn);
+  if (err != 0) return err;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D),
+                              static_cast<cuuint64_t>(p.S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(p.B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
 template <int DP>
-cudaError_t launch(int dtype, const Params& p, cudaStream_t stream) {
-  return dtype == 0 ? launch_f32<DP>(p, stream) : launch_bf16<DP>(p, stream);
+int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
+  using L = WsLayout<DP>;
+  const int nq = (p.S + kWsBM - 1) / kWsBM;
+  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tq, tk, tv, to;
+  int err = encode_map(&tq, p.q, p, p.H, p.q_sb, p.q_sh, p.q_ss, kWsBM);
+  if (err == 0) err = encode_map(&tk, p.k, p, p.Hkv, p.k_sb, p.k_sh, p.k_ss, kWsBN);
+  if (err == 0) err = encode_map(&tv, p.v, p, p.Hkv, p.v_sb, p.v_sh, p.v_ss, kWsBN);
+  if (err == 0) err = encode_map(&to, p.o, p, p.H, p.o_sb, p.o_sh, p.o_ss, 64);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bf16_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(L::smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  WsParams wp;
+  wp.S = p.S;
+  wp.H = p.H;
+  wp.group = p.H / p.Hkv;
+  wp.nq = nq;
+  wp.causal = p.causal;
+  wp.sl2 = p.scale * kLog2e;
+  const dim3 grid(p.B * p.H, nq);
+  flash_bf16_wgmma_kernel<DP><<<grid, kWsThreads, L::smem, stream>>>(
+      tq, tk, tv, to, wp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -473,8 +1102,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). strides holds the
 // (batch, head, sequence) strides in elements of q, k, v and o, in that
 // order; each last dim is dense. The caller guarantees 1 <= S,
-// H % Hkv == 0, B * H <= 65535, D % 8 == 0 with 8 <= D <= 256, and, for
-// bf16, 16-byte aligned base pointers and strides that are multiples of 8.
+// H % Hkv == 0, B * H <= 65535, D % 8 == 0 with 8 <= D <= 256, 16-byte
+// aligned base pointers, and strides that are multiples of 16 bytes and
+// below 2^40 bytes (the tensor maps' limits).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* o, const long long* strides,
                            int B, int H, int Hkv, int S, int D, float scale,
@@ -500,20 +1130,31 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {  // bf16: the kernel is chosen by D alone
+    if (D <= 64) return launch_bf16_wgmma<64>(p, s);
+    if (D <= 128) return launch_bf16_wgmma<128>(p, s);
+    return static_cast<int>(launch_bf16_mma(p, s));
+  }
   cudaError_t err;
   if (D <= 32) {
-    err = launch<32>(dtype, p, s);
+    err = launch_f32<32>(p, s);
   } else if (D <= 64) {
-    err = launch<64>(dtype, p, s);
+    err = launch_f32<64>(p, s);
   } else if (D <= 128) {
-    err = launch<128>(dtype, p, s);
+    err = launch_f32<128>(p, s);
   } else {
-    err = launch<256>(dtype, p, s);
+    err = launch_f32<256>(p, s);
   }
   return static_cast<int>(err);
 }
 
 const char* flash_attention_error_string(int code) {
+  static char buf[96];
+  if (code >= kEncodeError) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - kEncodeError);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -5,9 +5,12 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel``, launched by ``flash_attention_bhsd``). q (B, H, S, D),
 k and v (B, Hkv, S, D), H a multiple of Hkv, query head h reading kv head
 ``h // (H // Hkv)``; f32 math with an online softmax, output in q's dtype,
-``scale`` defaulting to D ** -0.5. The kernel (``csrc/flash_attention.cu``)
-is bound by operations at the serving path's prefill shape; its source says
-what its design does about that. ``flash_attention_bhsd`` launches it for
+``scale`` defaulting to D ** -0.5. ``csrc/flash_attention.cu`` holds three
+kernels and its entry point picks one by (dtype, D) alone: bf16 with
+D <= 128 takes the Hopper kernel (TMA, mbarriers, warp-specialised
+``wgmma``), bf16 with D > 128 an ``mma.sync`` kernel, f32 a CUDA-core one.
+The source says what each design does about its bound (operations, at the
+serving path's prefill shape). ``flash_attention_bhsd`` launches it for
 CUDA tensors and raises if it cannot; only CPU tensors take
 ``flash_attention_plain``. ``flash_attention_bhsd.launches`` counts the
 kernel's launches.
@@ -24,6 +27,7 @@ NEG_INF = -1e30                 # the TPU kernel's mask value
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 256
 _MAX_BATCH_HEADS = 65535        # grid.y limit
+_MAX_STRIDE_BYTES = 1 << 40     # a TMA tensor map's stride limit
 
 
 def flash_attention_plain(q, k, v, *, causal=True, scale=None):
@@ -80,14 +84,20 @@ def _check(q, k, v) -> None:
 
 
 def _check_layout(name: str, x: torch.Tensor) -> None:
-    """The kernel reads rows of D elements through (b, h, s) strides: the
-    last dim must be dense and every row start 16-byte aligned."""
+    """The kernel reads rows of D elements through (b, h, s) strides, by TMA
+    tensor maps for bf16 at D <= 128: the last dim must be dense, every row
+    start 16-byte aligned, and each stride below 2**40 bytes."""
     per16 = 16 // x.element_size()
     if (x.stride(3) != 1 or x.data_ptr() % 16
             or any(st % per16 for st in x.stride()[:3])):
         raise ValueError(f"flash attention needs {name} with a dense last "
                          f"dim and 16-byte aligned rows; got strides "
                          f"{x.stride()} at offset {x.storage_offset()}")
+    if any(st * x.element_size() >= _MAX_STRIDE_BYTES
+           for st in x.stride()[:3]):
+        raise ValueError(f"flash attention needs {name}'s strides below "
+                         f"2**40 bytes (a tensor map's limit); got "
+                         f"{x.stride()} in {x.element_size()}-byte elements")
 
 
 def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None):
@@ -134,7 +144,12 @@ flash_attention_bhsd.launches = 0   # kernel launches so far (plain excluded)
 
 
 def _library() -> ctypes.CDLL:
-    lib = load_library("flash_attention")
+    return bind(load_library("flash_attention"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' types on a loaded build of
+    ``csrc/flash_attention.cu``."""
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,

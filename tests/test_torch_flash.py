@@ -114,6 +114,35 @@ def test_kernel_layout_check(make, ok):
             fa._check_layout("q", x)
 
 
+# deepseek-coder-33b's prefill: B=4, S=4096, H=56, Hkv=8, D=128, bf16; the
+# model passes (B, S, H, D) views as (B, H, S, D)
+_Q_MODEL = ((4, 56, 4096, 128), (4096 * 56 * 128, 128, 56 * 128, 1))
+_KV_MODEL = ((4, 8, 4096, 128), (4096 * 8 * 128, 128, 8 * 128, 1))
+
+
+@pytest.mark.parametrize("shape,stride,dtype,match", [
+    (*_Q_MODEL, torch.bfloat16, None),
+    (*_KV_MODEL, torch.bfloat16, None),
+    ((4, 56, 4096, 128), (56 * 4096 * 128, 4096 * 128, 128, 1),
+     torch.bfloat16, None),                                  # contiguous
+    ((2, 1, 1, 128), (2 ** 39 - 8, 128, 128, 1), torch.bfloat16, None),
+    ((2, 1, 1, 128), (2 ** 39, 128, 128, 1), torch.bfloat16, "2\\*\\*40"),
+    ((2, 1, 1, 128), (2 ** 38, 128, 128, 1), torch.float32, "2\\*\\*40"),
+    ((1, 2, 2, 128), (512, 128, 2 ** 41, 1), torch.bfloat16, "2\\*\\*40"),
+    ((4, 56, 4096, 128), (4096 * 56 * 132, 132, 56 * 132 + 4, 1),
+     torch.bfloat16, "16-byte aligned rows"),                # odd row pitch
+    ((4, 56, 4096, 128), (4096 * 56 * 128, 128, 56 * 128, 2),
+     torch.bfloat16, "16-byte aligned rows"),                # strided D
+])
+def test_kernel_layout_check_at_model_width(shape, stride, dtype, match):
+    x = torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+    if match is None:
+        fa._check_layout("q", x)
+    else:
+        with pytest.raises(ValueError, match=match):
+            fa._check_layout("q", x)
+
+
 def test_bound_at_the_prefill_shape():
     # B=4, S=4096, H=56, Hkv=8, D=128, bf16, causal (chip_smoke.py)
     q = torch.empty((4, 56, 4096, 128), dtype=torch.bfloat16, device="meta")

@@ -76,8 +76,10 @@ def test_harness_round_launches_the_kernel_once(cuda):
 # -- flash attention ---------------------------------------------------------
 
 # chip_smoke.py's kernel-phase shapes (B, H, Hkv, S, D); tests/test_kernels.py
+# (D = 256 takes the mma.sync kernel in bf16)
 FLASH_SHAPES = [(1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
-                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128)]
+                (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
+                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -108,13 +110,36 @@ def test_flash_attention_is_deterministic(cuda):
                        fa.flash_attention_bhsd(q, k, v))
 
 
-def test_flash_attention_reads_model_layout_views(cuda):
-    q, k, v = _qkv(cuda, 2, 14, 2, 70, 64, torch.bfloat16, seed=2)
+@pytest.mark.parametrize("S,D", [(70, 64), (300, 128)])
+def test_flash_attention_reads_model_layout_views(cuda, S, D):
+    q, k, v = _qkv(cuda, 2, 14, 2, S, D, torch.bfloat16, seed=2)
     qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     out = ops.flash_attention(qm, km, vm)        # (B, S, H, D), no copies
+    assert out.shape == qm.shape and out.is_contiguous()
     torch.testing.assert_close(out.transpose(1, 2),
                                fa.flash_attention_plain(q, k, v),
                                rtol=2e-2, atol=2e-2)
+    # the same function as on contiguous inputs, bit for bit
+    assert torch.equal(out.transpose(1, 2), fa.flash_attention_bhsd(q, k, v))
+
+
+# The Hopper kernel (bf16, D <= 128): D below, at and inside its buckets of
+# 64 and 128 (TMA fills the missing columns with zeros), S of one key, of
+# one tile, just past one and ending mid-tile above one, kv groups of 7:1
+# and 2:1
+@pytest.mark.parametrize("D", [40, 64, 128])
+@pytest.mark.parametrize("S", [1, 77, 128, 130, 300])
+@pytest.mark.parametrize("B,H,Hkv", [(1, 7, 1), (2, 14, 2), (1, 16, 8)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_hopper_flash_matches_plain_version(cuda, D, S, B, H, Hkv, causal):
+    q, k, v = _qkv(cuda, B, H, Hkv, S, D, torch.bfloat16, seed=S + D)
+    before = fa.flash_attention_bhsd.launches
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=2e-2, atol=2e-2)
 
 
 def test_flash_attention_refuses_what_it_cannot_read(cuda):
