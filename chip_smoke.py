@@ -12,13 +12,19 @@ Phases, each fatal on failure:
      at the prefill shape, on contiguous inputs and on the model's strided
      (B, S, H, D) views;
   4. small runs on the card against the same runs on the CPU (whose plain
-     paths the CPU tests tie to the JAX reference): the OSAFL harness, and
-     a reduced deepseek-coder-33b (7:1 head groups kept) through prefill
-     and decode;
+     paths the CPU tests tie to the JAX reference): the harness with each
+     of the six algorithms and the genie on the MLP, OSAFL on the CNN,
+     SqueezeNet and LSTM; and a reduced deepseek-coder-33b (7:1 head
+     groups kept) through prefill and decode;
   5. the FL main path: ``repro_torch.harness.run("osafl", ...)`` on the FCN
      at the paper's U=256 clients, with the kernels' launch counts reset
      just before and read just after;
   6. a breakdown of an FL main-path round by stage;
+  6b. the paper's comparison grid at its widths and U=256, depth cut to 2-3
+     rounds: the six algorithms and the genie on the FCN (Dataset-1), and
+     OSAFL on the CNN, SqueezeNet (Dataset-1) and LSTM (Dataset-2, Table
+     IV's recipe), each run with the launch counts reset just before and
+     read just after;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -26,7 +32,9 @@ Phases, each fatal on failure:
      4096-position cache), launch counts reset just before and read just
      after; a profile of one prefill call by kernel; then the flash
      prefill against the KV-cache decode path on one prompt.
-The line before the last is one JSON object with every kernel's numbers;
+Convolutions run in full f32 inside every harness run (cuDNN's TF32 is
+held off and restored after). The line before the last is one JSON object
+with every kernel's numbers;
 the last line is the result. Exits non-zero, with no result, when there is
 no CUDA card or the port's sources are not beside this file.
 """
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -50,6 +59,36 @@ MAIN_U, MAIN_N = 256, 3_821_156     # FCN contribution buffer at U=256
 MAIN_RUN = dict(model="fcn", dataset=1, num_clients=MAIN_U,
                 capacity=(320, 640), arrivals=8, batch=16, rounds=3, seed=0)
 MAIN_EVAL = 512
+# scored_reduce on the grid's other OSAFL paths: the (U, N) buffers of the
+# CNN, SqueezeNet and LSTM at U=256 (two N not multiples of 8: ragged tail)
+GRID_N = {"cnn": 1_118_500, "squeezenet": 106_376, "lstm": 381_284}
+# the paper's comparison grid (benchmarks/table2_dataset1.py: every
+# algorithm and the genie over fcn and cnn on Dataset-1; table4_dataset2.py
+# :33-36: lstm on Dataset-2) at U=256, depth cut to 2 (FCN) or 3 rounds
+ALGS = ("osafl", "fedavg", "fedprox", "fednova", "afa_cd", "feddisco",
+        "centralized")
+GRID_D1 = dict(dataset=1, num_clients=MAIN_U, capacity=(320, 640),
+               arrivals=8, batch=16, seed=0)
+GRID_RUNS = (
+    [(alg, dict(GRID_D1, model="fcn", rounds=2)) for alg in ALGS]
+    + [("osafl", dict(GRID_D1, model=m, rounds=3))
+       for m in ("cnn", "squeezenet")]
+    + [("osafl", dict(GRID_D1, model="lstm", dataset=2, local_lr=0.2,
+                      global_lr=20.0, rounds=3))])
+GRID_EVAL = 512
+# small runs, card against CPU: every algorithm and the genie on the MLP;
+# OSAFL on the three other models. The CNN and SqueezeNet take global_lr=1:
+# at the default 16 a one-ulp change of their weights moves a later
+# round's loss by more than the 1e-4 gate (tools/ulp_sensitivity.py).
+SMALL_MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
+                 capacity=(16, 32), seed=3)
+SMALL_RUNS = (
+    [(alg, SMALL_MLP) for alg in ALGS]
+    + [("osafl", dict(model=m, dataset=1, num_clients=4, rounds=2,
+                      capacity=(16, 32), global_lr=1.0, seed=3))
+       for m in ("cnn", "squeezenet")]
+    + [("osafl", dict(model="lstm", dataset=2, num_clients=8, rounds=3,
+                      capacity=(16, 32), seed=3))])
 # norms/mean_sq: the reference kernel test's rtol; dots: the same factor
 # times sqrt(norms * mean_sq), the size of the terms a dot sums
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -91,7 +130,8 @@ def card() -> tuple:
     say(f"card: {smi}")
     say(f"torch: {torch.__version__} cuda {torch.version.cuda} device "
         f"{name} count {torch.cuda.device_count()}; matmul tf32 "
-        f"{torch.backends.cuda.matmul.allow_tf32}")
+        f"{torch.backends.cuda.matmul.allow_tf32}; cudnn tf32 "
+        f"{torch.backends.cudnn.allow_tf32} (held off inside harness runs)")
     return name, smi
 
 
@@ -174,10 +214,19 @@ def kernels_phase() -> dict:
     rows.append(check_scored_reduce(MAIN_U, MAIN_N, torch.bfloat16,
                                     timed=True))
     torch.cuda.empty_cache()
+    # the grid's other OSAFL paths: f32 timed, bf16 checked
+    grid = {}
+    for model, N in GRID_N.items():
+        grid[model] = check_scored_reduce(MAIN_U, N, torch.float32,
+                                          timed=True)
+        rows.append(grid[model])
+        rows.append(check_scored_reduce(MAIN_U, N, torch.bfloat16,
+                                        timed=False))
+        torch.cuda.empty_cache()
     for U, N in ((16, 18_404), (1, 17), (3, 131), (17, 4_099)):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_scored_reduce(U, N, dtype, timed=False))
-    return {"main": rows[0], "rows": rows}
+    return {"main": rows[0], "grid": grid, "rows": rows}
 
 
 def check_flash(shape, dtype, causal: bool, timed: bool,
@@ -316,20 +365,28 @@ def small_transformer_phase() -> None:
 
 
 def small_run_phase() -> None:
+    """Each small run on the card and on the CPU with the same seed (native
+    weights drawn on the host, so both start from the same numbers):
+    participants exact, ``test_loss`` within rtol 1e-4."""
     from repro_torch.harness import ExperimentConfig, run
-    xc = ExperimentConfig(model="mlp", dataset=2, num_clients=16, rounds=3,
-                          capacity=(16, 32), seed=3)
-    gpu = run("osafl", xc, eval_samples=64)
-    cpu = run("osafl", xc, eval_samples=64, device="cpu")
-    for g, c in zip(gpu, cpu):
-        say(f"small run round {g['round']}: cuda loss {g['test_loss']:.6f} "
-            f"cpu loss {c['test_loss']:.6f} participants "
-            f"{g['participants']}/{c['participants']}")
-        if (g["participants"] != c["participants"]
-                or abs(g["test_loss"] - c["test_loss"])
-                > 1e-4 * abs(c["test_loss"])):
-            raise AssertionError("the run on the card drifted from the CPU "
-                                 f"run: {g} vs {c}")
+    for alg, kw in SMALL_RUNS:
+        xc = ExperimentConfig(**kw)
+        gpu = run(alg, xc, eval_samples=64)
+        cpu = run(alg, xc, eval_samples=64, device="cpu")
+        for g, c in zip(gpu, cpu):
+            say(f"small run {alg} {kw['model']} round {g['round']}: cuda "
+                f"loss {g['test_loss']:.6f} cpu loss {c['test_loss']:.6f} "
+                f"rel {abs(g['test_loss'] / c['test_loss'] - 1):.2e} "
+                f"participants {g.get('participants')}/"
+                f"{c.get('participants')}")
+            if (g.get("participants") != c.get("participants")
+                    or abs(g["test_loss"] - c["test_loss"])
+                    > 1e-4 * abs(c["test_loss"])):
+                raise AssertionError("the run on the card drifted from the "
+                                     f"CPU run: {alg} {kw}: {g} vs {c}")
+        if len(gpu) != len(cpu) or len(gpu) != xc.rounds:
+            raise AssertionError(f"{alg} {kw}: {len(gpu)} rounds on the "
+                                 f"card, {len(cpu)} on the CPU")
 
 
 def main_path_phase() -> tuple:
@@ -365,12 +422,13 @@ def main_path_phase() -> tuple:
     return hist, launches
 
 
-def breakdown_phase(rounds: int = 2) -> None:
-    """Where a main-path round's time goes: the stages of the harness's
+def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
+    """Where an OSAFL round's time goes: the stages of the harness's
     round (``repro_torch.harness.experiments._run_stacked``) in its order,
     each ended by a synchronize so that stages cannot overlap, plus the
-    resource solve on the CPU for comparison. A separate run after the
-    main path; its launches are not counted."""
+    resource solve on the CPU for comparison; convolutions in full f32, as
+    in a run. A separate run after the main path; its launches are not
+    counted."""
     import numpy as np
     from repro_torch.core.client import make_vmapped_local_train
     from repro_torch.core.resource_stacked import optimize_round_batched
@@ -378,9 +436,10 @@ def breakdown_phase(rounds: int = 2) -> None:
                                          draw_arrival_batch)
     from repro_torch.harness import ExperimentConfig
     from repro_torch.harness.experiments import _stacked_setup
+    from repro_torch.device import full_f32_convolutions
     from repro_torch.models.small import small_loss
     dev = torch.device("cuda")
-    xc = ExperimentConfig(**MAIN_RUN)
+    xc = ExperimentConfig(**run_kw)
     s = _stacked_setup("osafl", xc, MAIN_EVAL, dev)
     step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
                                     s.fl.kappa_max)
@@ -389,40 +448,84 @@ def breakdown_phase(rounds: int = 2) -> None:
         torch.cuda.synchronize()
         return time.perf_counter()
 
-    for t in range(rounds):
-        marks = [("start", lap())]
-        counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
-        arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
-                                      width=xc.arrivals)
-        marks.append(("requests", lap()))
-        s.sbuf.stage(*arrivals)
-        s.sbuf.commit()
-        marks.append(("fifo_commit", lap()))
-        kappas = optimize_round_batched(s.rng, s.net, s.sysb, s.n_params,
-                                        device=dev).kappa
-        marks.append(("resource_solve", lap()))
-        active = kappas >= 1
-        slots = s.sbuf.sample_slots(s.rng, (s.fl.kappa_max, xc.batch))
-        batch = s.sbuf.gather(slots)
-        marks.append(("slots_gather", lap()))
-        d, _ = step(s.server.params, batch,
-                    torch.as_tensor(kappas, device=dev))
-        upd = s.codec.flatten_stacked(d)
-        del d, batch
-        marks.append(("local_sgd", lap()))
-        s.server.round_stacked(upd, active)
-        del upd
-        marks.append(("server_round", lap()))
-        float(small_loss(s.server.params, s.test_batch, s.model)[0])
-        marks.append(("eval", lap()))
-        stages = {name: marks[i + 1][1] - marks[i][1]
-                  for i, (name, _) in enumerate(marks[1:])}
-        stages["total"] = marks[-1][1] - marks[0][1]
+    with full_f32_convolutions():
+        for t in range(rounds):
+            marks = [("start", lap())]
+            counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
+            arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
+                                          width=xc.arrivals)
+            marks.append(("requests", lap()))
+            s.sbuf.stage(*arrivals)
+            s.sbuf.commit()
+            marks.append(("fifo_commit", lap()))
+            kappas = optimize_round_batched(s.rng, s.net, s.sysb, s.n_params,
+                                            device=dev).kappa
+            marks.append(("resource_solve", lap()))
+            active = kappas >= 1
+            slots = s.sbuf.sample_slots(s.rng, (s.fl.kappa_max, xc.batch))
+            batch = s.sbuf.gather(slots)
+            marks.append(("slots_gather", lap()))
+            d, _ = step(s.server.params, batch,
+                        torch.as_tensor(kappas, device=dev))
+            upd = s.codec.flatten_stacked(d)
+            del d, batch
+            marks.append(("local_sgd", lap()))
+            s.server.round_stacked(upd, active)
+            del upd
+            marks.append(("server_round", lap()))
+            float(small_loss(s.server.params, s.test_batch, s.model)[0])
+            marks.append(("eval", lap()))
+            stages = {name: marks[i + 1][1] - marks[i][1]
+                      for i, (name, _) in enumerate(marks[1:])}
+            stages["total"] = marks[-1][1] - marks[0][1]
+            t0 = time.perf_counter()
+            optimize_round_batched(np.random.default_rng(t), s.net, s.sysb,
+                                   s.n_params, device="cpu")
+            stages["resource_solve_on_cpu"] = time.perf_counter() - t0
+            say(f"breakdown {xc.model} round {t} (s): {json.dumps(stages)}")
+
+
+def grid_phase() -> list:
+    """The paper's comparison grid at full width (``GRID_RUNS``), each run
+    with the launch counts reset just before and read just after: OSAFL
+    launches ``scored_reduce`` once a round, the baselines and the genie
+    never."""
+    from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    out = []
+    for alg, kw in GRID_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        xc = ExperimentConfig(**kw)
         t0 = time.perf_counter()
-        optimize_round_batched(np.random.default_rng(t), s.net, s.sysb,
-                               s.n_params, device="cpu")
-        stages["resource_solve_on_cpu"] = time.perf_counter() - t0
-        say(f"breakdown round {t} (s): {json.dumps(stages)}")
+        sr.scored_reduce.launches = 0
+        fa.flash_attention_bhsd.launches = 0
+        hist = run(alg, xc, eval_samples=GRID_EVAL)
+        launches = {"scored_reduce": sr.scored_reduce.launches,
+                    "flash_attention": fa.flash_attention_bhsd.launches}
+        wall = time.perf_counter() - t0
+        row = {"alg": alg, "config": kw, "eval_samples": GRID_EVAL,
+               "wall_s": wall, "launches": launches,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "rounds": [{k: h.get(k) for k in (
+                   "round", "test_loss", "test_acc", "participants",
+                   "round_s", "request_gen_s")} for h in hist]}
+        say("grid run " + json.dumps(row))
+        want = xc.rounds if alg == "osafl" else 0
+        if launches != {"scored_reduce": want, "flash_attention": 0}:
+            raise AssertionError(f"grid run {alg} {kw['model']}: launches "
+                                 f"{launches}, expected scored_reduce "
+                                 f"{want}")
+        if len(hist) != xc.rounds or not all(
+                math.isfinite(h["test_loss"]) for h in hist):
+            raise AssertionError(f"grid run {alg} {kw['model']}: non-finite "
+                                 f"or missing rounds: {hist}")
+        if alg != "centralized" and not any(h["participants"] for h in hist):
+            raise AssertionError(f"grid run {alg} {kw['model']}: no round "
+                                 "had participants")
+        out.append(row)
+    return out
 
 
 def _clock() -> float:
@@ -591,14 +694,22 @@ def main() -> int:
     small_run_phase()
     small_transformer_phase()
     _, launches = main_path_phase()
-    breakdown_phase()
+    breakdown_phase(MAIN_RUN)
+    grid = grid_phase()
+    for alg, kw in GRID_RUNS:
+        if kw["model"] != "fcn":
+            breakdown_phase(kw)
     serving = serving_phase()
     m = kern["main"]
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scored_reduce.cu",
         "replaces": "src/repro/kernels/scored_reduce.py:32",
-        "launches": launches["scored_reduce"],
+        # every path run with the counts reset: the FL main path, the
+        # grid's OSAFL runs and the serving path (none there)
+        "launches": (launches["scored_reduce"]
+                     + sum(g["launches"]["scored_reduce"] for g in grid)
+                     + serving["launches"]["scored_reduce"]),
         "max_abs_err": max(m["max_abs_err"].values()),
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"]}, {

@@ -2,8 +2,10 @@
 
 ``get_config(name)`` knows every architecture id of the reference. It
 returns the configs of the dense full-attention GQA decoders, which
-``repro_torch.models.transformer`` runs; any other architecture raises
-``NotImplementedError`` (ROADMAP.md queue A lists it).
+``repro_torch.models.transformer`` runs, and the paper's four models'
+pseudo-configs (``paper-*``, run by ``repro_torch.models.small``); any
+other architecture raises ``NotImplementedError`` (ROADMAP.md queue A
+lists it).
 """
 from __future__ import annotations
 
@@ -23,6 +25,10 @@ _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "paper-fcn": "paper_models",
+    "paper-cnn": "paper_models",
+    "paper-squeezenet": "paper_models",
+    "paper-lstm": "paper_models",
 }
 
 
@@ -33,8 +39,10 @@ def get_config(name: str) -> ModelConfig:
         raise NotImplementedError(
             f"arch {name!r} is not ported to repro_torch yet (ported: "
             f"{sorted(_MODULES)}); ROADMAP.md queue A lists what is left")
-    return importlib.import_module(
-        f"repro_torch.configs.{_MODULES[name]}").CONFIG
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+    if name.startswith("paper-"):
+        return mod.CONFIGS[name]
+    return mod.CONFIG
 
 
 __all__ = ["ARCH_IDS", "get_config", "ExperimentConfig", "FLConfig",

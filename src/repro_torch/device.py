@@ -1,5 +1,8 @@
-"""Device selection shared by every entry point of the port."""
+"""Device selection shared by every entry point of the port, and the
+precision its runs hold convolutions to."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -15,3 +18,18 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def full_f32_convolutions():
+    """Hold cuDNN's float32 convolutions in full f32 for the duration, and
+    restore the caller's setting after. cuDNN computes them in TF32 by
+    default (``torch.backends.cudnn.allow_tf32``), which moves the CNN's
+    and SqueezeNet's losses by more than the port's rule that a run on the
+    card equals the same run on the CPU to 1e-4."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before

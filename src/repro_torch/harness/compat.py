@@ -185,8 +185,9 @@ RULES = (
 
 
 def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet (the port runs the "
-            "dense stacked OSAFL round: engine 'stacked' or 'auto', "
+    return (f"{what} is not ported to repro_torch yet (the port runs every "
+            "algorithm on the dense stacked dispatch round, engine "
+            "'stacked' or 'auto', and the centralized genie: "
             "round_backend='dispatch', request_backend='python', "
             "resource_backend='x64', no mesh, scenario ''/'null', no "
             "checkpoints)")
@@ -195,11 +196,8 @@ def _not_ported(what: str) -> str:
 #: What the port does not run yet, checked after ``RULES``.
 PORT_RULES = (
     Rule("port-engine",
-         lambda p: p.engine != "stacked",
+         lambda p: p.engine not in ("stacked", "centralized"),
          lambda p: _not_ported(f"engine={p.engine!r}")),
-    Rule("port-algorithm",
-         lambda p: p.alg != "osafl",
-         lambda p: _not_ported(f"algorithm={p.alg!r}")),
     Rule("port-round-backend",
          lambda p: p.round_backend != "dispatch",
          lambda p: _not_ported(f"round_backend={p.round_backend!r}")),

@@ -28,8 +28,12 @@ def cuda():
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
+# ragged and small shapes, then the (U, N) buffers of the CNN, SqueezeNet
+# and LSTM at the paper's U=256 (two N are not multiples of 8)
 @pytest.mark.parametrize("U,N", [(1, 17), (3, 131), (17, 4099),
-                                 (16, 18_404), (64, 1_000_003)])
+                                 (16, 18_404), (64, 1_000_003),
+                                 (256, 1_118_500), (256, 106_376),
+                                 (256, 381_284)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scored_reduce_matches_plain_version(cuda, U, N, dtype):
     gen = torch.Generator(device=cuda).manual_seed(U * N)
@@ -71,6 +75,36 @@ def test_harness_round_launches_the_kernel_once(cuda):
                eval_samples=64)
     assert sr.scored_reduce.launches == before + 2
     assert all(torch.isfinite(torch.tensor(h["test_loss"])) for h in hist)
+
+
+# the CNN and SqueezeNet take global_lr=1: at the default 16 a one-ulp
+# change of their weights moves a later round's loss by more than 1e-4
+# (tools/ulp_sensitivity.py)
+SMALL_RUNS = {
+    "cnn": dict(dataset=1, num_clients=4, rounds=2, global_lr=1.0),
+    "squeezenet": dict(dataset=1, num_clients=4, rounds=2, global_lr=1.0),
+    "lstm": dict(dataset=2, num_clients=8, rounds=3),
+}
+
+
+@pytest.mark.parametrize("model", sorted(SMALL_RUNS))
+def test_cuda_run_matches_cpu_run(cuda, monkeypatch, model):
+    """The same seeded run on the card and on the CPU, with cuDNN's TF32
+    left on by the caller: the harness holds convolutions in full f32 and
+    gives the caller's setting back."""
+    from repro_torch.harness import ExperimentConfig, run
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    xc = ExperimentConfig(model=model, capacity=(16, 32), seed=3,
+                          **SMALL_RUNS[model])
+    before = sr.scored_reduce.launches
+    gpu = run("osafl", xc, eval_samples=64)
+    assert sr.scored_reduce.launches == before + xc.rounds
+    assert torch.backends.cudnn.allow_tf32 is True
+    cpu = run("osafl", xc, eval_samples=64, device="cpu")
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
 
 
 # -- flash attention ---------------------------------------------------------

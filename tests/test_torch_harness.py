@@ -6,46 +6,62 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 import repro_torch.harness.experiments as tex
 from repro_torch.harness import ExperimentConfig, ExperimentConfigError, run
-from repro_torch.harness.compat import PORT_RULES, resolve
+from repro_torch.harness.compat import ALL_ALGS, PORT_RULES, resolve
 from repro_torch.models.small import params_from_numpy
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
 
+MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
+           capacity=(16, 32))
+# The convolutional slices take global_lr=1: at OSAFL's default of 16 a
+# one-ulp change of their initial weights already moves the loss of a later
+# round by more than the 1e-4 held below (tools/ulp_sensitivity.py), so no
+# two float32 implementations could be held to it there.
+CONV = dict(dataset=1, num_clients=4, rounds=2, capacity=(16, 32),
+            global_lr=1.0)
 SLICES = {
-    "fcn-d1-u4": dict(model="fcn", dataset=1, num_clients=4, rounds=2,
-                      capacity=(16, 32)),
-    "mlp-d2-u16": dict(model="mlp", dataset=2, num_clients=16, rounds=3,
-                       capacity=(16, 32)),
+    "fcn-d1-u4": ("osafl", dict(model="fcn", dataset=1, num_clients=4,
+                                rounds=2, capacity=(16, 32))),
+    "mlp-d2-u16": ("osafl", MLP),
+    **{f"{alg}-mlp-d2-u16": (alg, MLP) for alg in ALL_ALGS[1:]},
+    "centralized-mlp-d2-u16": ("centralized", MLP),
+    "cnn-d1-u4": ("osafl", dict(model="cnn", **CONV)),
+    "squeezenet-d1-u4": ("osafl", dict(model="squeezenet", **CONV)),
+    "lstm-d2-u4": ("osafl", dict(model="lstm", dataset=2, num_clients=4,
+                                 rounds=2, capacity=(16, 32))),
 }
 EVAL = 64
 
 
 @pytest.mark.parametrize("slice_", sorted(SLICES))
 def test_run_matches_live_reference(reference, monkeypatch, slice_):
-    kw = SLICES[slice_]
+    alg, kw = SLICES[slice_]
     want = reference.harness.run(
-        "osafl", reference.harness.ExperimentConfig(**kw), eval_samples=EVAL)
+        alg, reference.harness.ExperimentConfig(**kw), eval_samples=EVAL)
     w0 = to_numpy_tree(reference.small.init_small(jax.random.PRNGKey(0),
                                                   kw["model"]))
     # the port cannot draw threefry weights: start it from the reference's
     monkeypatch.setattr(tex, "init_small",
                         lambda seed, name, device: params_from_numpy(
                             name, w0, device))
-    got = run("osafl", ExperimentConfig(**kw), eval_samples=EVAL,
-              device="cpu")
-    n_eval = kw["num_clients"] * max(EVAL // kw["num_clients"], 4)
+    got = run(alg, ExperimentConfig(**kw), eval_samples=EVAL, device="cpu")
+    U = kw["num_clients"]
+    n_eval = U * max(EVAL // U, 20 if alg == "centralized" else 4)
     assert len(got) == len(want) == kw["rounds"]
     for g, w in zip(got, want):
-        assert set(g) == set(w)
+        # the genie's rows gain the port's timings
+        assert set(g) == set(w) | {"request_gen_s", "round_s"}
         assert g["round"] == w["round"]
-        assert g["participants"] == w["participants"]      # same host draws
+        if alg != "centralized":
+            assert g["participants"] == w["participants"]  # same host draws
         # f32 sums in another order, carried over a few rounds
         np.testing.assert_allclose(g["test_loss"], w["test_loss"],
                                    rtol=1e-4)
         assert abs(g["test_acc"] - w["test_acc"]) <= 1.0 / n_eval + 1e-9
-    assert any(g["participants"] for g in got)
+    assert alg == "centralized" or any(g["participants"] for g in got)
 
 
 BAD = [
@@ -72,7 +88,7 @@ def test_reference_rules_name_the_same_failure(reference, change):
 
 @pytest.mark.parametrize("change,kwargs,key", [
     (dict(engine="loop"), {}, "port-engine"),
-    (dict(), dict(alg="fedavg"), "port-algorithm"),
+    (dict(engine="pod"), {}, "port-engine"),
     (dict(round_backend="fused", request_backend="stacked"), {},
      "port-round-backend"),
     (dict(request_backend="stacked"), {}, "port-request-backend"),
@@ -105,3 +121,31 @@ def test_null_scenario_is_accepted():
     assert plan == resolve("osafl", ExperimentConfig(scenario="null"))
     assert plan.engine == "stacked"
     assert "engine=stacked alg=osafl" in plan.describe()
+
+
+@pytest.mark.parametrize("alg", list(ALL_ALGS) + ["centralized"])
+def test_resolve_accepts_every_algorithm_and_the_genie(alg):
+    plan = resolve(alg, ExperimentConfig(num_clients=8))
+    assert plan.engine == ("centralized" if alg == "centralized"
+                           else "stacked")
+    xc = ExperimentConfig(num_clients=8, engine="centralized")
+    assert resolve(alg, xc).engine == "centralized"
+
+
+@pytest.mark.parametrize("alg", ["osafl", "centralized"])
+def test_run_holds_convolutions_in_full_f32(monkeypatch, alg):
+    """cuDNN's TF32 convolutions are off for the whole run, forward and
+    backward, and the caller's setting comes back after, also on an
+    error."""
+    seen = []
+
+    def body(*args):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        raise RuntimeError("stop")
+    monkeypatch.setattr(tex, "_run_stacked", body)
+    monkeypatch.setattr(tex, "_run_centralized", body)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="stop"):
+        run(alg, ExperimentConfig(num_clients=2), device="cpu")
+    assert seen == [False]
+    assert torch.backends.cudnn.allow_tf32 is True

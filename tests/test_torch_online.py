@@ -1,10 +1,11 @@
 """The port's online pipeline against the reference: request streams, the
-stacked FIFO buffer and the batched resource solve."""
+per-client and stacked FIFO buffers and the batched resource solve."""
 import numpy as np
 import pytest
 
 from repro_torch.core import resource as tres
 from repro_torch.core import resource_stacked as trs
+from repro_torch.core.buffer import OnlineBuffer, binomial_arrivals
 from repro_torch.core.buffer_stacked import StackedOnlineBuffer
 from repro_torch.data import online as tonline
 from repro_torch.data import video_caching as tvc
@@ -70,6 +71,36 @@ def test_stacked_buffer_matches_reference_with_wraparound(reference,
         gj, gt = jb.gather(sj), tb.gather(st)
         for k in ("x", "y"):
             np.testing.assert_array_equal(gt[k].numpy(), np.asarray(gj[k]))
+
+
+@pytest.mark.parametrize("dataset", [1, 2])
+def test_online_buffer_matches_reference_with_wraparound(reference, dataset):
+    """The genie's per-client FIFO buffer: rounds of Binomial arrivals
+    overfill the capacity; storage, pointers, histograms, the shift proxy
+    and sampled batches are bit-identical."""
+    _, jstreams = reference.video_caching.make_population(5, 1)
+    _, tstreams = tvc.make_population(5, 1)
+    draw = "draw_dataset1" if dataset == 1 else "draw_dataset2"
+    feat, dtype = tonline.dataset_layout(dataset)
+    jb = reference.buffer.OnlineBuffer.create(7, feat, 100, dtype=dtype)
+    tb = OnlineBuffer.create(7, feat, 100, dtype=dtype)
+    rj, rt = np.random.default_rng(9), np.random.default_rng(9)
+    for _ in range(6):
+        n = binomial_arrivals(rt, 8, 0.6)
+        assert n == reference.buffer.binomial_arrivals(rj, 8, 0.6)
+        if n:
+            tb.stage(*getattr(tstreams[0], draw)(n))
+            jb.stage(*getattr(jstreams[0], draw)(n))
+        assert tb.commit() == jb.commit() == n
+        assert (tb.size, tb.head) == (jb.size, jb.head)
+        for a, e in zip(tb.dataset(), jb.dataset()):
+            np.testing.assert_array_equal(a, e)
+        np.testing.assert_array_equal(tb.label_histogram(),
+                                      jb.label_histogram())
+        assert tb.distribution_shift() == jb.distribution_shift()
+        for a, e in zip(tb.sample_batch(rt, 5), jb.sample_batch(rj, 5)):
+            np.testing.assert_array_equal(a, e)
+    assert tb.size == tb.capacity
 
 
 def test_stage_overflow_raises():

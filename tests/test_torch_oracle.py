@@ -27,7 +27,8 @@ import pytest
 import torch
 
 _REFERENCE_MODULES = (
-    "repro.configs", "repro.configs.base", "repro.core.buffer_stacked",
+    "repro.configs", "repro.configs.base", "repro.core.baselines",
+    "repro.core.buffer", "repro.core.buffer_stacked",
     "repro.core.client", "repro.core.flatten", "repro.core.osafl",
     "repro.core.pod", "repro.core.resource", "repro.core.resource_stacked",
     "repro.data.online", "repro.data.video_caching", "repro.harness",

@@ -1,5 +1,5 @@
-"""The port's stacked OSAFL round and server against the reference on
-identical inputs, with both score backends."""
+"""The port's stacked servers against the reference on identical inputs:
+the OSAFL round with both score backends, and the five baselines."""
 import dataclasses
 
 import jax
@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.baselines import make_server
+from repro_torch.core.baselines import STACKED_SERVERS, make_server
 from repro_torch.core.osafl import StackedOSAFLServer, make_stacked_round_body
 from repro_torch.models import small
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
@@ -79,8 +79,61 @@ def test_stacked_server_rounds_match_reference(reference):
     assert set(tsrv.params) == set(flat)
 
 
+@pytest.mark.parametrize("alg", sorted(STACKED_SERVERS))
+@pytest.mark.parametrize("literal", [False, True])
+def test_stacked_baseline_rounds_match_reference(reference, alg, literal):
+    """Four rounds of random partial participation with sticky sizes,
+    kappas and (FedDisco) label histograms; atol 1e-5, the reference's own
+    loop-against-stacked bound."""
+    U, name = 6, "mlp"
+    w0 = to_numpy_tree(reference.small.init_small(jax.random.PRNGKey(7),
+                                                  name))
+    fl = dict(num_clients=U, local_lr=0.1, global_lr=4.0, engine="stacked",
+              algorithm=alg, literal_init_buffer=literal)
+    jsrv = reference.baselines.STACKED_SERVERS[alg](
+        jax.tree.map(jnp.asarray, w0), reference.base.FLConfig(**fl), U)
+    tsrv = make_server(small.params_from_numpy(name, w0, "cpu"),
+                       FLConfig(**fl), U, device="cpu")
+    assert type(tsrv) is STACKED_SERVERS[alg]
+    rng = np.random.default_rng(8)
+    N = tsrv.codec.n
+    for t in range(4):
+        d_new = rng.normal(size=(U, N)).astype(np.float32)
+        if tsrv.buffers_hold_weights:
+            d_new = np.asarray(jsrv.w) + 0.01 * d_new
+        active = rng.uniform(size=U) < 0.5
+        meta = {}
+        if alg in ("fednova", "feddisco"):
+            meta["sizes"] = rng.integers(5, 50, size=U)
+        if alg == "fednova":
+            meta["kappas"] = rng.integers(0, 6, size=U)
+        if alg == "feddisco":
+            meta["hists"] = rng.dirichlet(np.ones(10), size=U)
+        jsrv.round_stacked(jnp.asarray(d_new), active, **meta)
+        tsrv.round_stacked(torch.from_numpy(d_new), active, **meta)
+        np.testing.assert_allclose(tsrv.w.numpy(), np.asarray(jsrv.w),
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(tsrv.buffer.numpy(),
+                                      np.asarray(jsrv.buffer))
+        np.testing.assert_array_equal(tsrv.participated, jsrv.participated)
+        for key in ("sizes", "kappas", "hists", "has_hist"):
+            np.testing.assert_array_equal(getattr(tsrv, key),
+                                          getattr(jsrv, key), err_msg=key)
+    assert set(tsrv.params) == set(w0)
+
+
+@pytest.mark.parametrize("alg", ["osafl"] + sorted(STACKED_SERVERS))
+def test_make_server_returns_each_stacked_server(alg):
+    p = small.init_small(0, "mlp", device="cpu")
+    srv = make_server(p, FLConfig(engine="stacked", algorithm=alg), 4,
+                      device="cpu")
+    want = StackedOSAFLServer if alg == "osafl" else STACKED_SERVERS[alg]
+    assert type(srv) is want
+    assert srv.w.shape == (srv.codec.n,) and srv.w.dtype == torch.float32
+
+
 @pytest.mark.parametrize("change", [
-    dict(algorithm="fedavg"), dict(cohort_size=4), dict(num_clusters=1),
+    dict(engine="pod"), dict(cohort_size=4), dict(num_clusters=1),
     dict(engine="loop"),
 ])
 def test_make_server_rejects_what_is_not_ported(change):
