@@ -14,17 +14,19 @@ Phases, each fatal on failure:
   4. small runs on the card against the same runs on the CPU (whose plain
      paths the CPU tests tie to the JAX reference): the harness with each
      of the six algorithms and the genie on the MLP, OSAFL on the CNN,
-     SqueezeNet and LSTM; and a reduced deepseek-coder-33b (7:1 head
-     groups kept) through prefill and decode;
+     SqueezeNet and LSTM; the CNN's and SqueezeNet's gradients on one
+     batch in full f32 (and, as a control the check must see, with
+     cuDNN's TF32 on); and a reduced deepseek-coder-33b (7:1 head groups
+     kept) through prefill and decode;
   5. the FL main path: ``repro_torch.harness.run("osafl", ...)`` on the FCN
      at the paper's U=256 clients, with the kernels' launch counts reset
      just before and read just after;
   6. a breakdown of an FL main-path round by stage;
   6b. the paper's comparison grid at its widths and U=256, depth cut to 2-3
-     rounds: the six algorithms and the genie on the FCN (Dataset-1), and
-     OSAFL on the CNN, SqueezeNet (Dataset-1) and LSTM (Dataset-2, Table
-     IV's recipe), each run with the launch counts reset just before and
-     read just after;
+     rounds: the five baselines and the genie on the FCN (Dataset-1; OSAFL
+     there is the main path's run), and OSAFL on the CNN, SqueezeNet
+     (Dataset-1) and LSTM (Dataset-2, Table IV's recipe), each run with the
+     launch counts reset just before and read just after;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -34,7 +36,8 @@ Phases, each fatal on failure:
      prefill against the KV-cache decode path on one prompt.
 Convolutions run in full f32 inside every harness run (cuDNN's TF32 is
 held off and restored after). The line before the last is one JSON object
-with every kernel's numbers;
+with every kernel's numbers ("launches" from the kernel's own main path,
+"launches_by_path" from every path);
 the last line is the result. Exits non-zero, with no result, when there is
 no CUDA card or the port's sources are not beside this file.
 """
@@ -55,22 +58,24 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 
-MAIN_U, MAIN_N = 256, 3_821_156     # FCN contribution buffer at U=256
+MAIN_U = 256                        # the paper's cohort
 MAIN_RUN = dict(model="fcn", dataset=1, num_clients=MAIN_U,
                 capacity=(320, 640), arrivals=8, batch=16, rounds=3, seed=0)
 MAIN_EVAL = 512
-# scored_reduce on the grid's other OSAFL paths: the (U, N) buffers of the
-# CNN, SqueezeNet and LSTM at U=256 (two N not multiples of 8: ragged tail)
-GRID_N = {"cnn": 1_118_500, "squeezenet": 106_376, "lstm": 381_284}
+# scored_reduce on the FL main path and the grid's other OSAFL paths: the
+# (U, N) buffers of the FCN, CNN, SqueezeNet and LSTM at U=256, N from each
+# model's codec (the CNN's and the LSTM's N are not multiples of 8)
+SCORED_MODELS = ("fcn", "cnn", "squeezenet", "lstm")
 # the paper's comparison grid (benchmarks/table2_dataset1.py: every
 # algorithm and the genie over fcn and cnn on Dataset-1; table4_dataset2.py
-# :33-36: lstm on Dataset-2) at U=256, depth cut to 2 (FCN) or 3 rounds
+# :33-36: lstm on Dataset-2) at U=256, depth cut to 2 (FCN) or 3 rounds;
+# OSAFL on the FCN is the FL main path's run
 ALGS = ("osafl", "fedavg", "fedprox", "fednova", "afa_cd", "feddisco",
         "centralized")
 GRID_D1 = dict(dataset=1, num_clients=MAIN_U, capacity=(320, 640),
                arrivals=8, batch=16, seed=0)
 GRID_RUNS = (
-    [(alg, dict(GRID_D1, model="fcn", rounds=2)) for alg in ALGS]
+    [(alg, dict(GRID_D1, model="fcn", rounds=2)) for alg in ALGS[1:]]
     + [("osafl", dict(GRID_D1, model=m, rounds=3))
        for m in ("cnn", "squeezenet")]
     + [("osafl", dict(GRID_D1, model="lstm", dataset=2, local_lr=0.2,
@@ -79,7 +84,7 @@ GRID_EVAL = 512
 # small runs, card against CPU: every algorithm and the genie on the MLP;
 # OSAFL on the three other models. The CNN and SqueezeNet take global_lr=1:
 # at the default 16 a one-ulp change of their weights moves a later
-# round's loss by more than the 1e-4 gate (tools/ulp_sensitivity.py).
+# round's loss by more than the 1e-4 gate (tests/test_torch_precision.py).
 SMALL_MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
                  capacity=(16, 32), seed=3)
 SMALL_RUNS = (
@@ -89,6 +94,11 @@ SMALL_RUNS = (
        for m in ("cnn", "squeezenet")]
     + [("osafl", dict(model="lstm", dataset=2, num_clients=8, rounds=3,
                       capacity=(16, 32), seed=3))])
+# The gate's loss cannot see cuDNN's TF32 at global_lr=1 (about 1e-5 from
+# the CPU on an NVIDIA H100): the CNN's and SqueezeNet's gradients on
+# one batch are held to the CPU's within GRAD_TOL (relative L2) in full f32,
+# and must miss it with TF32 on
+GRAD_TOL = 1e-5
 # norms/mean_sq: the reference kernel test's rtol; dots: the same factor
 # times sqrt(norms * mean_sq), the size of the terms a dot sums
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -208,19 +218,27 @@ def check_scored_reduce(U: int, N: int, dtype, timed: bool) -> dict:
     return row
 
 
+def buffer_n(model: str) -> int:
+    """N of a model's (U, N) contribution buffer: its codec's length."""
+    from repro_torch.core.flatten import make_codec
+    from repro_torch.models.small import init_small
+    return make_codec(init_small(0, model, "cpu")).n
+
+
 def kernels_phase() -> dict:
-    rows = [check_scored_reduce(MAIN_U, MAIN_N, torch.float32, timed=True)]
+    n = {model: buffer_n(model) for model in SCORED_MODELS}
+    rows = [check_scored_reduce(MAIN_U, n["fcn"], torch.float32, timed=True)]
     torch.cuda.empty_cache()
-    rows.append(check_scored_reduce(MAIN_U, MAIN_N, torch.bfloat16,
+    rows.append(check_scored_reduce(MAIN_U, n["fcn"], torch.bfloat16,
                                     timed=True))
     torch.cuda.empty_cache()
     # the grid's other OSAFL paths: f32 timed, bf16 checked
     grid = {}
-    for model, N in GRID_N.items():
-        grid[model] = check_scored_reduce(MAIN_U, N, torch.float32,
+    for model in SCORED_MODELS[1:]:
+        grid[model] = check_scored_reduce(MAIN_U, n[model], torch.float32,
                                           timed=True)
         rows.append(grid[model])
-        rows.append(check_scored_reduce(MAIN_U, N, torch.bfloat16,
+        rows.append(check_scored_reduce(MAIN_U, n[model], torch.bfloat16,
                                         timed=False))
         torch.cuda.empty_cache()
     for U, N in ((16, 18_404), (1, 17), (3, 131), (17, 4_099)):
@@ -389,37 +407,93 @@ def small_run_phase() -> None:
                                  f"card, {len(cpu)} on the CPU")
 
 
-def main_path_phase() -> tuple:
+def conv_grads(model: str, device: str) -> tuple:
+    """Gradient (flat, float64 on the host) and loss of ``model``'s seeded
+    weights on the eval batch of the CNN's and SqueezeNet's small run."""
+    from repro_torch.harness import ExperimentConfig
+    from repro_torch.harness.experiments import _stacked_setup
+    from repro_torch.models.small import init_small, small_loss
+    kw = next(kw for alg, kw in SMALL_RUNS if kw["model"] == model)
+    xc = ExperimentConfig(**kw)
+    batch = _stacked_setup("osafl", xc, 64, torch.device(device)).test_batch
+    grads, loss = torch.func.grad_and_value(
+        lambda p: small_loss(p, batch, model)[0])(
+            init_small(xc.seed, model, device))
+    leaves = torch.utils._pytree.tree_leaves(grads)
+    return (torch.cat([g.reshape(-1).double().cpu() for g in leaves]),
+            float(loss))
+
+
+def conv_precision_phase() -> None:
+    """The CNN's and SqueezeNet's gradients on the card against the CPU's:
+    within GRAD_TOL (relative L2) with convolutions in full f32, as a run
+    holds them (``full_f32_convolutions``, entered with the caller's TF32
+    on), and past it with cuDNN's TF32 on, which shows the check sees it."""
+    from repro_torch.device import full_f32_convolutions
+    before = torch.backends.cudnn.allow_tf32
+    try:
+        for model in ("cnn", "squeezenet"):
+            cpu, cpu_loss = conv_grads(model, "cpu")
+            torch.backends.cudnn.allow_tf32 = True
+            with full_f32_convolutions():
+                f32, f32_loss = conv_grads(model, "cuda")
+            tf32, tf32_loss = conv_grads(model, "cuda")
+            row = {"model": model, "grad_tol": GRAD_TOL}
+            for name, g, loss in (("f32", f32, f32_loss),
+                                  ("tf32", tf32, tf32_loss)):
+                row[name] = {"grad_rel_l2": float((g - cpu).norm()
+                                                  / cpu.norm()),
+                             "loss_rel": abs(loss / cpu_loss - 1)}
+            say("convolution precision " + json.dumps(row))
+            if not row["f32"]["grad_rel_l2"] <= GRAD_TOL:
+                raise AssertionError(f"{model}: full-f32 gradients on the "
+                                     f"card drifted from the CPU's: {row}")
+            if not row["tf32"]["grad_rel_l2"] > GRAD_TOL:
+                raise AssertionError(f"{model}: the gradient check cannot "
+                                     f"see TF32: {row}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
+    """One ``repro_torch.harness.run`` on the card with the launch counts
+    reset just before and read just after; prints its rounds, wall time,
+    peak memory and launches as one JSON line. Gates: OSAFL launches
+    ``scored_reduce`` once a round, the baselines and the genie never, and
+    nothing launches flash attention; finite losses for every round; some
+    participants (but in the genie, which has none)."""
     from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import scored_reduce as sr
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    xc = ExperimentConfig(**MAIN_RUN)
+    xc = ExperimentConfig(**kw)
     t0 = time.perf_counter()
     sr.scored_reduce.launches = 0
-    hist = run("osafl", xc, eval_samples=MAIN_EVAL)
-    launches = {"scored_reduce": sr.scored_reduce.launches}
+    fa.flash_attention_bhsd.launches = 0
+    hist = run(alg, xc, eval_samples=eval_samples)
+    launches = {"scored_reduce": sr.scored_reduce.launches,
+                "flash_attention": fa.flash_attention_bhsd.launches}
     wall = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    for h in hist:
-        say(f"main path round {h['round']}: test_loss {h['test_loss']:.6f} "
-            f"test_acc {h['test_acc']:.4f} participants "
-            f"{h['participants']} round_s {h['round_s']:.6f} "
-            f"request_gen_s {h['request_gen_s']:.6f}")
-    say(f"main path: {json.dumps(MAIN_RUN)} eval_samples {MAIN_EVAL}; "
-        f"wall {wall:.3f} s (setup included); max_memory_allocated "
-        f"{peak} B; launches {json.dumps(launches)}")
-    finite = all(h["test_loss"] == h["test_loss"]
-                 and abs(h["test_loss"]) != float("inf") for h in hist)
-    if not finite:
-        raise AssertionError(f"non-finite loss on the main path: {hist}")
-    if not any(h["participants"] for h in hist):
-        raise AssertionError("no round of the main path had participants")
-    if launches["scored_reduce"] != xc.rounds:
-        raise AssertionError(f"scored_reduce launched "
-                             f"{launches['scored_reduce']} times in "
-                             f"{xc.rounds} rounds")
-    return hist, launches
+    row = {"alg": alg, "config": kw, "eval_samples": eval_samples,
+           "wall_s": wall, "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "rounds": [{k: h.get(k) for k in (
+               "round", "test_loss", "test_acc", "participants",
+               "round_s", "request_gen_s")} for h in hist]}
+    say(f"{label} " + json.dumps(row))
+    want = xc.rounds if alg == "osafl" else 0
+    if launches != {"scored_reduce": want, "flash_attention": 0}:
+        raise AssertionError(f"{label} {alg} {kw['model']}: launches "
+                             f"{launches}, expected scored_reduce {want}")
+    if len(hist) != xc.rounds or not all(
+            math.isfinite(h["test_loss"]) for h in hist):
+        raise AssertionError(f"{label} {alg} {kw['model']}: non-finite or "
+                             f"missing rounds: {hist}")
+    if alg != "centralized" and not any(h["participants"] for h in hist):
+        raise AssertionError(f"{label} {alg} {kw['model']}: no round had "
+                             "participants")
+    return row
 
 
 def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
@@ -485,47 +559,12 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
             say(f"breakdown {xc.model} round {t} (s): {json.dumps(stages)}")
 
 
-def grid_phase() -> list:
-    """The paper's comparison grid at full width (``GRID_RUNS``), each run
-    with the launch counts reset just before and read just after: OSAFL
-    launches ``scored_reduce`` once a round, the baselines and the genie
-    never."""
-    from repro_torch.harness import ExperimentConfig, run
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import scored_reduce as sr
-    out = []
-    for alg, kw in GRID_RUNS:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        xc = ExperimentConfig(**kw)
-        t0 = time.perf_counter()
-        sr.scored_reduce.launches = 0
-        fa.flash_attention_bhsd.launches = 0
-        hist = run(alg, xc, eval_samples=GRID_EVAL)
-        launches = {"scored_reduce": sr.scored_reduce.launches,
-                    "flash_attention": fa.flash_attention_bhsd.launches}
-        wall = time.perf_counter() - t0
-        row = {"alg": alg, "config": kw, "eval_samples": GRID_EVAL,
-               "wall_s": wall, "launches": launches,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "rounds": [{k: h.get(k) for k in (
-                   "round", "test_loss", "test_acc", "participants",
-                   "round_s", "request_gen_s")} for h in hist]}
-        say("grid run " + json.dumps(row))
-        want = xc.rounds if alg == "osafl" else 0
-        if launches != {"scored_reduce": want, "flash_attention": 0}:
-            raise AssertionError(f"grid run {alg} {kw['model']}: launches "
-                                 f"{launches}, expected scored_reduce "
-                                 f"{want}")
-        if len(hist) != xc.rounds or not all(
-                math.isfinite(h["test_loss"]) for h in hist):
-            raise AssertionError(f"grid run {alg} {kw['model']}: non-finite "
-                                 f"or missing rounds: {hist}")
-        if alg != "centralized" and not any(h["participants"] for h in hist):
-            raise AssertionError(f"grid run {alg} {kw['model']}: no round "
-                                 "had participants")
-        out.append(row)
-    return out
+def grid_phase(main: dict) -> list:
+    """The paper's comparison grid at full width: the FL main path's run
+    (``main``, OSAFL on the FCN) and ``GRID_RUNS``, each through
+    ``fl_run``."""
+    return [main] + [fl_run("grid run", alg, kw, GRID_EVAL)
+                     for alg, kw in GRID_RUNS]
 
 
 def _clock() -> float:
@@ -693,23 +732,29 @@ def main() -> int:
     flash = flash_phase()
     small_run_phase()
     small_transformer_phase()
-    _, launches = main_path_phase()
+    conv_precision_phase()
+    main = fl_run("main path", "osafl", MAIN_RUN, MAIN_EVAL)
     breakdown_phase(MAIN_RUN)
-    grid = grid_phase()
+    grid = grid_phase(main)
     for alg, kw in GRID_RUNS:
         if kw["model"] != "fcn":
             breakdown_phase(kw)
     serving = serving_phase()
     m = kern["main"]
+    # each path's own counts, each read after a reset: the FL main path,
+    # every run of the grid (the main path's among them) and the serving
+    # path; "launches" is the count of the kernel's own main path
+    by_path = {k: {"fl_main": main["launches"][k],
+                   "grid": {f"{g['alg']} {g['config']['model']}":
+                            g["launches"][k] for g in grid},
+                   "serving": serving["launches"][k]}
+               for k in ("scored_reduce", "flash_attention")}
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scored_reduce.cu",
         "replaces": "src/repro/kernels/scored_reduce.py:32",
-        # every path run with the counts reset: the FL main path, the
-        # grid's OSAFL runs and the serving path (none there)
-        "launches": (launches["scored_reduce"]
-                     + sum(g["launches"]["scored_reduce"] for g in grid)
-                     + serving["launches"]["scored_reduce"]),
+        "launches": main["launches"]["scored_reduce"],
+        "launches_by_path": by_path["scored_reduce"],
         "max_abs_err": max(m["max_abs_err"].values()),
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"]}, {
@@ -717,6 +762,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
         "launches": serving["launches"]["flash_attention"],
+        "launches_by_path": by_path["flash_attention"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}]}

@@ -5,6 +5,7 @@ there is no card. Run on the card with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import json
 
 import pytest
 import torch
@@ -79,7 +80,7 @@ def test_harness_round_launches_the_kernel_once(cuda):
 
 # the CNN and SqueezeNet take global_lr=1: at the default 16 a one-ulp
 # change of their weights moves a later round's loss by more than 1e-4
-# (tools/ulp_sensitivity.py)
+# (tests/test_torch_precision.py)
 SMALL_RUNS = {
     "cnn": dict(dataset=1, num_clients=4, rounds=2, global_lr=1.0),
     "squeezenet": dict(dataset=1, num_clients=4, rounds=2, global_lr=1.0),
@@ -105,6 +106,52 @@ def test_cuda_run_matches_cpu_run(cuda, monkeypatch, model):
         assert g["participants"] == c["participants"]
         assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
             c["test_loss"])
+
+
+GRAD_TOL = 1e-5        # relative L2, as chip_smoke.py holds it
+
+
+def _grads(model, device):
+    from repro_torch.harness import ExperimentConfig
+    from repro_torch.harness.experiments import _stacked_setup
+    from repro_torch.models.small import init_small, small_loss
+    xc = ExperimentConfig(model=model, capacity=(16, 32), seed=3,
+                          **SMALL_RUNS[model])
+    batch = _stacked_setup("osafl", xc, 64, torch.device(device)).test_batch
+    grads = torch.func.grad(lambda p: small_loss(p, batch, model)[0])(
+        init_small(xc.seed, model, device))
+    return torch.cat([g.reshape(-1).double().cpu()
+                      for g in torch.utils._pytree.tree_leaves(grads)])
+
+
+@pytest.mark.parametrize("model", ["cnn", "squeezenet"])
+def test_conv_grads_match_cpu_only_in_full_f32(cuda, monkeypatch, model):
+    """The gradients separate full f32 from cuDNN's TF32, which the run
+    gate's loss at global_lr=1 does not: printed beside them, the same
+    small run with TF32 on (the harness's hold bypassed) against the
+    CPU."""
+    import contextlib
+
+    import repro_torch.harness.experiments as tex
+    from repro_torch.device import full_f32_convolutions
+    from repro_torch.harness import ExperimentConfig, run
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cpu = _grads(model, "cpu")
+    with full_f32_convolutions():
+        f32 = _grads(model, cuda)
+    tf32 = _grads(model, cuda)
+    rel = {name: float((g - cpu).norm() / cpu.norm())
+           for name, g in (("f32", f32), ("tf32", tf32))}
+    xc = ExperimentConfig(model=model, capacity=(16, 32), seed=3,
+                          **SMALL_RUNS[model])
+    cpu_run = run("osafl", xc, eval_samples=64, device="cpu")
+    monkeypatch.setattr(tex, "full_f32_convolutions", contextlib.nullcontext)
+    tf32_run = run("osafl", xc, eval_samples=64)
+    print(json.dumps({"model": model, "grad_rel_l2": rel,
+                      "tf32_run_loss_rel": [
+                          abs(g["test_loss"] / c["test_loss"] - 1)
+                          for g, c in zip(tf32_run, cpu_run)]}))
+    assert rel["f32"] <= GRAD_TOL < rel["tf32"]
 
 
 # -- flash attention ---------------------------------------------------------

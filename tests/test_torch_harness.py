@@ -18,7 +18,7 @@ MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
            capacity=(16, 32))
 # The convolutional slices take global_lr=1: at OSAFL's default of 16 a
 # one-ulp change of their initial weights already moves the loss of a later
-# round by more than the 1e-4 held below (tools/ulp_sensitivity.py), so no
+# round by more than the 1e-4 held below (test_torch_precision.py), so no
 # two float32 implementations could be held to it there.
 CONV = dict(dataset=1, num_clients=4, rounds=2, capacity=(16, 32),
             global_lr=1.0)
