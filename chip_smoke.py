@@ -14,19 +14,30 @@ Phases, each fatal on failure:
   4. small runs on the card against the same runs on the CPU (whose plain
      paths the CPU tests tie to the JAX reference): the harness with each
      of the six algorithms and the genie on the MLP, OSAFL on the CNN,
-     SqueezeNet and LSTM; the CNN's and SqueezeNet's gradients on one
-     batch in full f32 (and, as a control the check must see, with
+     SqueezeNet and LSTM, and the loop engine with the six algorithms on
+     the MLP and OSAFL on the CNN; the CNN's and SqueezeNet's gradients
+     on one batch in full f32 (and, as a control the check must see, with
      cuDNN's TF32 on); and a reduced deepseek-coder-33b (7:1 head groups
      kept) through prefill and decode;
   5. the FL main path: ``repro_torch.harness.run("osafl", ...)`` on the FCN
      at the paper's U=256 clients, with the kernels' launch counts reset
      just before and read just after;
+  5b. the list API at full width: one round of real ``ClientUpdate``s of
+     the FCN at U=256 from ``local_train`` on the card, fed to each loop
+     server and to its stacked counterpart's ``round(updates)``, for the
+     six algorithms, from the same weights;
+  5c. the loop engine at full width: ``run("osafl", engine="loop")`` on the
+     main path's configuration, 2 rounds;
   6. a breakdown of an FL main-path round by stage;
   6b. the paper's comparison grid at its widths and U=256, depth cut to 2-3
      rounds: the five baselines and the genie on the FCN (Dataset-1; OSAFL
      there is the main path's run), and OSAFL on the CNN, SqueezeNet
      (Dataset-1) and LSTM (Dataset-2, Table IV's recipe), each run with the
      launch counts reset just before and read just after;
+  6c. determinism: the grid's CNN and SqueezeNet runs again, which must
+     repeat bit for bit, in turns with the same runs with cuDNN free to
+     pick its algorithms (the harness's hold bypassed), a control that
+     times what the hold costs;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -34,12 +45,13 @@ Phases, each fatal on failure:
      4096-position cache), launch counts reset just before and read just
      after; a profile of one prefill call by kernel; then the flash
      prefill against the KV-cache decode path on one prompt.
-Convolutions run in full f32 inside every harness run (cuDNN's TF32 is
-held off and restored after). The line before the last is one JSON object
-with every kernel's numbers ("launches" from the kernel's own main path,
-"launches_by_path" from every path);
-the last line is the result. Exits non-zero, with no result, when there is
-no CUDA card or the port's sources are not beside this file.
+Convolutions run in full f32 and deterministic inside every harness run
+(cuDNN's TF32 and benchmarking are held off and restored after). The line
+before the last is one JSON object with every kernel's numbers
+("launches" from the kernel's own main path, "launches_by_path" from
+every path); the last line is the result. Exits non-zero, with no result,
+when there is no CUDA card or the port's sources are not beside this
+file.
 """
 from __future__ import annotations
 
@@ -87,13 +99,20 @@ GRID_EVAL = 512
 # round's loss by more than the 1e-4 gate (tests/test_torch_precision.py).
 SMALL_MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
                  capacity=(16, 32), seed=3)
+SMALL_CONV = dict(dataset=1, num_clients=4, rounds=2, capacity=(16, 32),
+                  global_lr=1.0, seed=3)
 SMALL_RUNS = (
     [(alg, SMALL_MLP) for alg in ALGS]
-    + [("osafl", dict(model=m, dataset=1, num_clients=4, rounds=2,
-                      capacity=(16, 32), global_lr=1.0, seed=3))
-       for m in ("cnn", "squeezenet")]
+    + [("osafl", dict(SMALL_CONV, model=m)) for m in ("cnn", "squeezenet")]
     + [("osafl", dict(model="lstm", dataset=2, num_clients=8, rounds=3,
-                      capacity=(16, 32), seed=3))])
+                      capacity=(16, 32), seed=3))]
+    # the loop engine: every algorithm on the MLP, OSAFL on the CNN
+    + [(alg, dict(SMALL_MLP, engine="loop")) for alg in ALGS[:-1]]
+    + [("osafl", dict(SMALL_CONV, model="cnn", engine="loop"))])
+# the list API and the loop engine at full width: the main path's FCN
+# configuration (the loop engine's run cut to 2 rounds)
+LOOP_RUN = dict(MAIN_RUN, rounds=2, engine="loop")
+LIST_TOL = 1e-5         # tests/test_stacked_engine.py's loop-against-stacked
 # The gate's loss cannot see cuDNN's TF32 at global_lr=1 (about 1e-5 from
 # the CPU on an NVIDIA H100): the CNN's and SqueezeNet's gradients on
 # one batch are held to the CPU's within GRAD_TOL (relative L2) in full f32,
@@ -382,17 +401,36 @@ def small_transformer_phase() -> None:
                              f"CPU run: {err}")
 
 
-def small_run_phase() -> None:
+def scored_launches(alg: str, xc) -> int:
+    """``scored_reduce`` launches a run should make: one a round of the
+    stacked OSAFL server, none in the loop oracle (whose scores are the
+    independent implementation the kernel is held against), a baseline or
+    the genie."""
+    return xc.rounds if alg == "osafl" and xc.engine != "loop" else 0
+
+
+def small_run_phase() -> dict:
     """Each small run on the card and on the CPU with the same seed (native
     weights drawn on the host, so both start from the same numbers):
-    participants exact, ``test_loss`` within rtol 1e-4."""
+    participants exact, ``test_loss`` within rtol 1e-4, ``scored_reduce``
+    launched as ``scored_launches`` says. Returns the loop runs' launches."""
     from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.kernels import scored_reduce as sr
+    loop_launches = {}
     for alg, kw in SMALL_RUNS:
         xc = ExperimentConfig(**kw)
+        sr.scored_reduce.launches = 0
         gpu = run(alg, xc, eval_samples=64)
+        launches = sr.scored_reduce.launches
+        if launches != scored_launches(alg, xc):
+            raise AssertionError(f"small run {alg} {kw}: scored_reduce "
+                                 f"launched {launches} times")
+        if xc.engine == "loop":
+            loop_launches[f"{alg} {kw['model']}"] = launches
         cpu = run(alg, xc, eval_samples=64, device="cpu")
         for g, c in zip(gpu, cpu):
-            say(f"small run {alg} {kw['model']} round {g['round']}: cuda "
+            say(f"small run {alg} {kw['model']} {xc.engine} round "
+                f"{g['round']}: cuda "
                 f"loss {g['test_loss']:.6f} cpu loss {c['test_loss']:.6f} "
                 f"rel {abs(g['test_loss'] / c['test_loss'] - 1):.2e} "
                 f"participants {g.get('participants')}/"
@@ -405,6 +443,7 @@ def small_run_phase() -> None:
         if len(gpu) != len(cpu) or len(gpu) != xc.rounds:
             raise AssertionError(f"{alg} {kw}: {len(gpu)} rounds on the "
                                  f"card, {len(cpu)} on the CPU")
+    return loop_launches
 
 
 def conv_grads(model: str, device: str) -> tuple:
@@ -458,9 +497,9 @@ def conv_precision_phase() -> None:
 def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
     """One ``repro_torch.harness.run`` on the card with the launch counts
     reset just before and read just after; prints its rounds, wall time,
-    peak memory and launches as one JSON line. Gates: OSAFL launches
-    ``scored_reduce`` once a round, the baselines and the genie never, and
-    nothing launches flash attention; finite losses for every round; some
+    peak memory and launches as one JSON line. Gates: ``scored_reduce``
+    launched as ``scored_launches`` says (once a round of stacked OSAFL)
+    and nothing launches flash attention; finite losses for every round; some
     participants (but in the genie, which has none)."""
     from repro_torch.harness import ExperimentConfig, run
     from repro_torch.kernels import flash_attention as fa
@@ -482,7 +521,7 @@ def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
                "round", "test_loss", "test_acc", "participants",
                "round_s", "request_gen_s")} for h in hist]}
     say(f"{label} " + json.dumps(row))
-    want = xc.rounds if alg == "osafl" else 0
+    want = scored_launches(alg, xc)
     if launches != {"scored_reduce": want, "flash_attention": 0}:
         raise AssertionError(f"{label} {alg} {kw['model']}: launches "
                              f"{launches}, expected scored_reduce {want}")
@@ -496,13 +535,108 @@ def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
     return row
 
 
+def list_api_phase() -> dict:
+    """One round of real ``ClientUpdate``s at full width (``LOOP_RUN``: the
+    FCN, U=256): each client's arrivals, the scalar resource solve and
+    ``local_train`` on the card, drawn as the loop engine's first round
+    draws them; then the same list through each loop server and through
+    its stacked counterpart's ``round(updates)``, both from the same
+    weights. Gates: weights within LIST_TOL, OSAFL's scores within
+    LIST_TOL, ``scored_reduce`` launched once by the stacked OSAFL round
+    and by no other, flash attention by none. Prints each server round's
+    synchronized time; returns each round's launches."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.baselines import make_server
+    from repro_torch.core.client import local_train
+    from repro_torch.core.flatten import tree_get, tree_paths
+    from repro_torch.core.osafl import ClientUpdate
+    from repro_torch.core.resource import (NetworkConfig, make_clients,
+                                           optimize_round)
+    from repro_torch.harness import MODEL_PARAMS, ExperimentConfig
+    from repro_torch.harness.experiments import _arrive, _client_setup
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.models.small import init_small, small_loss
+    dev = torch.device("cuda")
+    xc = ExperimentConfig(**LOOP_RUN)
+    U = xc.num_clients
+    streams, rng, bufs, _ = _client_setup(xc, MAIN_EVAL, dev)
+    w0 = init_small(xc.seed, xc.model, dev)
+    clients = make_clients(rng, U, cell_radius_m=xc.cell_radius_m)
+    grad_fn = torch.func.grad(lambda p, b: small_loss(p, b, xc.model)[0])
+    t0 = _clock()
+    decisions = optimize_round(rng, NetworkConfig(), clients,
+                               MODEL_PARAMS[xc.model])
+    solve_s = _clock() - t0
+    ups = {"d": [], "w": []}
+    for c in range(U):
+        _arrive(rng, streams, bufs, xc, c)
+        kappa = decisions[c].kappa
+        if kappa < 1:
+            continue                          # straggler
+        d, w = local_train(w0, grad_fn, bufs[c], kappa, xc.local_lr,
+                           xc.batch, rng)
+        for key, tree in (("d", d), ("w", w)):
+            ups[key].append(ClientUpdate(
+                c, tree, kappa, data_size=bufs[c].size,
+                label_hist=bufs[c].label_histogram()))
+    train_s = _clock() - solve_s - t0
+    out = {"config": LOOP_RUN, "updates": len(ups["d"]),
+           "resource_solve_s": solve_s, "arrivals_local_train_s": train_s,
+           "rounds": []}
+    for alg in ALGS[:-1]:
+        fl = FLConfig(num_clients=U, local_lr=xc.local_lr,
+                      global_lr=(xc.global_lr if alg in ("osafl", "afa_cd")
+                                 else 1.0), algorithm=alg)
+        upd = ups["d" if alg in ("osafl", "fednova", "afa_cd") else "w"]
+        row, got = {"alg": alg}, {}
+        for engine in ("loop", "stacked"):
+            srv = make_server(w0, dataclasses.replace(fl, engine=engine), U,
+                              device=dev)
+            sr.scored_reduce.launches = 0
+            fa.flash_attention_bhsd.launches = 0
+            t0 = _clock()
+            params = srv.round(upd)
+            row[f"{engine}_s"] = _clock() - t0
+            row[f"{engine}_launches"] = {
+                "scored_reduce": sr.scored_reduce.launches,
+                "flash_attention": fa.flash_attention_bhsd.launches}
+            got[engine] = (params, getattr(srv, "last_scores", None))
+            del srv, params
+            torch.cuda.empty_cache()
+        (lp, ls), (sp, ss) = got["loop"], got["stacked"]
+        row["max_abs_err"] = max(
+            float((tree_get(lp, p) - tree_get(sp, p)).abs().max())
+            for p in tree_paths(lp))
+        if alg == "osafl":
+            row["scores_max_abs_err"] = float(abs(ls - ss).max())
+        del got, lp, sp
+        say("list api " + json.dumps(row))
+        want = 1 if alg == "osafl" else 0
+        none = {"scored_reduce": 0, "flash_attention": 0}
+        if (row["loop_launches"] != none or row["stacked_launches"]
+                != dict(none, scored_reduce=want)):
+            raise AssertionError(f"list api {alg}: launches {row}")
+        if not (row["max_abs_err"] <= LIST_TOL
+                and row.get("scores_max_abs_err", 0.0) <= LIST_TOL):
+            raise AssertionError(f"list api {alg}: the stacked round "
+                                 f"drifted from the loop server's: {row}")
+        out["rounds"].append(row)
+    say("list api setup " + json.dumps({k: v for k, v in out.items()
+                                        if k != "rounds"}))
+    if not 0 < out["updates"] < U:
+        raise AssertionError(f"list api: {out['updates']} updates of {U} "
+                             "clients, expected some and some stragglers")
+    return out
+
+
 def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
     """Where an OSAFL round's time goes: the stages of the harness's
     round (``repro_torch.harness.experiments._run_stacked``) in its order,
     each ended by a synchronize so that stages cannot overlap, plus the
-    resource solve on the CPU for comparison; convolutions in full f32, as
-    in a run. A separate run after the main path; its launches are not
-    counted."""
+    resource solve on the CPU for comparison; convolutions in full f32 and
+    deterministic, as in a run. A separate run after the main path; its
+    launches are not counted."""
     import numpy as np
     from repro_torch.core.client import make_vmapped_local_train
     from repro_torch.core.resource_stacked import optimize_round_batched
@@ -510,7 +644,8 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
                                          draw_arrival_batch)
     from repro_torch.harness import ExperimentConfig
     from repro_torch.harness.experiments import _stacked_setup
-    from repro_torch.device import full_f32_convolutions
+    from repro_torch.device import (deterministic_convolutions,
+                                    full_f32_convolutions)
     from repro_torch.models.small import small_loss
     dev = torch.device("cuda")
     xc = ExperimentConfig(**run_kw)
@@ -522,7 +657,7 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
         torch.cuda.synchronize()
         return time.perf_counter()
 
-    with full_f32_convolutions():
+    with full_f32_convolutions(), deterministic_convolutions():
         for t in range(rounds):
             marks = [("start", lap())]
             counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
@@ -565,6 +700,52 @@ def grid_phase(main: dict) -> list:
     ``fl_run``."""
     return [main] + [fl_run("grid run", alg, kw, GRID_EVAL)
                      for alg, kw in GRID_RUNS]
+
+
+def determinism_phase(grid: list) -> list:
+    """The grid's CNN and SqueezeNet runs again with the same seed: their
+    ``test_loss``, ``test_acc`` and ``participants`` must repeat bit for
+    bit. Around the rerun, the same run with cuDNN free to pick
+    nondeterministic algorithms (the harness's
+    ``deterministic_convolutions`` bypassed), so held and free runs
+    alternate: the free runs' ``round_s`` beside the held runs' is what
+    the hold costs; they are printed, not gated. Returns the reruns' and
+    the free runs' rows."""
+    import contextlib
+
+    import repro_torch.harness.experiments as tex
+    keys = ("test_loss", "test_acc", "participants")
+
+    def free(first: dict) -> dict:
+        held = tex.deterministic_convolutions
+        tex.deterministic_convolutions = contextlib.nullcontext
+        try:
+            return fl_run("determinism control (cuDNN free)", first["alg"],
+                          first["config"], GRID_EVAL)
+        finally:
+            tex.deterministic_convolutions = held
+
+    rows = []
+    for first in grid:
+        if first["config"]["model"] not in ("cnn", "squeezenet"):
+            continue
+        before = free(first)
+        again = fl_run("determinism rerun", first["alg"], first["config"],
+                       GRID_EVAL)
+        after = free(first)
+        same = ([[r[k] for k in keys] for r in first["rounds"]]
+                == [[r[k] for k in keys] for r in again["rounds"]])
+        say("determinism " + json.dumps({
+            "model": first["config"]["model"], "bit_identical": same,
+            "round_s": {name: [r["round_s"] for r in x["rounds"]]
+                        for name, x in (("held", first), ("free", before),
+                                        ("held_again", again),
+                                        ("free_again", after))}}))
+        if not same:
+            raise AssertionError(f"{first['config']['model']}: the same "
+                                 "seed gave another history on the card")
+        rows += [before, again, after]
+    return rows
 
 
 def _clock() -> float:
@@ -730,25 +911,36 @@ def main() -> int:
     build()
     kern = kernels_phase()
     flash = flash_phase()
-    small_run_phase()
+    small_loop = small_run_phase()
     small_transformer_phase()
     conv_precision_phase()
     main = fl_run("main path", "osafl", MAIN_RUN, MAIN_EVAL)
+    list_api = list_api_phase()
+    loop = fl_run("loop engine", "osafl", LOOP_RUN, MAIN_EVAL)
     breakdown_phase(MAIN_RUN)
     grid = grid_phase(main)
+    determinism = determinism_phase(grid)
     for alg, kw in GRID_RUNS:
         if kw["model"] != "fcn":
             breakdown_phase(kw)
     serving = serving_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
-    # every run of the grid (the main path's among them) and the serving
-    # path; "launches" is the count of the kernel's own main path
+    # every run of the grid (the main path's among them) and its
+    # determinism reruns, the loop engine at full width and its small runs,
+    # each server round of the list API, and the serving path; "launches"
+    # is the count of the kernel's own main path
     by_path = {k: {"fl_main": main["launches"][k],
                    "grid": {f"{g['alg']} {g['config']['model']}":
                             g["launches"][k] for g in grid},
+                   "determinism": [g["launches"][k] for g in determinism],
+                   "loop_fl": loop["launches"][k],
+                   "list_api": {f"{r['alg']} {e}": r[f"{e}_launches"][k]
+                                for r in list_api["rounds"]
+                                for e in ("loop", "stacked")},
                    "serving": serving["launches"][k]}
                for k in ("scored_reduce", "flash_attention")}
+    by_path["scored_reduce"]["loop_small"] = small_loop
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scored_reduce.cu",

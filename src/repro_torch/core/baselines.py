@@ -1,32 +1,147 @@
-"""The five baseline servers on the (U, N) stacked buffer, and server
-construction (``repro/core/baselines.py``: ``_StackedBufferedServer`` and
-its subclasses, ``STACKED_SERVERS`` and ``make_server``).
+"""The five baseline servers (paper Algorithms 6-10) and server
+construction (``repro/core/baselines.py``).
 
-Each server keeps one (U, N) float32 buffer on the device, plus sticky
-per-client metadata (data sizes, kappas, label histograms) in float64
-numpy arrays on the host: a client's last reported value sticks while it
-sits a round out. The aggregation weights are computed on the host in
-float64, as the reference computes them, and each round aggregates with
-one (U,) @ (U, N) product. The list-of-``ClientUpdate`` ``round()``, the
-loop servers, ``state_dict`` and the sparse cohort and cluster tiers are
-not ported yet.
+  M-FedAvg   (Alg. 6):  w^{t+1} = (1/U) sum_u w[u]
+  M-FedProx  (Alg. 7):  FedAvg aggregation; the proximal term is the
+                         clients' (core/client.py)
+  M-FedNova  (Alg. 8):  w^{t+1} = w^t - eta * tau~ * (sum_u p_u k_u) *
+                                   sum_u (p_u k_u / sum p k) d[u]
+  M-AFA-CD   (Alg. 9):  w^{t+1} = w^t - eta_g * (1/U) sum_u d[u]
+  M-FedDisco (Alg. 10): w^{t+1} = sum_u alpha_u w[u],
+                         alpha_u = ReLU(p_u - a*disco_u + b) / sum(...)
+
+Two forms of each, as in the reference. The loop servers (``SERVERS``)
+keep one parameter tree per client and a list of the last ``ClientUpdate``
+each client sent; nothing in them writes in place, since every slot starts
+as one shared tree. The stacked servers (``STACKED_SERVERS``) keep one
+(U, N) float32 buffer on the device, plus the sticky per-client metadata
+(data sizes, kappas, label histograms) in float64 numpy arrays on the
+host: a client's last reported value sticks while it sits a round out.
+Both compute the aggregation weights on the host in float64, as the
+reference does; a stacked round aggregates with one (U,) @ (U, N)
+product. ``state_dict`` and the sparse cohort and cluster tiers are not
+ported yet.
 """
 from __future__ import annotations
+
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.flatten import FlatCodec, make_codec
-from repro_torch.core.osafl import StackedOSAFLServer
+from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
+                                      tree_map)
+from repro_torch.core.osafl import (ClientUpdate, OSAFLServer,
+                                    StackedOSAFLServer)
+from repro_torch.core.scores import (tree_add, tree_scale, tree_sub,
+                                     tree_zeros_like)
 from repro_torch.device import resolve_device
+
+
+class _BufferedServer:
+    """Per-client contribution trees plus the staleness rules: a client
+    that never took part holds the global weights (weight-averaging
+    servers, an averaging no-op) or the refresh of a gradient buffer (w/eta
+    under the literal init, zeros otherwise)."""
+
+    buffers_hold_weights = True      # False => buffers hold normalized grads d
+
+    def __init__(self, params, fl: FLConfig, num_clients: int, device=None):
+        dev = resolve_device(device)
+        self.params = tree_map(lambda x: x.to(dev), params)
+        self.fl = fl
+        self.U = num_clients
+        self.participated = np.zeros(num_clients, bool)
+        self.buffer: List = [self._refresh()] * num_clients
+        self.meta: List[Optional[ClientUpdate]] = [None] * num_clients
+
+    def _refresh(self):
+        if self.buffers_hold_weights:
+            return self.params
+        if self.fl.literal_init_buffer:
+            return tree_scale(self.params, 1.0 / self.fl.local_lr)
+        return tree_zeros_like(self.params)
+
+    def _ingest(self, updates: Sequence[ClientUpdate]):
+        for up in updates:
+            self.buffer[up.uid] = up.d
+            self.participated[up.uid] = True
+            self.meta[up.uid] = up
+        refresh = self._refresh()
+        for u in np.flatnonzero(~self.participated):
+            self.buffer[u] = refresh
+
+    def _mean(self, items, ws):
+        out = tree_zeros_like(self.params)
+        for it, w in zip(items, ws):
+            out = tree_add(out, tree_scale(it, float(w)))
+        return out
+
+    def _sizes(self) -> np.ndarray:
+        return np.array([m.data_size if m else 1 for m in self.meta], float)
+
+
+class FedAvgServer(_BufferedServer):
+    def round(self, updates: Sequence[ClientUpdate]):
+        self._ingest(updates)
+        self.params = self._mean(self.buffer, np.full(self.U, 1.0 / self.U))
+        return self.params
+
+
+class FedProxServer(FedAvgServer):
+    """Aggregation identical to FedAvg; clients add the proximal term."""
+
+
+class FedNovaServer(_BufferedServer):
+    buffers_hold_weights = False
+
+    def round(self, updates: Sequence[ClientUpdate]):
+        self._ingest(updates)
+        sizes = self._sizes()
+        p = sizes / sizes.sum()
+        kap = np.array([m.kappa if m else 1 for m in self.meta], float)
+        pk = p * kap
+        tau_eff = self.fl.fednova_slowdown * pk.sum()
+        w = self.fl.local_lr * tau_eff * pk / pk.sum()
+        self.params = tree_sub(self.params, self._mean(self.buffer, w))
+        return self.params
+
+
+class AFACDServer(_BufferedServer):
+    buffers_hold_weights = False
+
+    def round(self, updates: Sequence[ClientUpdate]):
+        self._ingest(updates)
+        w = np.full(self.U, self.fl.global_lr * self.fl.local_lr / self.U)
+        self.params = tree_sub(self.params, self._mean(self.buffer, w))
+        return self.params
+
+
+class FedDiscoServer(_BufferedServer):
+    def round(self, updates: Sequence[ClientUpdate]):
+        self._ingest(updates)
+        sizes = self._sizes()
+        p = sizes / sizes.sum()
+        disco = np.zeros(self.U)
+        for u, m in enumerate(self.meta):
+            h = m.label_hist if m is not None else None
+            if h is not None:
+                uniform = np.full_like(h, 1.0 / len(h))
+                disco[u] = float(np.linalg.norm(h - uniform))
+        a, b = self.fl.feddisco_a, self.fl.feddisco_b
+        alpha = np.maximum(p - a * disco + b, 0.0)
+        alpha = alpha / max(alpha.sum(), 1e-12)
+        self.params = self._mean(self.buffer, alpha)
+        return self.params
 
 
 class _StackedBufferedServer:
     """One (U, N) f32 buffer plus the sticky per-client metadata arrays.
     ``round_stacked(d_new, active)`` writes the active rows back, refreshes
     the rows of clients that never took part (``init_row``) and sets the
-    new flat weights ``w``."""
+    new flat weights ``w`` (``_aggregate``); ``round(updates)`` does the
+    same from the loop servers' list of ``ClientUpdate``s."""
 
     buffers_hold_weights = True      # False => buffers hold normalized grads d
 
@@ -56,6 +171,31 @@ class _StackedBufferedServer:
         return (self.w / self.fl.local_lr if self.fl.literal_init_buffer
                 else torch.zeros_like(self.w))
 
+    def _ingest(self, updates: Sequence[ClientUpdate]) -> None:
+        """Scatter the updates into the buffer and merge their metadata:
+        the last update a client sent sticks (loop ``meta`` semantics)."""
+        d_new, active = scatter_updates(self.codec, updates, self.U,
+                                        device=self.w.device)
+        for up in updates:
+            self.sizes[up.uid] = up.data_size
+            self.kappas[up.uid] = up.kappa
+            if up.label_hist is not None:
+                if self.hists is None:
+                    self.hists = np.zeros((self.U, len(up.label_hist)))
+                self.hists[up.uid] = up.label_hist
+                self.has_hist[up.uid] = True
+        self._ingest_stacked(d_new, active)
+
+    def round(self, updates: Sequence[ClientUpdate]) -> dict:
+        self._ingest(updates)
+        self._aggregate()
+        return self.params
+
+    def round_stacked(self, d_new: torch.Tensor, active) -> torch.Tensor:
+        self._ingest_stacked(d_new, active)
+        self._aggregate()
+        return self.w
+
     def _ingest_stacked(self, d_new: torch.Tensor, active) -> None:
         """Write back the active rows and refresh the never-participated
         ones, in place: at U=256 clients of the FCN the buffer is 3.9 GB."""
@@ -75,10 +215,8 @@ class _StackedBufferedServer:
 
 
 class StackedFedAvgServer(_StackedBufferedServer):
-    def round_stacked(self, d_new: torch.Tensor, active) -> torch.Tensor:
-        self._ingest_stacked(d_new, active)
+    def _aggregate(self) -> None:
         self.w = self._weighted(np.full(self.U, 1.0 / self.U))
-        return self.w
 
 
 class StackedFedProxServer(StackedFedAvgServer):
@@ -104,18 +242,19 @@ class StackedFedNovaServer(_StackedBufferedServer):
             self.kappas = np.where(act, np.asarray(kappas, float),
                                    self.kappas)
         self._ingest_stacked(d_new, active)
-        self.w = self.w - self._weighted(self._nova_weights())
+        self._aggregate()
         return self.w
+
+    def _aggregate(self) -> None:
+        self.w = self.w - self._weighted(self._nova_weights())
 
 
 class StackedAFACDServer(_StackedBufferedServer):
     buffers_hold_weights = False
 
-    def round_stacked(self, d_new, active) -> torch.Tensor:
-        self._ingest_stacked(d_new, active)
+    def _aggregate(self) -> None:
         lr = self.fl.global_lr * self.fl.local_lr
         self.w = self.w - self._weighted(np.full(self.U, lr / self.U))
-        return self.w
 
 
 class StackedFedDiscoServer(_StackedBufferedServer):
@@ -142,8 +281,11 @@ class StackedFedDiscoServer(_StackedBufferedServer):
             self.hists = np.where(act[:, None], hists, self.hists)
             self.has_hist |= act
         self._ingest_stacked(d_new, active)
-        self.w = self._weighted(self._disco_weights())
+        self._aggregate()
         return self.w
+
+    def _aggregate(self) -> None:
+        self.w = self._weighted(self._disco_weights())
 
 
 STACKED_SERVERS = {
@@ -154,13 +296,22 @@ STACKED_SERVERS = {
     "feddisco": StackedFedDiscoServer,
 }
 
+SERVERS = {
+    "fedavg": FedAvgServer,
+    "fedprox": FedProxServer,
+    "fednova": FedNovaServer,
+    "afa_cd": AFACDServer,
+    "feddisco": FedDiscoServer,
+}
+
 
 def make_server(params, fl: FLConfig, num_clients: int, device=None):
-    """The dense stacked server of ``fl.algorithm``: ``StackedOSAFLServer``
-    or one of ``STACKED_SERVERS``. The loop servers, the sparse cohort pool
-    and the cluster tier raise until they are ported."""
+    """The dense server of ``fl.algorithm`` on ``fl.engine``: on
+    ``"stacked"``, ``StackedOSAFLServer`` or one of ``STACKED_SERVERS``; on
+    ``"loop"``, ``OSAFLServer`` or one of ``SERVERS``. The sparse cohort
+    pool and the cluster tier raise until they are ported."""
     missing = []
-    if fl.engine != "stacked":
+    if fl.engine not in ("stacked", "loop"):
         missing.append(f"engine={fl.engine!r}")
     if fl.cohort_size:
         missing.append(f"cohort_size={fl.cohort_size}")
@@ -169,8 +320,12 @@ def make_server(params, fl: FLConfig, num_clients: int, device=None):
     if missing:
         raise NotImplementedError(
             "not ported to repro_torch yet: " + ", ".join(missing)
-            + " (ported: the dense stacked servers)")
+            + " (ported: the dense stacked and loop servers)")
+    if fl.engine == "stacked":
+        if fl.algorithm == "osafl":
+            return StackedOSAFLServer(params, fl, num_clients, device=device)
+        return STACKED_SERVERS[fl.algorithm](params, fl, num_clients,
+                                             device=device)
     if fl.algorithm == "osafl":
-        return StackedOSAFLServer(params, fl, num_clients, device=device)
-    return STACKED_SERVERS[fl.algorithm](params, fl, num_clients,
-                                         device=device)
+        return OSAFLServer(params, fl, num_clients, device=device)
+    return SERVERS[fl.algorithm](params, fl, num_clients, device=device)

@@ -1,4 +1,6 @@
-"""Client-side local training (paper eqs. 14-16), whole cohort at once.
+"""Client-side local training (paper eqs. 14-16), one client at a time
+(``local_train``, the loop engine's) or the whole cohort at once
+(``make_vmapped_local_train``, the stacked engine's).
 
 A client starts from the global model, takes kappa_u mini-batch SGD steps on
 its FIFO dataset and returns the normalized accumulated gradient
@@ -8,11 +10,41 @@ reference.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.flatten import tree_map
+from repro_torch.core.buffer import OnlineBuffer
+from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+from repro_torch.core.scores import tree_scale, tree_sub
+
+
+def _sgd_step(params, batch, lr, grad_fn, prox_mu=0.0, global_params=None):
+    g = grad_fn(params, batch)
+    if prox_mu:
+        g = tree_map(lambda gg, w, w0: gg + prox_mu * (w - w0),
+                     g, params, global_params)
+    return tree_map(lambda w, gg: w - lr * gg, params, g)
+
+
+def local_train(global_params, grad_fn: Callable, buffer: OnlineBuffer,
+                kappa: int, lr: float, batch_size: int,
+                rng: np.random.Generator, prox_mu: float = 0.0
+                ) -> Tuple[dict, dict]:
+    """Run kappa local SGD steps on batches drawn from ``buffer`` with
+    ``rng``, in the reference's order, each copied once to the weights'
+    device. Returns (d_u, w_final)."""
+    device = tree_get(global_params, tree_paths(global_params)[0]).device
+    params = global_params
+    for _ in range(kappa):
+        bx, by = buffer.sample_batch(rng, batch_size)
+        batch = {"x": torch.as_tensor(bx, device=device),
+                 "y": torch.as_tensor(by, device=device)}
+        params = _sgd_step(params, batch, lr, grad_fn, prox_mu=prox_mu,
+                           global_params=global_params if prox_mu else None)
+    d = tree_scale(tree_sub(global_params, params), 1.0 / (lr * kappa))
+    return d, params
 
 
 def make_local_train_body(grad_fn: Callable, lr: float, kappa_max: int,
@@ -29,11 +61,8 @@ def make_local_train_body(grad_fn: Callable, lr: float, kappa_max: int,
         params = global_params
         for t in range(kappa_max):
             batch_t = tree_map(lambda b: b[t], batch_u)
-            g = grad_fn(params, batch_t)
-            if prox_mu:
-                g = tree_map(lambda gg, w, w0: gg + prox_mu * (w - w0),
-                             g, params, global_params)
-            stepped = tree_map(lambda w, gg: w - lr * gg, params, g)
+            stepped = _sgd_step(params, batch_t, lr, grad_fn, prox_mu,
+                                global_params)
             params = tree_map(lambda n, o: torch.where(t < kappa_u, n, o),
                               stepped, params)
         denom = lr * torch.clamp(kappa_u, min=1).float()

@@ -11,7 +11,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 
 def tree_paths(tree, prefix: tuple = ()) -> list:
@@ -81,6 +84,25 @@ class FlatCodec:
             mat[:, o:o + s].reshape((U,) + sh).to(dt)
             for o, s, sh, dt in zip(self.offsets, self.sizes, self.shapes,
                                     self.dtypes)])
+
+
+def scatter_updates(codec: FlatCodec, updates, num_clients: int,
+                    device=None):
+    """Scatter a sparse list of client updates into a dense (U, n) float32
+    matrix on ``device`` (``None``: the CUDA device) and a numpy bool
+    participation mask. Each update needs ``.uid`` and ``.d``, where ``.d``
+    is a tree of the codec's layout or an already-flat (n,) row. Every
+    stacked server's list-API ``round`` goes through here."""
+    dev = resolve_device(device)
+    active = np.zeros(num_clients, bool)
+    d_new = torch.zeros((num_clients, codec.n), dtype=torch.float32,
+                        device=dev)
+    for up in updates:
+        row = (up.d if getattr(up.d, "ndim", None) == 1
+               else codec.flatten(up.d))
+        d_new[up.uid] = torch.as_tensor(row, dtype=torch.float32, device=dev)
+        active[up.uid] = True
+    return d_new, active
 
 
 def make_codec(template) -> FlatCodec:

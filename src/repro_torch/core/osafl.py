@@ -1,8 +1,10 @@
-"""OSAFL server (paper Algorithm 2), stacked: every client's contribution is
-one row of a (U, N) float32 buffer.
+"""OSAFL server (paper Algorithm 2), two ways: ``OSAFLServer`` keeps each
+client's contribution as a parameter tree and loops over clients (the
+paper-faithful oracle); ``StackedOSAFLServer`` keeps it as one row of a
+(U, N) float32 buffer.
 
-Participating clients overwrite their row; rows of clients that never took
-part are refreshed (to zero, or to w^t/eta under Algorithm 2's literal
+Participating clients overwrite their slot; slots of clients that never
+took part are refreshed (to zero, or to w^t/eta under Algorithm 2's literal
 init). Scores lambda_u = (chi + cos(d_u, mean)) / (chi + 1) (eqs. 19-21)
 are computed on the buffer, and the global model takes the scored SGD step
 (eq. 17): w <- w - eta~ * eta * sum_u alpha_u lambda_u d[u].
@@ -10,16 +12,27 @@ are computed on the buffer, and the global model takes the scored SGD step
 """
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.flatten import FlatCodec, make_codec
+from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
+                                      tree_map)
+from repro_torch.core.scores import (lambda_scores, tree_add, tree_scale,
+                                     tree_sub, tree_zeros_like)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ref import scored_reduce_reference
 from repro_torch.kernels.scored_reduce import scored_reduce
+
+
+def _refuse_sketches(fl: FLConfig) -> None:
+    if fl.score_sketch_dim:
+        raise NotImplementedError(
+            "score_sketch_dim > 0 is not ported to repro_torch yet (ROADMAP "
+            "A6): the reference draws its sketch signs from jax's threefry")
 
 
 def make_stacked_round_body(fl: FLConfig):
@@ -34,10 +47,7 @@ def make_stacked_round_body(fl: FLConfig):
     "kernel"``, which takes its plain version for CPU tensors) or the
     plain-torch oracle (``"reference"``); the mean and the final weighted sum
     are plain torch ops, as the reference leaves them outside its kernel."""
-    if fl.score_sketch_dim:
-        raise NotImplementedError(
-            "score_sketch_dim > 0 is not ported to repro_torch yet: the "
-            "reference draws its sketch signs from jax's threefry")
+    _refuse_sketches(fl)
     if fl.score_backend == "kernel":
         reduce = scored_reduce
     elif fl.score_backend == "reference":
@@ -72,10 +82,71 @@ def make_stacked_round_body(fl: FLConfig):
     return rnd
 
 
+@dataclass
+class ClientUpdate:
+    uid: int
+    d: object                        # normalized accumulated gradient tree
+    kappa: int
+    data_size: int = 0
+    label_hist: Optional[np.ndarray] = None   # only consumed by M-FedDisco
+
+
+class OSAFLServer:
+    """Paper-faithful per-client Algorithm 2 on parameter trees. It is the
+    independent implementation the stacked server and its kernel are held
+    against, so it scores with ``scores.lambda_scores`` and never with
+    ``scored_reduce``. Every slot starts as one shared tree, so nothing here
+    writes in place."""
+
+    def __init__(self, params, fl: FLConfig, num_clients: int,
+                 alphas: Optional[np.ndarray] = None, device=None):
+        _refuse_sketches(fl)
+        dev = resolve_device(device)
+        self.params = tree_map(lambda x: x.to(dev), params)
+        self.fl = fl
+        self.U = num_clients
+        self.alphas = (np.full(num_clients, 1.0 / num_clients)
+                       if alphas is None else alphas)
+        self.d_buffer: List = [self._refresh()] * num_clients
+        self.participated = np.zeros(num_clients, bool)
+        self.last_scores = np.ones(num_clients)
+
+    def _refresh(self):
+        """Algorithm 2 lines 1 and 17: the slot of a client that never took
+        part holds w/eta under the literal init, zeros otherwise."""
+        if self.fl.literal_init_buffer:
+            return tree_scale(self.params, 1.0 / self.fl.local_lr)
+        return tree_zeros_like(self.params)
+
+    def round(self, updates: Sequence[ClientUpdate]) -> dict:
+        fl = self.fl
+        for up in updates:
+            self.d_buffer[up.uid] = up.d
+            self.participated[up.uid] = True
+        refresh = self._refresh()
+        for u in np.flatnonzero(~self.participated):
+            self.d_buffer[u] = refresh
+        lam = lambda_scores(self.d_buffer, fl.chi)
+        if fl.stale_scores:
+            # weight THIS round's updates with the PREVIOUS round's scores
+            # (lam becomes next round's)
+            lam, self._lam_next = getattr(self, "_lam_next",
+                                          np.ones(self.U)), lam
+        self.last_scores = lam
+        step = tree_zeros_like(self.params)
+        for u in range(self.U):
+            w = float(self.alphas[u] * lam[u])
+            step = tree_add(step, tree_scale(self.d_buffer[u], w))
+        lr = fl.global_lr * fl.local_lr
+        self.params = tree_sub(self.params, tree_scale(step, lr))
+        return self.params
+
+
 class StackedOSAFLServer:
     """Algorithm 2 on a (U, N) contribution buffer. ``round_stacked(d_new,
     active)`` takes a dense (U, N) update matrix (from
-    ``client.make_vmapped_local_train``) and a participation mask."""
+    ``client.make_vmapped_local_train``) and a participation mask;
+    ``round(updates)`` takes the loop server's list of ``ClientUpdate``s."""
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
                  alphas: Optional[np.ndarray] = None, device=None):
@@ -116,3 +187,9 @@ class StackedOSAFLServer:
             d_new, active, self.alphas)
         self.last_scores = lam_use.cpu().numpy()
         return self.w
+
+    def round(self, updates: Sequence[ClientUpdate]) -> dict:
+        d_new, active = scatter_updates(self.codec, updates, self.U,
+                                        device=self.w.device)
+        self.round_stacked(d_new, active)
+        return self.params

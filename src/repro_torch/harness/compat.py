@@ -187,16 +187,16 @@ RULES = (
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to repro_torch yet (the port runs every "
             "algorithm on the dense stacked dispatch round, engine "
-            "'stacked' or 'auto', and the centralized genie: "
-            "round_backend='dispatch', request_backend='python', "
-            "resource_backend='x64', no mesh, scenario ''/'null', no "
-            "checkpoints)")
+            "'stacked' or 'auto', and on the per-client loop oracle, engine "
+            "'loop', and the centralized genie: round_backend='dispatch', "
+            "request_backend='python', resource_backend='x64', no mesh, "
+            "scenario ''/'null', no checkpoints)")
 
 
 #: What the port does not run yet, checked after ``RULES``.
 PORT_RULES = (
     Rule("port-engine",
-         lambda p: p.engine not in ("stacked", "centralized"),
+         lambda p: p.engine not in ("stacked", "loop", "centralized"),
          lambda p: _not_ported(f"engine={p.engine!r}")),
     Rule("port-round-backend",
          lambda p: p.round_backend != "dispatch",

@@ -1,7 +1,8 @@
 """The experiment harness of the port: ``run(alg, xc)`` over the dense
-stacked dispatch round for OSAFL and the five baselines, and the
-centralized genie; the port of ``repro/harness/experiments.py``'s
-``_run_stacked`` and ``_run_centralized``.
+stacked dispatch round or the per-client loop oracle for OSAFL and the five
+baselines, and the centralized genie; the port of
+``repro/harness/experiments.py``'s ``_run_stacked``, ``_run_loop`` and
+``_run_centralized``.
 
 Each stacked round: Binomial arrivals drawn from the per-user request
 streams and committed FIFO (``StackedOnlineBuffer``), the batched resource
@@ -11,8 +12,12 @@ whose score reduction is the CUDA kernel on the card, or one of the
 baselines' ``STACKED_SERVERS``) and an evaluation of the global model. The
 host draws consume one ``np.random.Generator`` in exactly the reference's
 order, so with the same seed and weights the two packages see the same
-arrivals, kappas and batches. A run holds cuDNN's convolutions in full
-f32 (``full_f32_convolutions``).
+arrivals, kappas and batches. The loop oracle does the same one client at
+a time: its arrivals, scalar resource solve and ``local_train``, and a loop
+server (``OSAFLServer``, which scores without the kernel, or one of
+``SERVERS``). A run holds cuDNN's convolutions in full f32
+(``full_f32_convolutions``) and to deterministic algorithms
+(``deterministic_convolutions``).
 """
 from __future__ import annotations
 
@@ -27,16 +32,19 @@ from repro_torch.configs.base import ExperimentConfig, FLConfig
 from repro_torch.core.baselines import make_server
 from repro_torch.core.buffer import OnlineBuffer, binomial_arrivals
 from repro_torch.core.buffer_stacked import StackedOnlineBuffer
-from repro_torch.core.client import make_vmapped_local_train
+from repro_torch.core.client import local_train, make_vmapped_local_train
 from repro_torch.core.flatten import tree_map
-from repro_torch.core.resource import NetworkConfig, make_clients
+from repro_torch.core.osafl import ClientUpdate
+from repro_torch.core.resource import (NetworkConfig, make_clients,
+                                       optimize_round)
 from repro_torch.core.resource_stacked import (optimize_round_batched,
                                                stack_clients)
 from repro_torch.data.online import (binomial_arrivals_batched,
                                      dataset_layout, draw_arrival_batch,
                                      pad_arrival_batch)
 from repro_torch.data.video_caching import make_population
-from repro_torch.device import full_f32_convolutions, resolve_device
+from repro_torch.device import (deterministic_convolutions,
+                                full_f32_convolutions, resolve_device)
 from repro_torch.harness.compat import resolve
 from repro_torch.models.small import init_small, small_loss
 
@@ -176,14 +184,12 @@ def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
     return history
 
 
-def _run_centralized(xc: ExperimentConfig, eval_samples: int,
-                     device: torch.device) -> list:
-    """The genie baseline: every round pools all clients' current FIFO
-    datasets and takes 5 SGD steps of batch 4 x ``xc.batch`` on the pool.
-    Rows carry ``round``, ``test_loss`` and ``test_acc`` as the reference's
-    do, plus the port's ``request_gen_s`` (the arrival draws) and
-    ``round_s``."""
-    model = xc.model
+def _client_setup(xc: ExperimentConfig, eval_samples: int,
+                  device: torch.device) -> tuple:
+    """The loop oracle's and the genie's setup, in the reference's order of
+    host draws: the request streams, each client's capacity and initial
+    FIFO fill, and the eval set (each client's own next requests). Returns
+    ``(streams, rng, bufs, test_batch)``."""
     _, streams = make_population(xc.seed, xc.num_clients, topk=xc.topk)
     rng = np.random.default_rng(xc.seed)
     feat_shape, dtype = dataset_layout(xc.dataset)
@@ -201,17 +207,87 @@ def _run_centralized(xc: ExperimentConfig, eval_samples: int,
                              device=device),
         "y": torch.as_tensor(np.concatenate([t[1] for t in tests]),
                              device=device)}
+    return streams, rng, bufs, test_batch
+
+
+def _arrive(rng, streams, bufs, xc: ExperimentConfig, c: int) -> float:
+    """Client ``c``'s Binomial arrivals, staged and committed FIFO. Returns
+    the seconds spent drawing them (the round's ``request_gen_s``)."""
+    t0 = time.perf_counter()
+    n = binomial_arrivals(rng, xc.arrivals, streams[c].user.p_ac)
+    arrived = _draw(streams[c], n, xc.dataset) if n else None
+    req_s = time.perf_counter() - t0
+    if arrived is not None:
+        bufs[c].stage(*arrived)
+    bufs[c].commit()
+    return req_s
+
+
+def _run_loop(alg: str, xc: ExperimentConfig, eval_samples: int,
+              device: torch.device) -> list:
+    """The per-client loop oracle (the reference's ``_run_loop`` without its
+    checkpoints); one history row per round. Each round solves every
+    client's resources, then for each client in turn draws its arrivals and
+    runs ``local_train`` unless it is a straggler (kappa < 1), and hands
+    the list of ``ClientUpdate``s to the loop server."""
+    model, U = xc.model, xc.num_clients
+    streams, rng, bufs, test_batch = _client_setup(xc, eval_samples, device)
+    grad_fn = torch.func.grad(lambda p, b: small_loss(p, b, model)[0])
+    fl = FLConfig(num_clients=U, local_lr=xc.local_lr,
+                  global_lr=(xc.global_lr if alg in ("osafl", "afa_cd")
+                             else 1.0),
+                  algorithm=alg, engine="loop")
+    server = make_server(init_small(xc.seed, model, device), fl, U,
+                         device=device)
+    net = NetworkConfig()
+    clients_sys = make_clients(rng, U, cell_radius_m=xc.cell_radius_m)
+    n_params = MODEL_PARAMS.get(model, 1_000_000)
+    prox_mu = fl.fedprox_mu if alg == "fedprox" else 0.0
+    history = []
+    for t in range(xc.rounds):
+        t_start = time.perf_counter()
+        if xc.use_resource_opt:
+            decisions = optimize_round(rng, net, clients_sys, n_params)
+        req_s, updates = 0.0, []
+        for c in range(U):
+            req_s += _arrive(rng, streams, bufs, xc, c)
+            kappa = (decisions[c].kappa if xc.use_resource_opt
+                     else fl.kappa_max)
+            if kappa < 1:
+                continue                      # straggler
+            d, w = local_train(server.params, grad_fn, bufs[c], kappa,
+                               fl.local_lr, xc.batch, rng, prox_mu=prox_mu)
+            updates.append(ClientUpdate(
+                c, d if alg in ("osafl", "fednova", "afa_cd") else w, kappa,
+                data_size=bufs[c].size, label_hist=bufs[c].label_histogram()))
+        server.round(updates)
+        loss, m = small_loss(server.params, test_batch, model)
+        _synchronize(device)         # round_s covers all of the round's work
+        round_s = time.perf_counter() - t_start
+        history.append({"round": t, "test_loss": float(loss),
+                        "test_acc": float(m["accuracy"]),
+                        "participants": len(updates),
+                        "request_gen_s": req_s,
+                        "round_s": round_s})
+    return history
+
+
+def _run_centralized(xc: ExperimentConfig, eval_samples: int,
+                     device: torch.device) -> list:
+    """The genie baseline: every round pools all clients' current FIFO
+    datasets and takes 5 SGD steps of batch 4 x ``xc.batch`` on the pool.
+    Rows carry ``round``, ``test_loss`` and ``test_acc`` as the reference's
+    do, plus the port's ``request_gen_s`` (the arrival draws) and
+    ``round_s``."""
+    model = xc.model
+    streams, rng, bufs, test_batch = _client_setup(xc, eval_samples, device)
     params = init_small(xc.seed, model, device)
     grad_fn = torch.func.grad(lambda p, b: small_loss(p, b, model)[0])
     history = []
     for t in range(xc.rounds):
         t_start = time.perf_counter()
-        for c, s in enumerate(streams):
-            n = binomial_arrivals(rng, xc.arrivals, s.user.p_ac)
-            if n:
-                bufs[c].stage(*_draw(s, n, xc.dataset))
-            bufs[c].commit()
-        req_s = time.perf_counter() - t_start
+        req_s = sum(_arrive(rng, streams, bufs, xc, c)
+                    for c in range(xc.num_clients))
         xs, ys = zip(*[b.dataset() for b in bufs])
         X, Y = np.concatenate(xs), np.concatenate(ys)
         for _ in range(5):                     # kappa=5 epochs-ish steps
@@ -239,7 +315,8 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
     ``participants``).
 
     ``alg`` is one of ``ALL_ALGS`` on the stacked engine (``xc.engine``
-    ``"stacked"`` or ``"auto"``), or ``"centralized"`` (or
+    ``"stacked"`` or ``"auto"``) or on the per-client loop oracle
+    (``xc.engine="loop"``), or ``"centralized"`` (or
     ``xc.engine="centralized"``) for the pooled-data genie. The whole
     configuration is validated up front (``repro_torch.harness.compat``);
     the knobs the port does not run yet — a mesh, checkpoint arguments and
@@ -251,7 +328,9 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
                    checkpoint=checkpoint)
     _LOG.info("resolved experiment plan: %s", plan.describe())
     device = resolve_device(device)
-    with full_f32_convolutions():
+    with full_f32_convolutions(), deterministic_convolutions():
         if plan.engine == "centralized":
             return _run_centralized(xc, eval_samples, device)
+        if plan.engine == "loop":
+            return _run_loop(alg, xc, eval_samples, device)
         return _run_stacked(alg, xc, eval_samples, device)

@@ -108,6 +108,69 @@ def test_cuda_run_matches_cpu_run(cuda, monkeypatch, model):
             c["test_loss"])
 
 
+@pytest.mark.parametrize("model", ["cnn", "squeezenet"])
+def test_conv_reruns_are_bit_identical(cuda, model):
+    """The same seed gives the same history bit for bit (the reference's
+    contract): cuDNN is held to deterministic algorithms inside a run."""
+    from repro_torch.harness import ExperimentConfig, run
+    xc = ExperimentConfig(model=model, capacity=(16, 32), seed=3,
+                          **SMALL_RUNS[model])
+    keys = ("test_loss", "test_acc", "participants")
+    first, again = (run("osafl", xc, eval_samples=64) for _ in range(2))
+    assert [[h[k] for k in keys] for h in first] == [
+        [h[k] for k in keys] for h in again]
+
+
+@pytest.mark.parametrize("alg", ["osafl", "fedavg"])
+def test_loop_run_matches_cpu_run(cuda, alg):
+    """The loop engine on the card against the CPU; it never scores through
+    the kernel."""
+    from repro_torch.harness import ExperimentConfig, run
+    xc = ExperimentConfig(model="mlp", dataset=2, num_clients=16, rounds=3,
+                          capacity=(16, 32), seed=3, engine="loop")
+    before = sr.scored_reduce.launches
+    gpu = run(alg, xc, eval_samples=64)
+    assert sr.scored_reduce.launches == before
+    cpu = run(alg, xc, eval_samples=64, device="cpu")
+    assert len(gpu) == len(cpu) == xc.rounds
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
+
+
+def test_list_round_matches_loop_server(cuda):
+    """``StackedOSAFLServer.round(updates)`` against ``OSAFLServer.round``
+    on the same list on the card, 3 rounds of partial participation: one
+    ``scored_reduce`` launch a round, all of them the stacked server's."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.baselines import make_server
+    from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+    from repro_torch.core.osafl import ClientUpdate
+    from repro_torch.models.small import init_small
+    U = 12
+    p = init_small(0, "mlp", cuda)
+    loop, stacked = (make_server(p, FLConfig(engine=e, global_lr=4.0), U,
+                                 device=cuda) for e in ("loop", "stacked"))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for r in range(3):
+        ups = [ClientUpdate(u, tree_map(lambda v: 0.1 * torch.randn(
+            v.shape, generator=gen, device=cuda), p), 1)
+            for u in range(r, U, 2)]
+        before = sr.scored_reduce.launches
+        a = loop.round(ups)
+        assert sr.scored_reduce.launches == before
+        b = stacked.round(ups)
+        torch.cuda.synchronize()
+        assert sr.scored_reduce.launches == before + 1
+        for path in tree_paths(a):
+            torch.testing.assert_close(tree_get(a, path), tree_get(b, path),
+                                       rtol=0, atol=1e-5)
+        torch.testing.assert_close(torch.as_tensor(loop.last_scores),
+                                   torch.as_tensor(stacked.last_scores),
+                                   rtol=0, atol=1e-5, check_dtype=False)
+
+
 GRAD_TOL = 1e-5        # relative L2, as chip_smoke.py holds it
 
 

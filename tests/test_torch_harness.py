@@ -70,6 +70,9 @@ BAD = [
     dict(engine="loop", request_backend="stacked"),
     dict(cohort_size=99), dict(participation=0.5),
     dict(round_backend="fused", request_backend="stacked", cohort_size=4),
+    # the reference's rules on the loop oracle, each under its own key
+    dict(engine="loop", cohort_size=4), dict(engine="loop", num_clusters=2),
+    dict(engine="loop", round_backend="fused"),
 ]
 
 
@@ -87,7 +90,7 @@ def test_reference_rules_name_the_same_failure(reference, change):
 
 
 @pytest.mark.parametrize("change,kwargs,key", [
-    (dict(engine="loop"), {}, "port-engine"),
+    (dict(engine="loop"), dict(checkpoint=True), "port-checkpoint"),
     (dict(engine="pod"), {}, "port-engine"),
     (dict(round_backend="fused", request_backend="stacked"), {},
      "port-round-backend"),
@@ -132,6 +135,13 @@ def test_resolve_accepts_every_algorithm_and_the_genie(alg):
     assert resolve(alg, xc).engine == "centralized"
 
 
+@pytest.mark.parametrize("alg", ALL_ALGS)
+def test_resolve_accepts_the_loop_engine_for_every_algorithm(alg):
+    plan = resolve(alg, ExperimentConfig(num_clients=8, engine="loop"))
+    assert plan.engine == "loop"
+    assert f"engine=loop alg={alg}" in plan.describe()
+
+
 @pytest.mark.parametrize("alg", ["osafl", "centralized"])
 def test_run_holds_convolutions_in_full_f32(monkeypatch, alg):
     """cuDNN's TF32 convolutions are off for the whole run, forward and
@@ -149,3 +159,28 @@ def test_run_holds_convolutions_in_full_f32(monkeypatch, alg):
         run(alg, ExperimentConfig(num_clients=2), device="cpu")
     assert seen == [False]
     assert torch.backends.cudnn.allow_tf32 is True
+
+
+@pytest.mark.parametrize("alg,engine", [("osafl", "stacked"),
+                                        ("fedavg", "loop"),
+                                        ("centralized", "centralized")])
+def test_run_holds_cudnn_deterministic(monkeypatch, alg, engine):
+    """cuDNN is held to deterministic algorithms without benchmarking for
+    the whole run of every engine, and the caller's settings come back
+    after, also on an error."""
+    seen = []
+
+    def body(*args):
+        seen.append((torch.backends.cudnn.deterministic,
+                     torch.backends.cudnn.benchmark))
+        raise RuntimeError("stop")
+    for name in ("_run_stacked", "_run_loop", "_run_centralized"):
+        monkeypatch.setattr(tex, name, body)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", False)
+    monkeypatch.setattr(torch.backends.cudnn, "benchmark", True)
+    with pytest.raises(RuntimeError, match="stop"):
+        run(alg, ExperimentConfig(num_clients=2, engine=engine),
+            device="cpu")
+    assert seen == [(True, False)]
+    assert torch.backends.cudnn.deterministic is False
+    assert torch.backends.cudnn.benchmark is True

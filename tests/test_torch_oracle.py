@@ -31,6 +31,7 @@ _REFERENCE_MODULES = (
     "repro.core.buffer", "repro.core.buffer_stacked",
     "repro.core.client", "repro.core.flatten", "repro.core.osafl",
     "repro.core.pod", "repro.core.resource", "repro.core.resource_stacked",
+    "repro.core.scores",
     "repro.data.online", "repro.data.video_caching", "repro.harness",
     "repro.kernels.ops", "repro.kernels.ref", "repro.kernels.scored_reduce",
     "repro.models.attention", "repro.models.layers", "repro.models.small",

@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from repro_torch.configs.base import FLConfig
-from repro_torch.core.baselines import STACKED_SERVERS, make_server
-from repro_torch.core.osafl import StackedOSAFLServer, make_stacked_round_body
+from repro_torch.core.baselines import SERVERS, STACKED_SERVERS, make_server
+from repro_torch.core.osafl import (OSAFLServer, StackedOSAFLServer,
+                                    make_stacked_round_body)
 from repro_torch.models import small
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
 
@@ -134,7 +135,7 @@ def test_make_server_returns_each_stacked_server(alg):
 
 @pytest.mark.parametrize("change", [
     dict(engine="pod"), dict(cohort_size=4), dict(num_clusters=1),
-    dict(engine="loop"),
+    dict(engine="loop", score_sketch_dim=64),
 ])
 def test_make_server_rejects_what_is_not_ported(change):
     fl = dataclasses.replace(FLConfig(engine="stacked"), **change)
@@ -143,6 +144,16 @@ def test_make_server_rejects_what_is_not_ported(change):
         make_server(p, fl, 4, device="cpu")
     assert isinstance(make_server(p, FLConfig(engine="stacked"), 4,
                                   device="cpu"), StackedOSAFLServer)
+
+
+@pytest.mark.parametrize("alg", ["osafl"] + sorted(SERVERS))
+def test_make_server_returns_each_loop_server(alg):
+    p = small.init_small(0, "mlp", device="cpu")
+    srv = make_server(p, FLConfig(engine="loop", algorithm=alg), 4,
+                      device="cpu")
+    assert type(srv) is (OSAFLServer if alg == "osafl" else SERVERS[alg])
+    assert len(srv.d_buffer if alg == "osafl" else srv.buffer) == 4
+    assert set(srv.params) == set(p)
 
 
 def test_sketched_scores_are_refused():
