@@ -38,6 +38,23 @@ Phases, each fatal on failure:
      repeat bit for bit, in turns with the same runs with cuDNN free to
      pick its algorithms (the harness's hold bypassed), a control that
      times what the hold costs;
+  6d. the request model: the main path's configuration again with the
+     stacked request model and with the python streams, in turns
+     (``request_gen_s``, ``round_s``, peak memory of each); then both
+     paper presets as configured (stacked requests), cut to 3 rounds:
+     Table II (FCN, topk 2, capacities 80-160) and Table IV (LSTM,
+     Dataset-2, capacities 320-640, ``local_lr`` 0.2, ``global_lr`` 20);
+     small stacked-request runs on the card against the CPU;
+  6e. the f32 resource solve: one U=256 batch through the x64 and the f32
+     solve on the card, timed, held to DESIGN.md's tolerance; then the
+     main path with ``resource_backend="f32"``;
+  6f. checkpoints at full width: the main path with stacked requests, 4
+     rounds, a snapshot every 2 (async v2 writer, ``keep_last=1``, round 2
+     claimed), then a run resumed from round 2 whose rounds 2-3 and final
+     snapshot must equal the first run's bit for bit; snapshot bytes, the
+     time ``submit`` holds the loop, the writer's and the loads' times,
+     free disk and host memory; then the loop engine's blocking v1 resume
+     on the MLP;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -135,6 +152,30 @@ FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
 FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
                  "flash_f32_kernel")
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the paper presets as configured (benchmarks/table2_dataset1.py:31-36 and
+# table4_dataset2.py:30-36: U=256, stacked requests), depth cut to 3 rounds
+PRESET_RUNS = (
+    ("table II", dict(model="fcn", dataset=1, num_clients=MAIN_U,
+                      capacity=(80, 160), topk=2, rounds=3, seed=0,
+                      request_backend="stacked")),
+    ("table IV", dict(model="lstm", dataset=2, num_clients=MAIN_U,
+                      capacity=(320, 640), arrivals=8, local_lr=0.2,
+                      global_lr=20.0, topk=1, rounds=3, seed=0,
+                      request_backend="stacked")))
+# stacked requests, card against CPU (the noise is drawn on the host, so
+# the card's stream is the CPU's)
+STACKED_SMALL = (
+    ("osafl", dict(SMALL_MLP, request_backend="stacked")),
+    ("osafl", dict(model="fcn", dataset=1, num_clients=8, rounds=2,
+                   capacity=(16, 32), seed=3, request_backend="stacked")))
+# checkpoint and resume at full width: the main path with stacked requests,
+# 4 rounds, a snapshot every 2; at Table II's capacities when the machine
+# cannot hold two full-width snapshots on disk and both loaded in memory
+CKPT_RUN = dict(MAIN_RUN, rounds=4, request_backend="stacked")
+CKPT_EVERY = 2
+LOOP_RESUME = dict(SMALL_MLP, rounds=4, engine="loop")
+# DESIGN.md's f32 solve contract against x64
+F32_FLIPS, F32_MEDIAN_REL = 0.10, 1e-3
 # the serving path: deepseek-coder-33b, depth cut 62 -> 8 (f32 weights of
 # all 62 layers are 133 GB, more than the card holds)
 SERVE_LAYERS = 8
@@ -409,15 +450,16 @@ def scored_launches(alg: str, xc) -> int:
     return xc.rounds if alg == "osafl" and xc.engine != "loop" else 0
 
 
-def small_run_phase() -> dict:
+def small_run_phase(runs=SMALL_RUNS) -> dict:
     """Each small run on the card and on the CPU with the same seed (native
     weights drawn on the host, so both start from the same numbers):
     participants exact, ``test_loss`` within rtol 1e-4, ``scored_reduce``
-    launched as ``scored_launches`` says. Returns the loop runs' launches."""
+    launched as ``scored_launches`` says. Returns the loop runs' launches
+    and those of the stacked-request runs."""
     from repro_torch.harness import ExperimentConfig, run
     from repro_torch.kernels import scored_reduce as sr
     loop_launches = {}
-    for alg, kw in SMALL_RUNS:
+    for alg, kw in runs:
         xc = ExperimentConfig(**kw)
         sr.scored_reduce.launches = 0
         gpu = run(alg, xc, eval_samples=64)
@@ -425,11 +467,12 @@ def small_run_phase() -> dict:
         if launches != scored_launches(alg, xc):
             raise AssertionError(f"small run {alg} {kw}: scored_reduce "
                                  f"launched {launches} times")
-        if xc.engine == "loop":
+        if xc.engine == "loop" or xc.request_backend == "stacked":
             loop_launches[f"{alg} {kw['model']}"] = launches
         cpu = run(alg, xc, eval_samples=64, device="cpu")
         for g, c in zip(gpu, cpu):
-            say(f"small run {alg} {kw['model']} {xc.engine} round "
+            say(f"small run {alg} {kw['model']} {xc.engine} "
+                f"{xc.request_backend} requests round "
                 f"{g['round']}: cuda "
                 f"loss {g['test_loss']:.6f} cpu loss {c['test_loss']:.6f} "
                 f"rel {abs(g['test_loss'] / c['test_loss'] - 1):.2e} "
@@ -494,13 +537,15 @@ def conv_precision_phase() -> None:
         torch.backends.cudnn.allow_tf32 = before
 
 
-def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
-    """One ``repro_torch.harness.run`` on the card with the launch counts
-    reset just before and read just after; prints its rounds, wall time,
-    peak memory and launches as one JSON line. Gates: ``scored_reduce``
-    launched as ``scored_launches`` says (once a round of stacked OSAFL)
-    and nothing launches flash attention; finite losses for every round; some
-    participants (but in the genie, which has none)."""
+def fl_run(label: str, alg: str, kw: dict, eval_samples: int,
+           start_round: int = 0, **run_kw) -> dict:
+    """One ``repro_torch.harness.run`` on the card (``run_kw``: its
+    checkpoint arguments) with the launch counts reset just before and read
+    just after; prints its rounds, wall time, peak memory and launches as
+    one JSON line. Gates: ``scored_reduce`` launched as ``scored_launches``
+    says (once a round of stacked OSAFL, for the rounds run after
+    ``start_round``) and nothing launches flash attention; finite losses for
+    every round; some participants (but in the genie, which has none)."""
     from repro_torch.harness import ExperimentConfig, run
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import scored_reduce as sr
@@ -510,7 +555,7 @@ def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
     t0 = time.perf_counter()
     sr.scored_reduce.launches = 0
     fa.flash_attention_bhsd.launches = 0
-    hist = run(alg, xc, eval_samples=eval_samples)
+    hist = run(alg, xc, eval_samples=eval_samples, **run_kw)
     launches = {"scored_reduce": sr.scored_reduce.launches,
                 "flash_attention": fa.flash_attention_bhsd.launches}
     wall = time.perf_counter() - t0
@@ -521,7 +566,7 @@ def fl_run(label: str, alg: str, kw: dict, eval_samples: int) -> dict:
                "round", "test_loss", "test_acc", "participants",
                "round_s", "request_gen_s")} for h in hist]}
     say(f"{label} " + json.dumps(row))
-    want = scored_launches(alg, xc)
+    want = xc.rounds - start_round if scored_launches(alg, xc) else 0
     if launches != {"scored_reduce": want, "flash_attention": 0}:
         raise AssertionError(f"{label} {alg} {kw['model']}: launches "
                              f"{launches}, expected scored_reduce {want}")
@@ -661,14 +706,18 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
         for t in range(rounds):
             marks = [("start", lap())]
             counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
-            arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
-                                          width=xc.arrivals)
+            if s.stacked_req:
+                arrivals = s.rstream.draw(counts, xc.dataset, xc.arrivals)
+            else:
+                arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
+                                              width=xc.arrivals)
             marks.append(("requests", lap()))
             s.sbuf.stage(*arrivals)
             s.sbuf.commit()
             marks.append(("fifo_commit", lap()))
-            kappas = optimize_round_batched(s.rng, s.net, s.sysb, s.n_params,
-                                            device=dev).kappa
+            kappas = optimize_round_batched(
+                s.rng, s.net, s.sysb, s.n_params,
+                backend=xc.resource_backend, device=dev).kappa
             marks.append(("resource_solve", lap()))
             active = kappas >= 1
             slots = s.sbuf.sample_slots(s.rng, (s.fl.kappa_max, xc.batch))
@@ -691,7 +740,8 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
             optimize_round_batched(np.random.default_rng(t), s.net, s.sysb,
                                    s.n_params, device="cpu")
             stages["resource_solve_on_cpu"] = time.perf_counter() - t0
-            say(f"breakdown {xc.model} round {t} (s): {json.dumps(stages)}")
+            say(f"breakdown {xc.model} {xc.request_backend} requests "
+                f"round {t} (s): {json.dumps(stages)}")
 
 
 def grid_phase(main: dict) -> list:
@@ -746,6 +796,206 @@ def determinism_phase(grid: list) -> list:
                                  "seed gave another history on the card")
         rows += [before, again, after]
     return rows
+
+
+def requests_phase(main: dict) -> dict:
+    """The main path's configuration with the stacked request model and
+    with the python streams, in turns (the main path's own run is the first
+    python one): one summary line of each backend's ``request_gen_s``,
+    ``round_s`` and peak memory. Then the two paper presets as configured,
+    each through ``fl_run``."""
+    stacked = dict(MAIN_RUN, request_backend="stacked")
+    runs = {"python": [main], "stacked": []}
+    for backend, kw in (("stacked", stacked), ("python", MAIN_RUN),
+                        ("stacked", stacked)):
+        runs[backend].append(fl_run(f"requests {backend}", "osafl", kw,
+                                    MAIN_EVAL))
+    say("requests " + json.dumps({
+        backend: {k: [[r[k] for r in row["rounds"]] for row in rows]
+                  for k in ("request_gen_s", "round_s")}
+        | {"max_memory_allocated": [row["max_memory_allocated"]
+                                    for row in rows]}
+        for backend, rows in runs.items()}))
+    presets = [fl_run(f"paper preset {name}", "osafl", kw, MAIN_EVAL)
+               for name, kw in PRESET_RUNS]
+    return {"runs": runs["stacked"] + runs["python"][1:],
+            "presets": presets}
+
+
+def f32_solve_phase() -> dict:
+    """One U=256 batch (the main path's system draw and one round of
+    channels) through the x64 and the f32 solve on the card, each timed
+    (synchronized, after a warm-up) and the f32 one held to DESIGN.md's
+    tolerance against x64; then the main path with the f32 solve."""
+    import numpy as np
+    from repro_torch.core import resource as tres
+    from repro_torch.core import resource_stacked as trs
+    from repro_torch.harness import MODEL_PARAMS
+    net = tres.NetworkConfig()
+    rng = np.random.default_rng(0)
+    sysb = trs.stack_clients(tres.make_clients(
+        rng, MAIN_U, cell_radius_m=600.0))
+    chb = trs.sample_channels(rng, sysb)
+    n_params = MODEL_PARAMS["fcn"]
+    dec, secs = {}, {}
+    for backend in ("x64", "f32"):
+        trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                     backend=backend, device="cuda")
+        times = []
+        for _ in range(5):
+            t0 = _clock()
+            dec[backend] = trs.optimize_clients_batched(
+                net, sysb, chb, n_params, backend=backend, device="cuda")
+            times.append(_clock() - t0)
+        secs[backend] = times
+    dx, df = dec["x64"], dec["f32"]
+    flips = df.kappa != dx.kappa
+    m = dx.feasible & ~flips
+    med = {k: float(np.median(np.abs(getattr(df, k)[m] - getattr(dx, k)[m])
+                              / np.abs(getattr(dx, k)[m])))
+           for k in ("f", "p", "e_total")}
+    row = {"U": MAIN_U, "n_params": n_params, "seconds": secs,
+           "feasible": int(dx.feasible.sum()),
+           "feasibility_equal": bool(np.array_equal(df.feasible,
+                                                    dx.feasible)),
+           "kappa_flips": float(flips.mean()), "median_rel": med,
+           "tol": {"flips": F32_FLIPS, "median_rel": F32_MEDIAN_REL}}
+    say("f32 solve " + json.dumps(row))
+    if not (row["feasibility_equal"] and row["kappa_flips"] <= F32_FLIPS
+            and max(med.values()) <= F32_MEDIAN_REL):
+        raise AssertionError(f"the f32 solve misses DESIGN.md's contract "
+                             f"on the card: {row}")
+    row["fl"] = fl_run("f32 solve main path", "osafl",
+                       dict(MAIN_RUN, resource_backend="f32"), MAIN_EVAL)
+    return row
+
+
+def _host_memory_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def checkpoint_phase() -> dict:
+    """Checkpoint and resume at full width (``CKPT_RUN``): run A takes 4
+    rounds with a snapshot every 2 through the async v2 writer with
+    ``keep_last=1`` (round 2 claimed, as a server reading it would, so
+    retention keeps it beside round 4); run A's round 4 is loaded and its
+    directory removed; run B resumes from round 2 and writes its round 4.
+    Gates: rounds 2-3 of both runs and the two round-4 snapshots (weights,
+    contribution buffer, FIFO state, scores, RNG and stream state) equal
+    bit for bit; retention left A's claimed round 2 and round 4. Prints
+    the snapshot bytes, the seconds ``submit`` held the round loop, the
+    writer's and the loads' seconds, free disk and host memory before."""
+    import shutil
+    import tempfile
+
+    import repro_torch.harness.experiments as tex
+    from repro_torch import checkpoint
+    from repro_torch.harness import MODEL_PARAMS, checkpoint_path
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    writers, loads = [], []
+    make_writer, load = tex._make_ckpt_writer, checkpoint.load_run_state
+
+    def recording_writer(*args):
+        writers.append(make_writer(*args))
+        return writers[-1]
+
+    def timed_load(path):
+        t0 = time.perf_counter()
+        out = load(path)
+        loads.append({"path": str(path),
+                      "seconds": time.perf_counter() - t0})
+        return out
+    try:
+        free_disk = shutil.disk_usage(root).free
+        free_mem = _host_memory_available()
+        kw = dict(CKPT_RUN)
+        n = buffer_n(kw["model"])
+        est = kw["num_clients"] * 4 * (n + (kw["capacity"][1] - 1)
+                                       * 3168 + kw["arrivals"] * 3168)
+        if free_disk < 2.2 * est or free_mem < 3 * est:
+            kw["capacity"] = (80, 160)      # Table II's capacities
+        say("checkpoint setup " + json.dumps({
+            "dir_free_disk_bytes": free_disk,
+            "host_mem_available_bytes": free_mem,
+            "full_width_snapshot_estimate_bytes": est,
+            "capacity": kw["capacity"], "n_params": MODEL_PARAMS["fcn"]}))
+        tex._make_ckpt_writer = recording_writer
+        checkpoint.load_run_state = timed_load
+        da, db = root / "a", root / "b"
+        checkpoint.write_claim(da, "chip_smoke", [checkpoint_path(da, 2)])
+        a = fl_run("checkpoint run A", "osafl", kw, MAIN_EVAL,
+                   save_every_k=CKPT_EVERY, checkpoint_dir=da, keep_last=1)
+        kept = [p.name for p in checkpoint.committed_snapshots(da)]
+        snap_a = timed_load(checkpoint_path(da, 4))
+        checkpoint.delete_snapshot(checkpoint_path(da, 4))
+        b = fl_run("checkpoint run B (resumed)", "osafl", kw, MAIN_EVAL,
+                   start_round=2, save_every_k=CKPT_EVERY,
+                   checkpoint_dir=db, keep_last=1,
+                   resume_from=checkpoint_path(da, 2))
+        snap_b = timed_load(checkpoint_path(db, 4))
+        diffs = checkpoint.diff_snapshots(snap_a, snap_b)
+        del snap_a, snap_b
+        keys = ("round", "test_loss", "test_acc", "participants")
+        same = ([[r[k] for k in keys] for r in a["rounds"][2:]]
+                == [[r[k] for k in keys] for r in b["rounds"][2:]])
+        row = {"capacity": kw["capacity"], "kept_after_run_a": kept,
+               "rounds_2_3_bit_identical": same,
+               "snapshot_diffs": diffs[:8],
+               "writers": [{"stats": w.stats,
+                            "peak_held_bytes": getattr(
+                                w, "peak_held_bytes", None),
+                            "queue_size": getattr(w, "queue_size", None)}
+                           for w in writers],
+               "loads": loads}
+        say("checkpoint " + json.dumps(row))
+        if not same or diffs or kept != ["round_00002", "round_00004"]:
+            raise AssertionError("the resumed run did not repeat the "
+                                 f"straight one: {row}")
+        return {"runs": [a, b], **row}
+    finally:
+        tex._make_ckpt_writer = make_writer
+        checkpoint.load_run_state = load
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def loop_resume_phase() -> dict:
+    """The loop engine's blocking v1 snapshots on the card (``LOOP_RESUME``,
+    the MLP at U=16): 4 rounds straight against 2 + save + resume + 2;
+    histories and final snapshots bit for bit."""
+    import shutil
+    import tempfile
+
+    from repro_torch import checkpoint
+    from repro_torch.harness import checkpoint_path
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    try:
+        full = fl_run("loop resume straight", "osafl", LOOP_RESUME, 64,
+                      save_every_k=4, checkpoint_dir=root / "a")
+        half = dict(LOOP_RESUME, rounds=2)
+        fl_run("loop resume first half", "osafl", half, 64,
+               save_every_k=2, checkpoint_dir=root / "b")
+        resumed = fl_run("loop resume second half", "osafl", LOOP_RESUME,
+                         64, start_round=2, save_every_k=2,
+                         checkpoint_dir=root / "b",
+                         resume_from=checkpoint_path(root / "b", 2))
+        keys = ("round", "test_loss", "test_acc", "participants")
+        same = ([[r[k] for k in keys] for r in full["rounds"]]
+                == [[r[k] for k in keys] for r in resumed["rounds"]])
+        diffs = checkpoint.diff_snapshots(
+            checkpoint.load_run_state(checkpoint_path(root / "a", 4)),
+            checkpoint.load_run_state(checkpoint_path(root / "b", 4)))
+        say("loop resume " + json.dumps({"bit_identical": same,
+                                         "snapshot_diffs": diffs[:8]}))
+        if not same or diffs:
+            raise AssertionError("the loop engine's resumed run did not "
+                                 f"repeat the straight one: {diffs}")
+        return {"runs": [full, resumed]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _clock() -> float:
@@ -923,6 +1173,12 @@ def main() -> int:
     for alg, kw in GRID_RUNS:
         if kw["model"] != "fcn":
             breakdown_phase(kw)
+    requests = requests_phase(main)
+    stacked_small = small_run_phase(STACKED_SMALL)
+    f32 = f32_solve_phase()
+    ckpt = checkpoint_phase()
+    loop_resume = loop_resume_phase()
+    breakdown_phase(dict(MAIN_RUN, request_backend="stacked"))
     serving = serving_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
@@ -938,9 +1194,21 @@ def main() -> int:
                    "list_api": {f"{r['alg']} {e}": r[f"{e}_launches"][k]
                                 for r in list_api["rounds"]
                                 for e in ("loop", "stacked")},
+                   "requests": {
+                       f"{r['config'].get('request_backend', 'python')} "
+                       f"{i}": r["launches"][k]
+                       for i, r in enumerate(requests["runs"])},
+                   "presets": {f"{name} {r['config']['model']}":
+                               r["launches"][k] for (name, _), r in
+                               zip(PRESET_RUNS, requests["presets"])},
+                   "f32_fl": f32["fl"]["launches"][k],
+                   "checkpoint": [r["launches"][k] for r in ckpt["runs"]],
+                   "loop_resume": [r["launches"][k]
+                                   for r in loop_resume["runs"]],
                    "serving": serving["launches"][k]}
                for k in ("scored_reduce", "flash_attention")}
     by_path["scored_reduce"]["loop_small"] = small_loop
+    by_path["scored_reduce"]["stacked_small"] = stacked_small
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scored_reduce.cu",

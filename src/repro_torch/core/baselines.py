@@ -19,8 +19,8 @@ as one shared tree. The stacked servers (``STACKED_SERVERS``) keep one
 host: a client's last reported value sticks while it sits a round out.
 Both compute the aggregation weights on the host in float64, as the
 reference does; a stacked round aggregates with one (U,) @ (U, N)
-product. ``state_dict`` and the sparse cohort and cluster tiers are not
-ported yet.
+product. Their ``state_dict``s are the reference's, key for key. The
+sparse cohort and cluster tiers are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,10 +33,10 @@ from repro_torch.configs.base import FLConfig
 from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
                                       tree_map)
 from repro_torch.core.osafl import (ClientUpdate, OSAFLServer,
-                                    StackedOSAFLServer)
+                                    StackedOSAFLServer, _tree_to)
 from repro_torch.core.scores import (tree_add, tree_scale, tree_sub,
                                      tree_zeros_like)
-from repro_torch.device import resolve_device
+from repro_torch.device import owned_tensor, resolve_device
 
 
 class _BufferedServer:
@@ -47,8 +47,9 @@ class _BufferedServer:
 
     buffers_hold_weights = True      # False => buffers hold normalized grads d
 
-    def __init__(self, params, fl: FLConfig, num_clients: int, device=None):
-        dev = resolve_device(device)
+    def __init__(self, params, fl: FLConfig, num_clients: int,
+                 seed: int = 0, device=None):
+        dev = self.device = resolve_device(device)
         self.params = tree_map(lambda x: x.to(dev), params)
         self.fl = fl
         self.U = num_clients
@@ -80,6 +81,29 @@ class _BufferedServer:
 
     def _sizes(self) -> np.ndarray:
         return np.array([m.data_size if m else 1 for m in self.meta], float)
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Params, contribution trees, participation flags and the sticky
+        per-client metadata; only the scalar fields of ``meta`` are kept
+        (its buffered tree is never read back)."""
+        meta = [None if m is None else
+                {"uid": int(m.uid), "kappa": int(m.kappa),
+                 "data_size": int(m.data_size), "label_hist": m.label_hist}
+                for m in self.meta]
+        return {"params": self.params, "buffer": list(self.buffer),
+                "participated": self.participated, "meta": meta}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.params = _tree_to(sd["params"], self.device)
+        self.buffer = [_tree_to(b, self.device) for b in sd["buffer"]]
+        self.participated = np.asarray(sd["participated"], bool).copy()
+        self.meta = [None if m is None else ClientUpdate(
+            uid=int(m["uid"]), d=None, kappa=int(m["kappa"]),
+            data_size=int(m["data_size"]),
+            label_hist=(None if m["label_hist"] is None
+                        else np.asarray(m["label_hist"])))
+            for m in sd["meta"]]
 
 
 class FedAvgServer(_BufferedServer):
@@ -145,7 +169,8 @@ class _StackedBufferedServer:
 
     buffers_hold_weights = True      # False => buffers hold normalized grads d
 
-    def __init__(self, params, fl: FLConfig, num_clients: int, device=None):
+    def __init__(self, params, fl: FLConfig, num_clients: int,
+                 seed: int = 0, device=None):
         dev = resolve_device(device)
         self.fl = fl
         self.U = num_clients
@@ -212,6 +237,27 @@ class _StackedBufferedServer:
     def _weighted(self, ws) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ws), dtype=torch.float32,
                                device=self.buffer.device) @ self.buffer
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """The flat weights, the (U, N) buffer, participation flags and the
+        sticky metadata arrays. The leaves are live: the round writes the
+        buffer and the metadata in place, so a writer copies them."""
+        return {"w": self.w, "buffer": self.buffer,
+                "participated": self.participated,
+                "sizes": self.sizes, "kappas": self.kappas,
+                "hists": self.hists, "has_hist": self.has_hist}
+
+    def load_state_dict(self, sd: dict) -> None:
+        dev = self.w.device
+        self.w = owned_tensor(sd["w"], dev)
+        self.buffer = owned_tensor(sd["buffer"], dev)
+        self.participated = np.array(sd["participated"], bool)
+        self.sizes = np.array(sd["sizes"], float)
+        self.kappas = np.array(sd["kappas"], float)
+        self.hists = (None if sd["hists"] is None
+                      else np.array(sd["hists"], float))
+        self.has_hist = np.array(sd["has_hist"], bool)
 
 
 class StackedFedAvgServer(_StackedBufferedServer):
@@ -305,7 +351,8 @@ SERVERS = {
 }
 
 
-def make_server(params, fl: FLConfig, num_clients: int, device=None):
+def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
+                device=None):
     """The dense server of ``fl.algorithm`` on ``fl.engine``: on
     ``"stacked"``, ``StackedOSAFLServer`` or one of ``STACKED_SERVERS``; on
     ``"loop"``, ``OSAFLServer`` or one of ``SERVERS``. The sparse cohort
@@ -321,11 +368,8 @@ def make_server(params, fl: FLConfig, num_clients: int, device=None):
         raise NotImplementedError(
             "not ported to repro_torch yet: " + ", ".join(missing)
             + " (ported: the dense stacked and loop servers)")
-    if fl.engine == "stacked":
-        if fl.algorithm == "osafl":
-            return StackedOSAFLServer(params, fl, num_clients, device=device)
-        return STACKED_SERVERS[fl.algorithm](params, fl, num_clients,
-                                             device=device)
-    if fl.algorithm == "osafl":
-        return OSAFLServer(params, fl, num_clients, device=device)
-    return SERVERS[fl.algorithm](params, fl, num_clients, device=device)
+    servers = ({"osafl": StackedOSAFLServer, **STACKED_SERVERS}
+               if fl.engine == "stacked" else
+               {"osafl": OSAFLServer, **SERVERS})
+    return servers[fl.algorithm](params, fl, num_clients, seed=seed,
+                                 device=device)

@@ -1,6 +1,5 @@
 """Time-varying FIFO client datasets (paper Section II-A), one client at a
-time on the host (``repro/core/buffer.py``; its ``state_dict`` waits for
-the checkpoint slice).
+time on the host (``repro/core/buffer.py``).
 
 Each client stores at most D_u samples. Between global rounds up to E_u new
 samples arrive; each of the E_u arrival slots is an independent
@@ -85,6 +84,36 @@ class OnlineBuffer:
         x, y = self.dataset()
         idx = rng.integers(0, len(y), size=batch)
         return x[idx], y[idx]
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Full snapshot under the reference's keys: storage, FIFO pointers,
+        staged-but-uncommitted arrivals and the shift-proxy memory."""
+        feat = self.x.shape[1:]
+        return {
+            "capacity": int(self.capacity),
+            "x": self.x, "y": self.y,
+            "size": int(self.size), "head": int(self.head),
+            "staged_x": (np.stack(self._staged_x).astype(self.x.dtype)
+                         if self._staged_x
+                         else np.zeros((0,) + feat, self.x.dtype)),
+            "staged_y": np.asarray(self._staged_y, self.y.dtype),
+            "num_classes": int(self.num_classes),
+            "last_hist": self.last_hist,
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a ``state_dict`` snapshot (full overwrite)."""
+        self.capacity = int(sd["capacity"])
+        self.x = np.array(sd["x"])
+        self.y = np.array(sd["y"])
+        self.size = int(sd["size"])
+        self.head = int(sd["head"])
+        self._staged_x = [np.array(r) for r in sd["staged_x"]]
+        self._staged_y = list(np.asarray(sd["staged_y"]))
+        self.num_classes = int(sd["num_classes"])
+        lh = sd["last_hist"]
+        self.last_hist = None if lh is None else np.asarray(lh)
 
 
 def binomial_arrivals(rng: np.random.Generator, e_u: int, p_ac: float) -> int:

@@ -13,8 +13,11 @@ sequential insert loop:
     overflow ``max(size + n - cap, 0)``.
 
 The reference is ``repro/core/buffer_stacked.py`` without the mesh.
-Features keep int64 for Dataset-2 (the reference's JAX arrays hold them as
-int32); the values are the same.
+Labels and Dataset-2 features are int64 here; the reference's JAX arrays
+hold them as int32 (``canonicalize_dtype(np.int64)`` with x64 off), with
+the same values. A ``state_dict`` is written in the reference's dtypes, so
+snapshots move between the packages, and ``load_state_dict`` converts
+only that documented int32 -> int64 pair.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.device import resolve_device
+from repro_torch.device import owned_tensor, resolve_device
 
 
 class BufState(NamedTuple):
@@ -39,10 +42,15 @@ class BufState(NamedTuple):
     staged_n: torch.Tensor   # (U,) int32
 
 
+# the reference's stored dtype of an int64 leaf (its x64-off JAX arrays)
+_SNAPSHOT_DTYPES = {torch.int64: np.int32}
+
+
 @dataclass
 class StackedOnlineBuffer:
     state: BufState
     num_classes: int
+    last_hist: Optional[np.ndarray] = None    # the shift-proxy memory
 
     @classmethod
     def create(cls, capacities, feature_shape: tuple, num_classes: int,
@@ -176,3 +184,51 @@ class StackedOnlineBuffer:
             (U,) + (1,) * (slots.ndim - 1))
         idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
         return {"x": self.state.x[uu, idx], "y": self.state.y[uu, idx]}
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Full snapshot under the reference's keys: storage, per-client
+        capacity/head/size pointers, staged-but-uncommitted arrivals and
+        the shift-proxy memory, everything a bit-identical mid-stream
+        resume needs. The leaves are the live tensors (a writer copies
+        them), int64 ones as int32 copies, the reference's dtype."""
+        out = {}
+        for k, t in self.state._asdict().items():
+            dt = _SNAPSHOT_DTYPES.get(t.dtype)
+            out[k] = t if dt is None else t.cpu().numpy().astype(dt)
+        out["num_classes"] = int(self.num_classes)
+        out["last_hist"] = self.last_hist
+        return out
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore a ``state_dict`` snapshot (full overwrite; staged
+        arrivals resume where they were). Each array is checked against
+        the live buffer's shape and dtype: a snapshot fits only the cohort
+        shape it came from. An int32 leaf loads into an int64 one (the
+        reference's stored dtype); any other dtype mismatch raises."""
+        from repro_torch.checkpoint.run_state import CheckpointError
+        cur = self.state._asdict()
+        missing = sorted(set(cur) - set(sd))
+        if missing:
+            raise CheckpointError(
+                "buffer snapshot is missing keys: " + ", ".join(missing))
+        loaded = {}
+        for k, want in cur.items():
+            got = np.asarray(sd[k])
+            if tuple(got.shape) != tuple(want.shape):
+                raise CheckpointError(
+                    f"buffer snapshot {k!r} has shape {tuple(got.shape)}; "
+                    f"the live buffer expects {tuple(want.shape)}")
+            want_np = torch.empty(0, dtype=want.dtype).numpy().dtype
+            if got.dtype != want_np and got.dtype != _SNAPSHOT_DTYPES.get(
+                    want.dtype):
+                raise CheckpointError(
+                    f"buffer snapshot {k!r} has dtype {got.dtype}; the live "
+                    f"buffer expects {want_np}")
+            # an owned copy: the round writes the storage in place
+            loaded[k] = owned_tensor(got.astype(want_np, copy=False),
+                                     self.device)
+        self.state = BufState(**loaded)
+        self.num_classes = int(sd["num_classes"])
+        lh = sd["last_hist"]
+        self.last_hist = None if lh is None else np.asarray(lh)

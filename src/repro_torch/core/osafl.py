@@ -8,7 +8,9 @@ took part are refreshed (to zero, or to w^t/eta under Algorithm 2's literal
 init). Scores lambda_u = (chi + cos(d_u, mean)) / (chi + 1) (eqs. 19-21)
 are computed on the buffer, and the global model takes the scored SGD step
 (eq. 17): w <- w - eta~ * eta * sum_u alpha_u lambda_u d[u].
-``repro/core/osafl.py`` is the reference.
+``repro/core/osafl.py`` is the reference. Both servers' ``state_dict``s
+are the reference's, key for key; ``sketch_key`` is carried opaquely (see
+``seed_key``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
                                       tree_map)
 from repro_torch.core.scores import (lambda_scores, tree_add, tree_scale,
                                      tree_sub, tree_zeros_like)
-from repro_torch.device import resolve_device
+from repro_torch.device import owned_tensor, resolve_device
 from repro_torch.kernels.ref import scored_reduce_reference
 from repro_torch.kernels.scored_reduce import scored_reduce
 
@@ -33,6 +35,20 @@ def _refuse_sketches(fl: FLConfig) -> None:
         raise NotImplementedError(
             "score_sketch_dim > 0 is not ported to repro_torch yet (ROADMAP "
             "A6): the reference draws its sketch signs from jax's threefry")
+
+
+def seed_key(seed: int) -> np.ndarray:
+    """The (2,) uint32 words of ``seed``, high word first: what the
+    reference's servers hold as ``sketch_key`` (its default ``PRNGKey(seed)``
+    for a seed below 2**32). The port writes it to snapshots and restores
+    whatever a snapshot holds, unchanged; nothing reads it until sketched
+    scores are ported (ROADMAP A6)."""
+    s = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([s >> 32, s & 0xFFFFFFFF], np.uint32)
+
+
+def _tree_to(tree, dev):
+    return tree_map(lambda a: owned_tensor(a, dev), tree)
 
 
 def make_stacked_round_body(fl: FLConfig):
@@ -99,9 +115,10 @@ class OSAFLServer:
     writes in place."""
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
-                 alphas: Optional[np.ndarray] = None, device=None):
+                 alphas: Optional[np.ndarray] = None, seed: int = 0,
+                 device=None):
         _refuse_sketches(fl)
-        dev = resolve_device(device)
+        dev = self.device = resolve_device(device)
         self.params = tree_map(lambda x: x.to(dev), params)
         self.fl = fl
         self.U = num_clients
@@ -110,6 +127,7 @@ class OSAFLServer:
         self.d_buffer: List = [self._refresh()] * num_clients
         self.participated = np.zeros(num_clients, bool)
         self.last_scores = np.ones(num_clients)
+        self._sketch_key = seed_key(seed)
 
     def _refresh(self):
         """Algorithm 2 lines 1 and 17: the slot of a client that never took
@@ -141,6 +159,28 @@ class OSAFLServer:
         self.params = tree_sub(self.params, tree_scale(step, lr))
         return self.params
 
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything a round mutates: params, the per-client contribution
+        trees, participation flags, the scores and the stale-score carry."""
+        return {"params": self.params,
+                "d_buffer": list(self.d_buffer),
+                "participated": self.participated,
+                "last_scores": np.asarray(self.last_scores),
+                "lam_next": getattr(self, "_lam_next", None),
+                "sketch_key": self._sketch_key}
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.params = _tree_to(sd["params"], self.device)
+        self.d_buffer = [_tree_to(d, self.device) for d in sd["d_buffer"]]
+        self.participated = np.asarray(sd["participated"], bool).copy()
+        self.last_scores = np.asarray(sd["last_scores"])
+        if sd.get("lam_next") is not None:
+            self._lam_next = np.asarray(sd["lam_next"])
+        else:
+            self.__dict__.pop("_lam_next", None)
+        self._sketch_key = np.asarray(sd["sketch_key"])
+
 
 class StackedOSAFLServer:
     """Algorithm 2 on a (U, N) contribution buffer. ``round_stacked(d_new,
@@ -149,7 +189,8 @@ class StackedOSAFLServer:
     ``round(updates)`` takes the loop server's list of ``ClientUpdate``s."""
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
-                 alphas: Optional[np.ndarray] = None, device=None):
+                 alphas: Optional[np.ndarray] = None, seed: int = 0,
+                 device=None):
         dev = resolve_device(device)
         self.fl = fl
         self.U = num_clients
@@ -164,6 +205,7 @@ class StackedOSAFLServer:
         self.last_scores = np.ones(num_clients)
         self._lam_prev = torch.ones(num_clients, dtype=torch.float32,
                                     device=dev)
+        self._sketch_key = seed_key(seed)
         self._round_fn = make_stacked_round_body(fl)
 
     @property
@@ -193,3 +235,25 @@ class StackedOSAFLServer:
                                         device=self.w.device)
         self.round_stacked(d_new, active)
         return self.params
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """The global weights, the (U, N) contribution buffer, participation
+        flags and both score vectors (current and stale carry). The leaves
+        are the live tensors; the round writes ``d_buffer`` in place, so a
+        writer must copy them before the next round (both writers do)."""
+        return {"w": self.w, "d_buffer": self.d_buffer,
+                "participated": self.participated,
+                "last_scores": np.asarray(self.last_scores),
+                "lam_prev": self._lam_prev,
+                "sketch_key": self._sketch_key}
+
+    def load_state_dict(self, sd: dict) -> None:
+        dev = self.w.device
+        self.w = owned_tensor(sd["w"], dev)
+        self.d_buffer = owned_tensor(sd["d_buffer"], dev)
+        self.participated = owned_tensor(
+            np.asarray(sd["participated"], bool), dev)
+        self.last_scores = np.asarray(sd["last_scores"])
+        self._lam_prev = owned_tensor(sd["lam_prev"], dev)
+        self._sketch_key = np.asarray(sd["sketch_key"])

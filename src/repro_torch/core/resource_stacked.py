@@ -2,14 +2,37 @@
 
 The port of ``repro/core/resource_stacked.py``: Lemma 1 (kappa) and Lemma 2
 (CPU frequency) in closed form and the interval-endpoint SCA power step,
-for all U clients at once as elementwise torch float64 over (U,) tensors.
-The scalar algorithm's early exits (straggler breaks, frequency fallback,
-SCA convergence) become lane masks, and Algorithm 1's five initial power
-points run as a leading axis of five. Against the reference, kappa and
-feasibility match exactly and (f, p) to 1e-6 relative.
+for all U clients at once as elementwise torch ops over (U,) tensors. The
+scalar algorithm's early exits (straggler breaks, frequency fallback, SCA
+convergence) become lane masks, and Algorithm 1's five initial power
+points run as a leading axis of five.
 
-Only the ``x64`` backend is ported: torch computes in float64 without any
-scoped flag. The ``f32`` log-domain backend raises until it is ported.
+Two numeric backends (``resource_backend``):
+
+  * ``"x64"`` (default, the parity oracle): float64 (torch needs no scoped
+    flag). Against the reference, kappa and feasibility match exactly and
+    (f, p) to 1e-6 relative.
+  * ``"f32"``: float32, with the one term that overflows it, the minimum
+    SNR 2^(Nb / (omega t_left)) - 1, taken in the log domain:
+    ``log p_lo = log(expm1(a)) - log g`` with ``a = Nb ln2 / (omega
+    t_left)`` (``expm1`` for a <= 10, ``a + log1p(-e^-a)`` above) is
+    compared with ``log p_max`` and only the clipped value is
+    exponentiated. DESIGN.md's tolerance against x64: feasibility exact,
+    kappa flips on at most 10 % of lanes, median relative difference on
+    f, p and e_total at most 1e-3. Feasible lanes that come back
+    non-finite raise ``ResourceSolveError``.
+
+The solve sits on two knife edges by construction: Lemma 2 picks f so
+that the deadline binds, so the next Lemma 1 floor sees j = kappa and the
+SCA's minimum power sees p_lo = p. The reference's slacks there
+(``_J_SLACK`` 1e-7, ``_P_SLACK`` 1e-9) are below float32's resolution,
+and with them the side each lane lands on is decided by rounding: in
+torch on the CPU, at U=256, most lanes fall to the other side than x64
+(median relative p difference 0.90 at the MLP's payload, 12 % kappa
+flips at the FCN's), fewer in XLA. So on the f32 backend each slack is
+widened to a few float32 ulps of its term (``_F32_ULPS``), and the f32
+solve then lands where x64 does (``tests/test_torch_online.py``, ``-k
+slacks``, prints both); x64 keeps the reference's slacks.
 
 ``sample_channels`` draws the same channel stream from an
 ``np.random.Generator`` as the reference.
@@ -30,7 +53,12 @@ from repro_torch.device import resolve_device
 _LN2 = float(np.log(2.0))
 
 RESOURCE_BACKENDS = ("x64", "f32")
+BACKEND_DTYPES = {"x64": torch.float64, "f32": torch.float32}
 _FRACS = (1.0, 0.1, 0.01, 1e-3, 1e-4)     # Algorithm 1's initial power points
+# f32 knife-edge slacks, in float32 ulps: of j in Lemma 1's floor, and of
+# log p_lo against log p_max, whose rounding t_left = t_th - t_cp amplifies
+# by t_th / t_left (see the module docstring)
+_F32_ULPS = {"kappa": 8.0, "power": 4.0}
 
 
 class ResourceSolveError(RuntimeError):
@@ -86,27 +114,30 @@ class ResourceDecisionBatch:
 
 def make_solver_core(net: NetworkConfig, backend: str = "x64"):
     """The all-clients solve as a function of (c, s, f_max, p_max, e_bd, xi,
-    gamma) — (U,) float64 tensors on one device — and the scalar payload
-    ``n_params``, returning the six decision columns as tensors. Every
-    formula mirrors the reference line for line."""
+    gamma) — (U,) tensors of the backend's dtype (``BACKEND_DTYPES``) on
+    one device — and the scalar payload ``n_params``, returning the six
+    decision columns as tensors. Every formula mirrors the reference line
+    for line; on the f32 backend the minimum-power step runs in the log
+    domain."""
     if backend not in RESOURCE_BACKENDS:
         raise ValueError(f"unknown resource backend {backend!r} "
                          f"(expected one of {RESOURCE_BACKENDS})")
-    if backend != "x64":
-        raise NotImplementedError(
-            f"resource backend {backend!r} is not ported to repro_torch yet; "
-            "use resource_backend='x64'")
+    log_domain = backend == "f32"
+    dtype = BACKEND_DTYPES[backend]
     noise = net.noise_power
     inf = float("inf")
 
     def solve(c, s, f_max, p_max, e_bd, xi, gamma, n_params):
-        kw = dict(dtype=torch.float64, device=c.device)
+        kw = dict(dtype=dtype, device=c.device)
         fracs = torch.tensor(_FRACS, **kw)
         ks = torch.arange(1.0, net.kappa_max + 1, **kw)[:, None, None]
         xg = xi * gamma
         cc = net.n * net.nbar * c * s               # cycles per local round
-        nb = float(n_params) * (FPP + 1)            # upload payload (bits)
+        # upload payload (bits), in the backend's dtype as the reference's
+        nb = torch.tensor(float(n_params), **kw) * (FPP + 1)
         g = xg / noise                              # SNR slope: snr = g*p
+        log1p_slack = torch.log1p(torch.tensor(_P_SLACK, **kw))
+        eps = torch.finfo(dtype).eps
 
         def rate(p):
             return net.omega * torch.log2(1.0 + xg * p / noise)
@@ -121,8 +152,10 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
             """Lemma 1 (eq. 42)."""
             j1 = (e_bd - e_up(p)) / (0.5 * net.v * cc * f ** 2)
             j2 = f * (net.t_th - t_up(p)) / cc
-            k = torch.clamp(torch.floor(torch.minimum(j1, j2) + _J_SLACK),
-                            max=float(net.kappa_max))
+            j = torch.minimum(j1, j2)
+            slack = (torch.clamp(_F32_ULPS["kappa"] * eps * j, min=_J_SLACK)
+                     if log_domain else _J_SLACK)
+            k = torch.clamp(torch.floor(j + slack), max=float(net.kappa_max))
             return torch.clamp(k, min=0.0)
 
         def opt_freq(kappa, p):
@@ -133,12 +166,35 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
             return torch.where(denom > 0, val, inf)
 
         def min_power(t_left, valid):
-            """(52c)/(11c): smallest p meeting the deadline at (kappa, f)."""
+            """(52c)/(11c): smallest p meeting the deadline at (kappa, f).
+
+            The direct form 2^(Nb/(omega*t_left)) - 1 overflows f32 for
+            tight deadlines; the log-domain form compares log p_lo with
+            log p_max and exponentiates only the clipped value."""
             t_safe = torch.where(valid, t_left, 1.0)
-            snr_min = 2.0 ** (nb / (net.omega * t_safe)) - 1.0
-            p_lo = snr_min / g
-            valid = valid & (p_lo <= p_max * (1 + _P_SLACK))
-            return torch.where(valid, torch.minimum(p_lo, p_max), 1e-6), valid
+            if not log_domain:
+                snr_min = 2.0 ** (nb / (net.omega * t_safe)) - 1.0
+                p_lo = snr_min / g
+                valid = valid & (p_lo <= p_max * (1 + _P_SLACK))
+                return (torch.where(valid, torch.minimum(p_lo, p_max), 1e-6),
+                        valid)
+            a = nb * _LN2 / (net.omega * t_safe)    # log(1 + snr_min)
+            # log(expm1(a)): the exact small-a form, the overflow-free
+            # large-a form
+            log_snr = torch.where(
+                a > 10.0,
+                a + torch.log1p(-torch.exp(-torch.clamp(a, min=10.0))),
+                torch.log(torch.expm1(torch.clamp(a, max=10.0))))
+            log_p_lo = log_snr - torch.log(g)
+            log_cap = torch.log(p_max)
+            # d log_snr / d log t_left = -a / (1 - e^-a); t_left carries
+            # ~eps * t_th of rounding from its cancellation
+            slack = torch.maximum(
+                _F32_ULPS["power"] * eps * (net.t_th / t_safe) * a
+                / -torch.expm1(-a), log1p_slack)
+            valid = valid & (log_p_lo <= log_cap + slack)
+            p_lo = torch.exp(torch.minimum(log_p_lo, log_cap))
+            return torch.where(valid, p_lo, 1e-6), valid
 
         def sca_power(kappa, f, p0):
             """SCA (eqs. 50-52) with convergence/abort masks per lane."""
@@ -246,26 +302,31 @@ def _check_finite(kappa, f, p, feas, backend: str) -> None:
             f"kappa/f/p on {int(bad.sum())} feasible client(s) "
             f"(first lanes {lanes.tolist()}: "
             f"kappa={kappa[lanes].tolist()}, f={f[lanes].tolist()}, "
-            f"p={p[lanes].tolist()})")
+            f"p={p[lanes].tolist()}); for tight-deadline/knife-edge "
+            "configurations run resource_backend='x64'")
 
 
 def optimize_clients_batched(net: NetworkConfig, sysb: ClientSystemBatch,
                              ch: ChannelBatch, n_params: int,
                              backend: str = "x64", device=None
                              ) -> ResourceDecisionBatch:
-    """All-clients solve on ``device``; the columns come back as host numpy
-    float64/int64/bool."""
+    """All-clients solve on ``device`` in the backend's dtype; the columns
+    come back as host numpy float64/int64/bool whatever the backend."""
     solver = make_solver_core(net, backend)
     dev = resolve_device(device)
     cols = [torch.as_tensor(np.asarray(a, np.float64), device=dev)
+            .to(BACKEND_DTYPES[backend])
             for a in (sysb.c, sysb.s, sysb.f_max, sysb.p_max, sysb.e_bd,
                       ch.xi, ch.gamma)]
     kappa, f, p, feas, t, e = [o.cpu().numpy()
                                for o in solver(*cols, n_params)]
     feas = feas.astype(bool)
     _check_finite(kappa, f, p, feas, backend)
-    return ResourceDecisionBatch(kappa=kappa.astype(np.int64), f=f, p=p,
-                                 feasible=feas, t_total=t, e_total=e)
+    return ResourceDecisionBatch(kappa=kappa.astype(np.int64),
+                                 f=f.astype(np.float64),
+                                 p=p.astype(np.float64), feasible=feas,
+                                 t_total=t.astype(np.float64),
+                                 e_total=e.astype(np.float64))
 
 
 def optimize_round_batched(rng: np.random.Generator, net: NetworkConfig,

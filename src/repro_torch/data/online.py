@@ -2,7 +2,9 @@
 pipeline (``request_backend="python"``): arrival samples are drawn per user
 from ``video_caching.RequestStream`` and packed into the (U, A, ...) layout
 that ``StackedOnlineBuffer.stage`` takes. Arrival counts are the paper's
-Binomial(E_u, p_ac). A numpy copy of ``repro/data/online.py``.
+Binomial(E_u, p_ac). A numpy copy of ``repro/data/online.py``. With
+``request_backend="stacked"`` the samples come in this layout from
+``video_caching_stacked.StackedRequestStream`` instead.
 """
 from __future__ import annotations
 
@@ -60,3 +62,21 @@ def draw_arrival_batch(streams: List[RequestStream], counts: np.ndarray,
         for s, n in zip(streams, counts)]
     return pad_arrival_batch(samples, int(width or max(counts.max(), 1)),
                              dataset)
+
+
+def streams_state_dict(streams: List[RequestStream]) -> list:
+    """Cohort snapshot of every per-user request stream (Generator
+    positions and sliding-window carries), for the RunState checkpoint."""
+    return [s.state_dict() for s in streams]
+
+
+def load_streams_state(streams: List[RequestStream], states: list) -> None:
+    """Restore a ``streams_state_dict`` snapshot onto a freshly built
+    population (same seed; only the mutable state is overwritten)."""
+    from repro_torch.checkpoint.run_state import CheckpointError
+    if len(states) != len(streams):
+        raise CheckpointError(
+            f"snapshot holds {len(states)} request streams, the live cohort "
+            f"has {len(streams)}")
+    for s, sd in zip(streams, states):
+        s.load_state_dict(sd)

@@ -1,7 +1,8 @@
 """Synthetic video-caching datasets (paper Section V-A1, Appendix D).
 
 A numpy copy of ``repro/data/video_caching.py``, the per-user request
-model: with the same seed it draws the same streams bit for bit.
+model: with the same seed it draws the same streams bit for bit, and its
+``state_dict`` snapshots are the reference's.
 
 Content request model (Algorithm 5): F=100 files in G=5 genres (20 each).
 A user picks a genre by its Dirichlet(0.3) genre preference, then a file by
@@ -168,6 +169,29 @@ class RequestStream:
                 xs.append(np.array(self._history[-SEQ_LEN - 1:-1], np.int64))
                 ys.append(fid)
         return np.stack(xs), np.array(ys, np.int64)
+
+    # -- checkpointing -------------------------------------------------------
+    def state_dict(self) -> dict:
+        """Everything a draw mutates: the stream's Generator position, the
+        sliding-window feature/history carry and the user's Markov state
+        (the reference's keys). The catalog and the static user fields are
+        rebuilt from the population seed. Only the last SEQ_LEN+1 history
+        entries are ever read by a draw, so only those are kept."""
+        from repro_torch.checkpoint.run_state import generator_state
+        return {"rng": generator_state(self.rng),
+                "last_feat": self._last_feat,
+                "history": [int(h) for h in self._history[-SEQ_LEN - 1:]],
+                "genre": int(self.user._genre),
+                "file": int(self.user._file)}
+
+    def load_state_dict(self, sd: dict) -> None:
+        from repro_torch.checkpoint.run_state import set_generator_state
+        set_generator_state(self.rng, sd["rng"])
+        lf = sd["last_feat"]
+        self._last_feat = None if lf is None else np.asarray(lf, np.float32)
+        self._history = [int(h) for h in sd["history"]]
+        self.user._genre = int(sd["genre"])
+        self.user._file = int(sd["file"])
 
 
 def make_population(seed: int, num_users: int, topk: int = 1

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -18,6 +19,14 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def owned_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A snapshot leaf (numpy array or tensor) as a tensor on ``device``
+    that shares no memory with it: a run writes some of its state in
+    place, which must not reach back into a loaded snapshot."""
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device=device, dtype=dtype, copy=True)
 
 
 @contextlib.contextmanager

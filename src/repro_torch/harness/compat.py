@@ -45,7 +45,6 @@ class ResolvedPlan:
     num_clients: int
     scenario: str
     mesh: bool = False          # a mesh was passed
-    checkpoint: bool = False    # a checkpoint argument was passed
 
     def describe(self) -> str:
         """One log line naming the resolved combination — the smoke tools
@@ -189,8 +188,8 @@ def _not_ported(what: str) -> str:
             "algorithm on the dense stacked dispatch round, engine "
             "'stacked' or 'auto', and on the per-client loop oracle, engine "
             "'loop', and the centralized genie: round_backend='dispatch', "
-            "request_backend='python', resource_backend='x64', no mesh, "
-            "scenario ''/'null', no checkpoints)")
+            "either request and resource backend, checkpoints, no mesh, "
+            "scenario ''/'null')")
 
 
 #: What the port does not run yet, checked after ``RULES``.
@@ -201,12 +200,6 @@ PORT_RULES = (
     Rule("port-round-backend",
          lambda p: p.round_backend != "dispatch",
          lambda p: _not_ported(f"round_backend={p.round_backend!r}")),
-    Rule("port-request-backend",
-         lambda p: p.request_backend != "python",
-         lambda p: _not_ported(f"request_backend={p.request_backend!r}")),
-    Rule("port-resource-backend",
-         lambda p: p.resource_backend != "x64",
-         lambda p: _not_ported(f"resource_backend={p.resource_backend!r}")),
     Rule("port-cohort",
          lambda p: p.cohort_size > 0,
          lambda p: _not_ported(f"cohort_size={p.cohort_size}")),
@@ -219,19 +212,16 @@ PORT_RULES = (
     Rule("port-scenario",
          lambda p: (p.scenario or "").strip() not in ("", "null"),
          lambda p: _not_ported(f"scenario={p.scenario!r}")),
-    Rule("port-checkpoint",
-         lambda p: p.checkpoint,
-         lambda p: _not_ported("checkpointing")),
 )
 
 
-def resolve(alg: str, xc, mesh=None, pod_engine: Optional[str] = None,
-            checkpoint: bool = False) -> ResolvedPlan:
+def resolve(alg: str, xc, mesh=None,
+            pod_engine: Optional[str] = None) -> ResolvedPlan:
     """Validate ``(alg, xc)`` against ``RULES`` and ``PORT_RULES`` and
     return the resolved plan. ``engine="auto"`` resolves to ``"pod"`` when a
     mesh is passed and ``"stacked"`` otherwise (``alg="centralized"`` forces
-    the genie). ``checkpoint`` says whether the caller passed a checkpoint
-    argument. Raises ``ExperimentConfigError`` on the first matching rule."""
+    the genie). Raises ``ExperimentConfigError`` on the first matching
+    rule."""
     engine = xc.engine
     if engine == "auto":
         if alg == "centralized":
@@ -250,7 +240,7 @@ def resolve(alg: str, xc, mesh=None, pod_engine: Optional[str] = None,
         participation=float(xc.participation),
         num_clusters=int(getattr(xc, "num_clusters", 0)),
         num_clients=int(xc.num_clients),
-        scenario=xc.scenario, mesh=mesh is not None, checkpoint=checkpoint)
+        scenario=xc.scenario, mesh=mesh is not None)
     for rule in RULES + PORT_RULES:
         if rule.key == "rounds-per-dispatch":
             # placeholder in the reference's order: rpd is checked here

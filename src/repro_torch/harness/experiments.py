@@ -2,32 +2,46 @@
 stacked dispatch round or the per-client loop oracle for OSAFL and the five
 baselines, and the centralized genie; the port of
 ``repro/harness/experiments.py``'s ``_run_stacked``, ``_run_loop`` and
-``_run_centralized``.
+``_run_centralized`` with their RunState checkpoints.
 
-Each stacked round: Binomial arrivals drawn from the per-user request
-streams and committed FIFO (``StackedOnlineBuffer``), the batched resource
-solve for every client's kappa, whole-cohort masked local SGD
-(``make_vmapped_local_train``), the server round (``StackedOSAFLServer``,
-whose score reduction is the CUDA kernel on the card, or one of the
-baselines' ``STACKED_SERVERS``) and an evaluation of the global model. The
-host draws consume one ``np.random.Generator`` in exactly the reference's
-order, so with the same seed and weights the two packages see the same
-arrivals, kappas and batches. The loop oracle does the same one client at
-a time: its arrivals, scalar resource solve and ``local_train``, and a loop
+Each stacked round: Binomial arrivals whose samples come from the per-user
+request streams (``request_backend="python"``) or the batched Gumbel-max
+sampler on the run's device (``"stacked"``), committed FIFO
+(``StackedOnlineBuffer``), the batched resource solve for every client's
+kappa (float64, or the log-domain float32 backend), whole-cohort masked
+local SGD (``make_vmapped_local_train``), the server round
+(``StackedOSAFLServer``, whose score reduction is the CUDA kernel on the
+card, or one of the baselines' ``STACKED_SERVERS``) and an evaluation of
+the global model. The host draws consume one ``np.random.Generator`` in
+exactly the reference's order, so with the same seed and weights the two
+packages see the same arrivals, kappas and batches (and, with the python
+streams, the same samples). The loop oracle does the same one client at a
+time: its arrivals, scalar resource solve and ``local_train``, and a loop
 server (``OSAFLServer``, which scores without the kernel, or one of
 ``SERVERS``). A run holds cuDNN's convolutions in full f32
 (``full_f32_convolutions``) and to deterministic algorithms
 (``deterministic_convolutions``).
+
+Checkpoints (``save_every_k`` + ``checkpoint_dir``, ``resume_from``,
+``keep_last``, ``checkpoint_async``) write the reference's RunState
+snapshots, key for key: the stacked engine through the async v2 writer by
+default, the loop engine through the blocking v1 writer. A snapshot from
+either package resumes in the other, but for the reference's stacked
+request stream, whose threefry lineage the port cannot continue.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
+from repro_torch.checkpoint import CheckpointError
 from repro_torch.configs.base import ExperimentConfig, FLConfig
 from repro_torch.core.baselines import make_server
 from repro_torch.core.buffer import OnlineBuffer, binomial_arrivals
@@ -41,8 +55,10 @@ from repro_torch.core.resource_stacked import (optimize_round_batched,
                                                stack_clients)
 from repro_torch.data.online import (binomial_arrivals_batched,
                                      dataset_layout, draw_arrival_batch,
-                                     pad_arrival_batch)
+                                     load_streams_state, pad_arrival_batch,
+                                     streams_state_dict)
 from repro_torch.data.video_caching import make_population
+from repro_torch.data.video_caching_stacked import StackedRequestStream
 from repro_torch.device import (deterministic_convolutions,
                                 full_f32_convolutions, resolve_device)
 from repro_torch.harness.compat import resolve
@@ -52,6 +68,98 @@ _LOG = logging.getLogger("repro_torch.harness")
 
 MODEL_PARAMS = {"fcn": 3_900_000, "cnn": 1_100_000, "squeezenet": 740_000,
                 "lstm": 430_000, "mlp": 18_000}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint/resume plumbing (RunState snapshots)
+# ---------------------------------------------------------------------------
+
+def checkpoint_path(checkpoint_dir, t: int) -> Path:
+    """Canonical snapshot location for the state after round t (a snapshot
+    named round_00003 holds the state with rounds 0-2 done)."""
+    return Path(checkpoint_dir) / f"round_{t:05d}"
+
+
+def _validate_ckpt_args(save_every_k, checkpoint_dir,
+                        keep_last=None) -> None:
+    if bool(save_every_k) != (checkpoint_dir is not None):
+        raise ValueError(
+            "save_every_k and checkpoint_dir must be passed together "
+            f"(got save_every_k={save_every_k!r}, "
+            f"checkpoint_dir={checkpoint_dir!r})")
+    if keep_last is not None:
+        if not save_every_k:
+            raise ValueError(
+                "keep_last requires save_every_k/checkpoint_dir (there is "
+                "nothing to prune without periodic snapshots)")
+        if not isinstance(keep_last, int) or keep_last < 1:
+            raise ValueError(
+                f"keep_last must be a positive int, got {keep_last!r}")
+
+
+def _make_ckpt_writer(save_every_k, checkpoint_async: bool, keep_last):
+    """The run's checkpoint writer, or None when checkpointing is off: the
+    async v2 writer (``submit`` copies the state to the host, a thread
+    writes it; ``close()`` at exit is the drain barrier) or the blocking
+    v1 writer."""
+    if not save_every_k:
+        return None
+    if checkpoint_async:
+        return checkpoint.AsyncCheckpointWriter(keep_last=keep_last)
+    return checkpoint.BlockingCheckpointWriter(keep_last=keep_last)
+
+
+def _run_shape(xc: ExperimentConfig, eval_samples: int) -> dict:
+    """Everything that must match between the saving and the resuming run
+    for the trajectory to continue bit for bit: the whole ExperimentConfig
+    but ``rounds`` (resuming into a longer run is the point) and the
+    engine-selection fields ``engine``/``pod_engine`` (the snapshot's
+    top-level ``engine`` tag is compared instead), plus the eval set size.
+    JSON-normalized so it compares against a loaded snapshot."""
+    cfg = dataclasses.asdict(xc)
+    cfg.pop("rounds")
+    cfg.pop("engine")
+    cfg.pop("pod_engine")
+    cfg["capacity"] = list(cfg["capacity"])
+    cfg["eval_samples"] = int(eval_samples)
+    return cfg
+
+
+def _check_snapshot(snap: dict, engine: str, alg: str, xc: ExperimentConfig,
+                    eval_samples: int, extra: dict = None) -> None:
+    """A snapshot resumes only into the run shape it came from. Config
+    fields absent from a snapshot are compared as their defaults (the run
+    that wrote it behaved like them). ``extra`` holds shape keys outside
+    ExperimentConfig, compared with no default-filling."""
+    got = dict(snap.get("config") or {}, engine=snap.get("engine"),
+               alg=snap.get("alg"))
+    want = dict(_run_shape(xc, eval_samples), engine=engine, alg=alg,
+                **(extra or {}))
+    base = dataclasses.asdict(ExperimentConfig())
+    for k in want:                  # _run_shape owns which fields compare
+        if k not in got and k in base:
+            got[k] = (list(base[k]) if isinstance(base[k], tuple)
+                      else base[k])
+    bad = sorted(k for k in set(got) | set(want)
+                 if got.get(k) != want.get(k))
+    if bad:
+        raise CheckpointError(
+            "cannot resume: snapshot and run disagree on "
+            + ", ".join(f"{k} ({got.get(k)!r} vs {want.get(k)!r})"
+                        for k in bad))
+    if int(snap["next_round"]) > xc.rounds:
+        raise CheckpointError(
+            f"snapshot already holds {snap['next_round']} rounds, the run "
+            f"asks for {xc.rounds}")
+
+
+def resume_smoke_config(rounds: int, num_clients: int = 8
+                        ) -> ExperimentConfig:
+    """The small online run of the resume-determinism checks (the
+    reference's shape)."""
+    return ExperimentConfig(model="mlp", dataset=2, num_clients=num_clients,
+                            rounds=rounds, capacity=(12, 24), arrivals=4,
+                            batch=8, seed=5)
 
 
 def _draw(stream, n, dataset):
@@ -64,8 +172,12 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
     """Deterministic run setup: population and request streams, capacities,
     the FIFO buffers' initial fill, the eval set, the server and the client
     system parameters, drawing the host RNG in the reference's order."""
+    stacked_req = xc.request_backend == "stacked"
     model, U = xc.model, xc.num_clients
     cat, streams = make_population(xc.seed, U, topk=xc.topk)
+    rstream = (StackedRequestStream.from_streams(cat, streams, seed=xc.seed,
+                                                 device=device)
+               if stacked_req else None)
     rng = np.random.default_rng(xc.seed)
     feat_shape, dtype = dataset_layout(xc.dataset)
     lo, hi = xc.capacity
@@ -81,33 +193,48 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
                   participation=xc.participation,
                   num_clusters=xc.num_clusters, scenario=xc.scenario)
     server = make_server(init_small(xc.seed, model, device), fl, U,
-                         device=device)
+                         seed=xc.seed, device=device)
     sbuf = StackedOnlineBuffer.create(caps, feat_shape, 100,
                                       stage_capacity=xc.arrivals,
                                       dtype=dtype, device=device)
     # initial fill: FIFO commits compose, so ingest the cap_u seed samples
     # in arrival-width chunks through the round's staging area
-    init = [_draw(streams[u], int(caps[u]), xc.dataset) for u in range(U)]
-    for off in range(0, int(caps.max()), xc.arrivals):
-        chunk = [(x[off:off + xc.arrivals], y[off:off + xc.arrivals])
-                 if off < len(y) else None for x, y in init]
-        sbuf.stage(*pad_arrival_batch(chunk, xc.arrivals, xc.dataset))
-        sbuf.commit()
+    if stacked_req:
+        filled = np.zeros(U, np.int64)
+        while (filled < caps).any():
+            chunk = np.minimum(caps - filled, xc.arrivals)
+            sbuf.stage(*rstream.draw(chunk, xc.dataset, xc.arrivals))
+            sbuf.commit()
+            filled += chunk
+    else:
+        init = [_draw(streams[u], int(caps[u]), xc.dataset)
+                for u in range(U)]
+        for off in range(0, int(caps.max()), xc.arrivals):
+            chunk = [(x[off:off + xc.arrivals], y[off:off + xc.arrivals])
+                     if off < len(y) else None for x, y in init]
+            sbuf.stage(*pad_arrival_batch(chunk, xc.arrivals, xc.dataset))
+            sbuf.commit()
     p_ac = np.array([s.user.p_ac for s in streams])
 
     per = max(eval_samples // U, 4)
-    tests = [_draw(s, per, xc.dataset) for s in streams]
-    test_batch = {
-        "x": torch.as_tensor(np.concatenate([t[0] for t in tests]),
-                             device=device),
-        "y": torch.as_tensor(np.concatenate([t[1] for t in tests]),
-                             device=device)}
+    if stacked_req:
+        ex, ey, _ = rstream.draw(np.full(U, per), xc.dataset, per)
+        test_batch = {"x": ex.reshape((U * per,) + tuple(ex.shape[2:])),
+                      "y": ey.reshape(U * per)}
+    else:
+        tests = [_draw(s, per, xc.dataset) for s in streams]
+        test_batch = {
+            "x": torch.as_tensor(np.concatenate([t[0] for t in tests]),
+                                 device=device),
+            "y": torch.as_tensor(np.concatenate([t[1] for t in tests]),
+                                 device=device)}
 
     sysb = stack_clients(make_clients(rng, U,
                                       cell_radius_m=xc.cell_radius_m))
     return SimpleNamespace(
-        model=model, U=U, streams=streams, rng=rng, caps=caps, sbuf=sbuf,
-        p_ac=p_ac, test_batch=test_batch, fl=fl, server=server,
+        stacked_req=stacked_req, model=model, U=U, streams=streams,
+        rstream=rstream, rng=rng, caps=caps, sbuf=sbuf, p_ac=p_ac,
+        test_batch=test_batch, fl=fl, server=server,
         codec=server.codec, device=device,
         grad_fn=torch.func.grad(lambda p, b: small_loss(p, b, model)[0]),
         weights_alg=alg in ("fedavg", "fedprox", "feddisco"),
@@ -116,15 +243,34 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
         n_params=MODEL_PARAMS.get(model, 1_000_000))
 
 
+def _resume_stacked(s: SimpleNamespace, snap: dict) -> tuple:
+    """Overwrite the deterministic setup's mutable state from a RunState
+    snapshot (already ``_check_snapshot``-ed); returns the history and the
+    next round."""
+    checkpoint.set_generator_state(s.rng, snap["rng"])
+    s.server.load_state_dict(snap["server"])
+    s.sbuf.load_state_dict(snap["buffer"])
+    if s.stacked_req:
+        s.rstream.load_state_dict(snap["streams"])
+    else:
+        load_streams_state(s.streams, snap["streams"])
+    return list(snap["history"]), int(snap["next_round"])
+
+
 def _draw_round_inputs(s: SimpleNamespace, xc: ExperimentConfig) -> tuple:
     """One round of host draws, in the reference's order: arrival counts
     and samples (staged and committed FIFO), the resource solve's kappas,
     the straggler mask and the local-SGD batch slots. Returns
-    ``(req_s, kappas, active, slots)``."""
+    ``(req_s, kappas, active, slots)``; ``req_s`` covers the samples'
+    draw, synchronized when the stacked sampler runs on the card."""
     t0 = time.perf_counter()
     counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
-    arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
-                                  width=xc.arrivals)
+    if s.stacked_req:
+        arrivals = s.rstream.draw(counts, xc.dataset, xc.arrivals)
+        _synchronize(s.device)
+    else:
+        arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
+                                      width=xc.arrivals)
     req_s = time.perf_counter() - t0
     s.sbuf.stage(*arrivals)
     s.sbuf.commit()
@@ -158,29 +304,58 @@ def _synchronize(device: torch.device) -> None:
 
 
 def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
-                 device: torch.device) -> list:
-    """The dispatch-round stacked engine; one history row per round."""
+                 device: torch.device, save_every_k=None, checkpoint_dir=None,
+                 resume_from=None, checkpoint_async: bool = True,
+                 keep_last=None) -> list:
+    """The dispatch-round stacked engine; one history row per round, and a
+    snapshot after every ``save_every_k``-th round."""
     s = _stacked_setup(alg, xc, eval_samples, device)
     local_step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
                                           s.fl.kappa_max, prox_mu=s.prox_mu)
-    history = []
-    for t in range(xc.rounds):
-        t_start = time.perf_counter()
-        req_s, kappas, active, slots = _draw_round_inputs(s, xc)
-        d, w = local_step(s.server.params, s.sbuf.gather(slots),
-                          torch.as_tensor(kappas, device=device))
-        upd = s.codec.flatten_stacked(w if s.weights_alg else d)
-        del d, w
-        _server_round(s, alg, upd, active, kappas)
-        del upd
-        loss, m = small_loss(s.server.params, s.test_batch, s.model)
-        _synchronize(device)         # round_s covers all of the round's work
-        round_s = time.perf_counter() - t_start
-        history.append({"round": t, "test_loss": float(loss),
-                        "test_acc": float(m["accuracy"]),
-                        "participants": int(active.sum()),
-                        "request_gen_s": req_s,
-                        "round_s": round_s})
+    writer = _make_ckpt_writer(save_every_k, checkpoint_async, keep_last)
+    history, start_round = [], 0
+    if resume_from is not None:
+        snap = checkpoint.load_run_state(resume_from)
+        _check_snapshot(snap, "stacked", alg, xc, eval_samples)
+        history, start_round = _resume_stacked(s, snap)
+        del snap
+    try:
+        for t in range(start_round, xc.rounds):
+            t_start = time.perf_counter()
+            req_s, kappas, active, slots = _draw_round_inputs(s, xc)
+            d, w = local_step(s.server.params, s.sbuf.gather(slots),
+                              torch.as_tensor(kappas, device=device))
+            upd = s.codec.flatten_stacked(w if s.weights_alg else d)
+            del d, w
+            _server_round(s, alg, upd, active, kappas)
+            del upd
+            loss, m = small_loss(s.server.params, s.test_batch, s.model)
+            _synchronize(device)     # round_s covers all of the round's work
+            round_s = time.perf_counter() - t_start
+            history.append({"round": t, "test_loss": float(loss),
+                            "test_acc": float(m["accuracy"]),
+                            "participants": int(active.sum()),
+                            "request_gen_s": req_s,
+                            "round_s": round_s})
+            if save_every_k and (t + 1) % save_every_k == 0:
+                writer.submit(
+                    checkpoint_path(checkpoint_dir, t + 1),
+                    {"engine": "stacked", "alg": alg,
+                     "config": _run_shape(xc, eval_samples),
+                     "next_round": t + 1,
+                     "rng": checkpoint.generator_state(s.rng),
+                     "server": s.server.state_dict(),
+                     "buffer": s.sbuf.state_dict(),
+                     "streams": (s.rstream.state_dict() if s.stacked_req
+                                 else streams_state_dict(s.streams)),
+                     "history": history},
+                    metadata={"engine": "stacked", "alg": alg,
+                              "round": t + 1})
+        if writer is not None:
+            writer.close()          # drain barrier: all snapshots committed
+    finally:
+        if writer is not None:
+            writer.shutdown()
     return history
 
 
@@ -224,12 +399,13 @@ def _arrive(rng, streams, bufs, xc: ExperimentConfig, c: int) -> float:
 
 
 def _run_loop(alg: str, xc: ExperimentConfig, eval_samples: int,
-              device: torch.device) -> list:
-    """The per-client loop oracle (the reference's ``_run_loop`` without its
-    checkpoints); one history row per round. Each round solves every
-    client's resources, then for each client in turn draws its arrivals and
-    runs ``local_train`` unless it is a straggler (kappa < 1), and hands
-    the list of ``ClientUpdate``s to the loop server."""
+              device: torch.device, save_every_k=None, checkpoint_dir=None,
+              resume_from=None, keep_last=None) -> list:
+    """The per-client loop oracle; one history row per round. Each round
+    solves every client's resources, then for each client in turn draws its
+    arrivals and runs ``local_train`` unless it is a straggler (kappa < 1),
+    and hands the list of ``ClientUpdate``s to the loop server. Snapshots
+    are always blocking v1 (the reference's write-path anchor)."""
     model, U = xc.model, xc.num_clients
     streams, rng, bufs, test_batch = _client_setup(xc, eval_samples, device)
     grad_fn = torch.func.grad(lambda p, b: small_loss(p, b, model)[0])
@@ -238,13 +414,24 @@ def _run_loop(alg: str, xc: ExperimentConfig, eval_samples: int,
                              else 1.0),
                   algorithm=alg, engine="loop")
     server = make_server(init_small(xc.seed, model, device), fl, U,
-                         device=device)
+                         seed=xc.seed, device=device)
     net = NetworkConfig()
     clients_sys = make_clients(rng, U, cell_radius_m=xc.cell_radius_m)
     n_params = MODEL_PARAMS.get(model, 1_000_000)
     prox_mu = fl.fedprox_mu if alg == "fedprox" else 0.0
-    history = []
-    for t in range(xc.rounds):
+    writer = _make_ckpt_writer(save_every_k, False, keep_last)
+    history, start_round = [], 0
+    if resume_from is not None:
+        snap = checkpoint.load_run_state(resume_from)
+        _check_snapshot(snap, "loop", alg, xc, eval_samples)
+        checkpoint.set_generator_state(rng, snap["rng"])
+        server.load_state_dict(snap["server"])
+        for b, sd in zip(bufs, snap["buffers"]):
+            b.load_state_dict(sd)
+        load_streams_state(streams, snap["streams"])
+        history = list(snap["history"])
+        start_round = int(snap["next_round"])
+    for t in range(start_round, xc.rounds):
         t_start = time.perf_counter()
         if xc.use_resource_opt:
             decisions = optimize_round(rng, net, clients_sys, n_params)
@@ -269,6 +456,17 @@ def _run_loop(alg: str, xc: ExperimentConfig, eval_samples: int,
                         "participants": len(updates),
                         "request_gen_s": req_s,
                         "round_s": round_s})
+        if save_every_k and (t + 1) % save_every_k == 0:
+            writer.submit(
+                checkpoint_path(checkpoint_dir, t + 1),
+                {"engine": "loop", "alg": alg,
+                 "config": _run_shape(xc, eval_samples), "next_round": t + 1,
+                 "rng": checkpoint.generator_state(rng),
+                 "server": server.state_dict(),
+                 "buffers": [b.state_dict() for b in bufs],
+                 "streams": streams_state_dict(streams),
+                 "history": history},
+                metadata={"engine": "loop", "alg": alg, "round": t + 1})
     return history
 
 
@@ -319,18 +517,33 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
     (``xc.engine="loop"``), or ``"centralized"`` (or
     ``xc.engine="centralized"``) for the pooled-data genie. The whole
     configuration is validated up front (``repro_torch.harness.compat``);
-    the knobs the port does not run yet — a mesh, checkpoint arguments and
-    the configurations that need them — raise ``ExperimentConfigError``."""
-    checkpoint = (save_every_k is not None or checkpoint_dir is not None
-                  or resume_from is not None or keep_last is not None
-                  or not checkpoint_async)
-    plan = resolve(alg, xc, mesh=mesh, pod_engine=pod_engine,
-                   checkpoint=checkpoint)
+    the knobs the port does not run yet raise ``ExperimentConfigError``.
+
+    ``save_every_k``/``checkpoint_dir`` write a RunState snapshot
+    (``checkpoint_path(checkpoint_dir, t)``) after every k-th round;
+    ``resume_from`` restores one and continues the trajectory bit for bit;
+    ``keep_last`` prunes all but the newest N committed snapshots. The
+    stacked engine writes v2 snapshots on a background thread
+    (``checkpoint_async=False``: blocking v1); the loop engine always
+    writes blocking v1. The genie does not checkpoint."""
+    plan = resolve(alg, xc, mesh=mesh, pod_engine=pod_engine)
     _LOG.info("resolved experiment plan: %s", plan.describe())
+    if plan.engine == "centralized":
+        if (save_every_k or checkpoint_dir is not None
+                or resume_from is not None or keep_last is not None):
+            raise ValueError(
+                "the centralized genie does not checkpoint (it is a "
+                "baseline, not a trajectory to resume); drop the "
+                "save_every_k/checkpoint_dir/resume_from/keep_last args")
+    else:
+        _validate_ckpt_args(save_every_k, checkpoint_dir, keep_last)
     device = resolve_device(device)
     with full_f32_convolutions(), deterministic_convolutions():
         if plan.engine == "centralized":
             return _run_centralized(xc, eval_samples, device)
         if plan.engine == "loop":
-            return _run_loop(alg, xc, eval_samples, device)
-        return _run_stacked(alg, xc, eval_samples, device)
+            return _run_loop(alg, xc, eval_samples, device, save_every_k,
+                             checkpoint_dir, resume_from, keep_last)
+        return _run_stacked(alg, xc, eval_samples, device, save_every_k,
+                            checkpoint_dir, resume_from, checkpoint_async,
+                            keep_last)

@@ -139,6 +139,90 @@ def test_loop_run_matches_cpu_run(cuda, alg):
             c["test_loss"])
 
 
+@pytest.mark.parametrize("kw", [
+    dict(model="mlp", dataset=2, num_clients=16, rounds=3),
+    dict(model="fcn", dataset=1, num_clients=8, rounds=2),
+], ids=["mlp-d2-u16", "fcn-d1-u8"])
+def test_stacked_requests_run_matches_cpu_run(cuda, kw):
+    """The stacked request model draws its noise on the host, so the card's
+    stream is the CPU's: the same seeded run matches, participants exact."""
+    from repro_torch.harness import ExperimentConfig, run
+    xc = ExperimentConfig(capacity=(16, 32), seed=3,
+                          request_backend="stacked", **kw)
+    gpu = run("osafl", xc, eval_samples=64)
+    cpu = run("osafl", xc, eval_samples=64, device="cpu")
+    assert len(gpu) == len(cpu) == xc.rounds
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
+
+
+@pytest.mark.parametrize("dataset", [1, 2])
+def test_stacked_stream_on_card_is_the_cpu_stream(cuda, dataset):
+    import numpy as np
+    from repro_torch.data.video_caching import make_population
+    from repro_torch.data.video_caching_stacked import StackedRequestStream
+    cat, streams = make_population(3, 64, topk=2)
+    gpu, cpu = (StackedRequestStream.from_streams(cat, streams, seed=5,
+                                                  device=d)
+                for d in ("cuda", "cpu"))
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        counts = rng.integers(0, 9, 64)
+        for a, b in zip(gpu.draw(counts, dataset, 8)[:2],
+                        cpu.draw(counts, dataset, 8)[:2]):
+            assert torch.equal(a.cpu(), b)
+    for k, v in cpu.state_dict().items():
+        assert np.array_equal(np.asarray(gpu.state_dict()[k]),
+                              np.asarray(v)), k
+
+
+def test_f32_solve_on_card_meets_the_x64_contract(cuda):
+    """DESIGN.md's f32 tolerance against x64 on the card, at U=256 with the
+    FCN's payload."""
+    import numpy as np
+    from repro_torch.core import resource as tres
+    from repro_torch.core import resource_stacked as trs
+    net = tres.NetworkConfig()
+    rng = np.random.default_rng(0)
+    sysb = trs.stack_clients(tres.make_clients(rng, 256))
+    chb = trs.sample_channels(rng, sysb)
+    dx, df = (trs.optimize_clients_batched(net, sysb, chb, 3_900_000,
+                                           backend=b, device="cuda")
+              for b in ("x64", "f32"))
+    assert np.array_equal(df.feasible, dx.feasible)
+    flips = df.kappa != dx.kappa
+    assert flips.mean() <= 0.10
+    m = dx.feasible & ~flips
+    for k in ("f", "p", "e_total"):
+        a, b = getattr(df, k)[m], getattr(dx, k)[m]
+        assert np.median(np.abs(a - b) / np.abs(b)) <= 1e-3, k
+
+
+@pytest.mark.parametrize("backend", ["python", "stacked"])
+def test_resume_on_card_is_bit_exact(cuda, tmp_path, backend):
+    from repro_torch.checkpoint import diff_snapshots, load_run_state
+    from repro_torch.harness import (ExperimentConfig, checkpoint_path,
+                                     run)
+    xc = ExperimentConfig(model="mlp", dataset=2, num_clients=16, rounds=4,
+                          capacity=(16, 32), seed=3,
+                          request_backend=backend)
+    full = run("osafl", xc, eval_samples=64, save_every_k=4,
+               checkpoint_dir=tmp_path / "a")
+    run("osafl", dataclasses.replace(xc, rounds=2), eval_samples=64,
+        save_every_k=2, checkpoint_dir=tmp_path / "b")
+    resumed = run("osafl", xc, eval_samples=64, save_every_k=2,
+                  checkpoint_dir=tmp_path / "b",
+                  resume_from=checkpoint_path(tmp_path / "b", 2))
+    keys = ("test_loss", "test_acc", "participants")
+    assert [[h[k] for k in keys] for h in full] == [
+        [h[k] for k in keys] for h in resumed]
+    assert not diff_snapshots(
+        load_run_state(checkpoint_path(tmp_path / "a", 4)),
+        load_run_state(checkpoint_path(tmp_path / "b", 4)))
+
+
 def test_list_round_matches_loop_server(cuda):
     """``StackedOSAFLServer.round(updates)`` against ``OSAFLServer.round``
     on the same list on the card, 3 rounds of partial participation: one

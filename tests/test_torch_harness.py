@@ -90,17 +90,17 @@ def test_reference_rules_name_the_same_failure(reference, change):
 
 
 @pytest.mark.parametrize("change,kwargs,key", [
-    (dict(engine="loop"), dict(checkpoint=True), "port-checkpoint"),
+    (dict(engine="loop"), dict(mesh=object()), "port-mesh"),
     (dict(engine="pod"), {}, "port-engine"),
     (dict(round_backend="fused", request_backend="stacked"), {},
      "port-round-backend"),
-    (dict(request_backend="stacked"), {}, "port-request-backend"),
-    (dict(resource_backend="f32"), {}, "port-resource-backend"),
+    (dict(request_backend="stacked", cohort_size=4), {}, "port-cohort"),
+    (dict(resource_backend="f32", num_clusters=2), {}, "port-hierarchy"),
     (dict(cohort_size=4), {}, "port-cohort"),
     (dict(num_clusters=2), {}, "port-hierarchy"),
     (dict(engine="stacked"), dict(mesh=object()), "port-mesh"),
     (dict(scenario="churn(p_away=0.3)"), {}, "port-scenario"),
-    (dict(), dict(checkpoint=True), "port-checkpoint"),
+    (dict(engine="pod", request_backend="stacked"), {}, "port-engine"),
 ])
 def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
@@ -111,12 +111,53 @@ def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
     assert key in {r.key for r in PORT_RULES}
 
 
-@pytest.mark.parametrize("kwargs", [dict(save_every_k=2, checkpoint_dir="x"),
-                                    dict(resume_from="x"), dict(keep_last=1),
-                                    dict(checkpoint_async=False)])
-def test_run_rejects_checkpoint_arguments(kwargs):
-    with pytest.raises(ExperimentConfigError, match="port-checkpoint"):
-        run("osafl", ExperimentConfig(num_clients=2), device="cpu", **kwargs)
+@pytest.mark.parametrize("alg,kwargs", [
+    ("centralized", dict(save_every_k=2, checkpoint_dir="x")),
+    ("centralized", dict(resume_from="x")),
+    ("centralized", dict(keep_last=1)),
+    ("osafl", dict(keep_last=1)),
+])
+def test_run_rejects_checkpoint_arguments(reference, alg, kwargs):
+    """The genie refuses every checkpoint argument, and a stacked run a
+    ``keep_last`` without snapshots to prune, with the reference's
+    ``ValueError``, before any work."""
+    with pytest.raises(ValueError) as want:
+        reference.harness.run(alg, reference.harness.ExperimentConfig(
+            num_clients=2), **kwargs)
+    with pytest.raises(ValueError) as got:
+        run(alg, ExperimentConfig(num_clients=2), device="cpu", **kwargs)
+    assert str(got.value) == str(want.value)
+    assert not isinstance(got.value, ExperimentConfigError)
+
+
+@pytest.mark.parametrize("change", [
+    dict(request_backend="stacked"), dict(resource_backend="f32"),
+    dict(request_backend="stacked", resource_backend="f32"),
+    dict(engine="loop", resource_backend="f32"),
+])
+def test_resolve_accepts_the_paper_presets_backends(reference, change):
+    """The backends of the paper presets (``benchmarks/table2_dataset1.py``,
+    ``table4_dataset2.py``: stacked requests) and the f32 solve resolve as
+    the reference resolves them."""
+    xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
+    plan = resolve("osafl", xc)
+    want = reference.harness.resolve("osafl", dataclasses.replace(
+        reference.harness.ExperimentConfig(num_clients=8), **change))
+    assert plan.describe() == want.describe()
+    assert not {"port-request-backend", "port-resource-backend",
+                "port-checkpoint"} & {r.key for r in PORT_RULES}
+
+
+@pytest.mark.parametrize("engine", ["stacked", "loop"])
+def test_run_accepts_checkpoint_arguments(tmp_path, engine):
+    xc = ExperimentConfig(model="mlp", dataset=2, num_clients=2, rounds=2,
+                          capacity=(8, 9), engine=engine)
+    hist = run("osafl", xc, eval_samples=8, device="cpu", save_every_k=1,
+               checkpoint_dir=tmp_path, keep_last=1)
+    assert len(hist) == 2
+    names = sorted(p.name for p in tmp_path.glob("round_*"))
+    assert names == (["round_00002"] if engine == "stacked"
+                     else ["round_00002.meta.json", "round_00002.npz"])
 
 
 def test_null_scenario_is_accepted():

@@ -27,12 +27,14 @@ import pytest
 import torch
 
 _REFERENCE_MODULES = (
+    "repro.checkpoint",
     "repro.configs", "repro.configs.base", "repro.core.baselines",
     "repro.core.buffer", "repro.core.buffer_stacked",
     "repro.core.client", "repro.core.flatten", "repro.core.osafl",
     "repro.core.pod", "repro.core.resource", "repro.core.resource_stacked",
     "repro.core.scores",
-    "repro.data.online", "repro.data.video_caching", "repro.harness",
+    "repro.data.online", "repro.data.video_caching",
+    "repro.data.video_caching_stacked", "repro.harness",
     "repro.kernels.ops", "repro.kernels.ref", "repro.kernels.scored_reduce",
     "repro.models.attention", "repro.models.layers", "repro.models.small",
     "repro.models.transformer",
