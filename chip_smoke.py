@@ -10,7 +10,8 @@ Phases, each fatal on failure:
      beside the least time the card could take and one PyTorch library
      call that computes the same function; flash attention is timed twice
      at the prefill shape, on contiguous inputs and on the model's strided
-     (B, S, H, D) views;
+     (B, S, H, D) views; ``scored_reduce`` also at the FCN's cluster-block
+     (32, N) and tier-2 (8, N) shapes of 6g;
   4. small runs on the card against the same runs on the CPU (whose plain
      paths the CPU tests tie to the JAX reference): the harness with each
      of the six algorithms and the genie on the MLP, OSAFL on the CNN,
@@ -55,6 +56,19 @@ Phases, each fatal on failure:
      time ``submit`` holds the loop, the writer's and the loads' times,
      free disk and host memory; then the loop engine's blocking v1 resume
      on the MLP;
+  6g. cohorts, clusters, scenarios and sketches at full width (FCN,
+     Dataset-1, capacities 320-640, 3 rounds): the sparse cohort (U=1024
+     registered users, C=256 slots, participation 0.5, stacked requests),
+     the main path with 8 edge clusters, all of them together under
+     ``churn+flash_crowd+cluster_churn``, Fig. 1's paper preset (MLP,
+     Dataset-2, U=256) with and without ``quiet(scale=0.0)``, and the main
+     path with 256-dim sketched scores, each with the launch counts reset
+     just before and read just after; a breakdown of the hierarchical,
+     the sparse and the sketched round by stage; small runs card against
+     CPU of every algorithm with a cohort and with 2 clusters, of OSAFL
+     under every registry scenario on the dense and the sparse path and
+     sketched; and a sparse hierarchical run resumed on the card, bit for
+     bit;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -176,6 +190,47 @@ CKPT_EVERY = 2
 LOOP_RESUME = dict(SMALL_MLP, rounds=4, engine="loop")
 # DESIGN.md's f32 solve contract against x64
 F32_FLIPS, F32_MEDIAN_REL = 0.10, 1e-3
+# cohorts, clusters, scenarios and sketches at full width (phase 6g); the
+# sparse runs register 1024 users, a population a dense (U, N) buffer of the
+# FCN cannot hold (16 GB), behind the main path's 256 slots
+COHORT_U, COHORT_C, CLUSTERS = 1024, 256, 8
+COHORT_RUNS = (
+    ("cohort", dict(MAIN_RUN, num_clients=COHORT_U, cohort_size=COHORT_C,
+                    participation=0.5, request_backend="stacked")),
+    ("hier", dict(MAIN_RUN, num_clusters=CLUSTERS)),
+    ("combined", dict(MAIN_RUN, num_clients=COHORT_U, cohort_size=COHORT_C,
+                      participation=0.5, num_clusters=CLUSTERS,
+                      request_backend="stacked",
+                      scenario="churn(p_away=0.3)+flash_crowd(period=8,"
+                               "scale=3)+cluster_churn(rate=0.05)")),
+    # benchmarks/fig1_static_vs_timevarying.py:33-35, cut to 3 rounds
+    ("fig1", dict(model="mlp", dataset=2, num_clients=MAIN_U, rounds=3,
+                  arrivals=8, capacity=(320, 640), seed=0,
+                  request_backend="stacked")),
+    ("fig1", dict(model="mlp", dataset=2, num_clients=MAIN_U, rounds=3,
+                  arrivals=8, capacity=(320, 640), seed=0,
+                  request_backend="stacked", scenario="quiet(scale=0.0)")),
+    # benchmarks/ablation_scores.py:30
+    ("sketch", dict(MAIN_RUN, score_sketch_dim=256)))
+FIG1_EVAL = 400                     # the figure script's harness default
+# the registry's scenarios, each on the dense and on the sparse path of the
+# small MLP run (cluster_churn moves members only with clusters and a pool)
+SCENARIOS = ("churn(p_away=0.3)", "flash_crowd(period=2,scale=3)",
+             "quiet(scale=0.5)", "radius_step(at=1,factor=1.67)",
+             "device_classes", "cluster_churn(rate=0.3)",
+             "pareto_select(alpha=1.5)")
+SMALL_SPARSE = dict(SMALL_MLP, cohort_size=8, participation=0.5)
+COHORT_SMALL = (
+    [(alg, SMALL_SPARSE) for alg in ALGS[:-1]]
+    + [(alg, dict(SMALL_MLP, num_clusters=2)) for alg in ALGS[:-1]]
+    + [("osafl", dict(SMALL_MLP, scenario=scn)) for scn in SCENARIOS]
+    + [("osafl", dict(SMALL_SPARSE, scenario=scn,
+                      num_clusters=2 if "cluster" in scn else 0))
+       for scn in SCENARIOS]
+    + [("osafl", dict(SMALL_MLP, score_sketch_dim=64))])
+HIER_RESUME = dict(SMALL_SPARSE, rounds=4, num_clusters=2,
+                   request_backend="stacked",
+                   scenario="cluster_churn(rate=0.3)")
 # the serving path: deepseek-coder-33b, depth cut 62 -> 8 (f32 weights of
 # all 62 layers are 133 GB, more than the card holds)
 SERVE_LAYERS = 8
@@ -301,10 +356,18 @@ def kernels_phase() -> dict:
         rows.append(check_scored_reduce(MAIN_U, n[model], torch.bfloat16,
                                         timed=False))
         torch.cuda.empty_cache()
+    # the FCN's cluster blocks (U/K rows of the main path's buffer) and
+    # tier-2 aggregates (K rows) of phase 6g, f32 timed
+    blocks = {}
+    for U in (MAIN_U // CLUSTERS, CLUSTERS):
+        blocks[U] = check_scored_reduce(U, n["fcn"], torch.float32,
+                                        timed=True)
+        rows.append(blocks[U])
+        torch.cuda.empty_cache()
     for U, N in ((16, 18_404), (1, 17), (3, 131), (17, 4_099)):
         for dtype in (torch.float32, torch.bfloat16):
             rows.append(check_scored_reduce(U, N, dtype, timed=False))
-    return {"main": rows[0], "grid": grid, "rows": rows}
+    return {"main": rows[0], "grid": grid, "blocks": blocks, "rows": rows}
 
 
 def check_flash(shape, dtype, causal: bool, timed: bool,
@@ -443,11 +506,21 @@ def small_transformer_phase() -> None:
 
 
 def scored_launches(alg: str, xc) -> int:
-    """``scored_reduce`` launches a run should make: one a round of the
-    stacked OSAFL server, none in the loop oracle (whose scores are the
-    independent implementation the kernel is held against), a baseline or
-    the genie."""
-    return xc.rounds if alg == "osafl" and xc.engine != "loop" else 0
+    """``scored_reduce`` launches a round should make: one in the stacked
+    OSAFL round, K + 1 in its K > 1 cluster tier (one per block and one for
+    the (K, N) aggregates), none with sketched scores, in the loop oracle
+    (whose scores are the independent implementation the kernel is held
+    against), a baseline or the genie."""
+    if alg != "osafl" or xc.engine == "loop" or xc.score_sketch_dim:
+        return 0
+    return xc.num_clusters + 1 if xc.num_clusters > 1 else 1
+
+
+def small_key(kw: dict) -> str:
+    """The knobs of phase 6g that a run sets, as a short label."""
+    return " ".join(f"{k}={kw[k]}" for k in (
+        "cohort_size", "participation", "num_clusters", "scenario",
+        "score_sketch_dim") if kw.get(k))
 
 
 def small_run_phase(runs=SMALL_RUNS) -> dict:
@@ -464,15 +537,17 @@ def small_run_phase(runs=SMALL_RUNS) -> dict:
         sr.scored_reduce.launches = 0
         gpu = run(alg, xc, eval_samples=64)
         launches = sr.scored_reduce.launches
-        if launches != scored_launches(alg, xc):
+        if launches != xc.rounds * scored_launches(alg, xc):
             raise AssertionError(f"small run {alg} {kw}: scored_reduce "
                                  f"launched {launches} times")
-        if xc.engine == "loop" or xc.request_backend == "stacked":
-            loop_launches[f"{alg} {kw['model']}"] = launches
+        if (xc.engine == "loop" or xc.request_backend == "stacked"
+                or runs is not SMALL_RUNS):
+            loop_launches[" ".join(filter(None, (
+                alg, kw["model"], small_key(kw))))] = launches
         cpu = run(alg, xc, eval_samples=64, device="cpu")
         for g, c in zip(gpu, cpu):
             say(f"small run {alg} {kw['model']} {xc.engine} "
-                f"{xc.request_backend} requests round "
+                f"{xc.request_backend} requests {small_key(kw)} round "
                 f"{g['round']}: cuda "
                 f"loss {g['test_loss']:.6f} cpu loss {c['test_loss']:.6f} "
                 f"rel {abs(g['test_loss'] / c['test_loss'] - 1):.2e} "
@@ -566,7 +641,7 @@ def fl_run(label: str, alg: str, kw: dict, eval_samples: int,
                "round", "test_loss", "test_acc", "participants",
                "round_s", "request_gen_s")} for h in hist]}
     say(f"{label} " + json.dumps(row))
-    want = xc.rounds - start_round if scored_launches(alg, xc) else 0
+    want = (xc.rounds - start_round) * scored_launches(alg, xc)
     if launches != {"scored_reduce": want, "flash_attention": 0}:
         raise AssertionError(f"{label} {alg} {kw['model']}: launches "
                              f"{launches}, expected scored_reduce {want}")
@@ -680,21 +755,29 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
     round (``repro_torch.harness.experiments._run_stacked``) in its order,
     each ended by a synchronize so that stages cannot overlap, plus the
     resource solve on the CPU for comparison; convolutions in full f32 and
-    deterministic, as in a run. A separate run after the main path; its
+    deterministic, as in a run. A sparse-cohort run adds the participation
+    sample with its admissions and ``reset_rows`` before the requests, and
+    splits the server round into the inner (slot-width) round and the
+    per-user tables' write-back. A separate run after the main path; its
     launches are not counted."""
     import numpy as np
     from repro_torch.core.client import make_vmapped_local_train
+    from repro_torch.core.cohort import sample_participants
+    from repro_torch.core.hierarchy import sample_participants_clustered
     from repro_torch.core.resource_stacked import optimize_round_batched
     from repro_torch.data.online import (binomial_arrivals_batched,
                                          draw_arrival_batch)
     from repro_torch.harness import ExperimentConfig
-    from repro_torch.harness.experiments import _stacked_setup
+    from repro_torch.harness.experiments import (_admitted, _gather_sys,
+                                                 _stacked_setup)
     from repro_torch.device import (deterministic_convolutions,
                                     full_f32_convolutions)
     from repro_torch.models.small import small_loss
     dev = torch.device("cuda")
     xc = ExperimentConfig(**run_kw)
     s = _stacked_setup("osafl", xc, MAIN_EVAL, dev)
+    if s.scn is not None:
+        raise ValueError("breakdown_phase runs without a scenario")
     step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
                                     s.fl.kappa_max)
 
@@ -705,21 +788,48 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
     with full_f32_convolutions(), deterministic_convolutions():
         for t in range(rounds):
             marks = [("start", lap())]
-            counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
+            cohort, sel, p_ac = None, None, s.p_ac
+            if s.sparse:
+                if s.resample:
+                    if s.K >= 1:
+                        sel = sample_participants_clustered(
+                            s.rng, s.server.assign, s.K, s.m_active,
+                            s.C // s.K)
+                    else:
+                        sel = sample_participants(s.rng, s.U, s.m_active)
+                    _admitted(s, sel, s.server.admit(sel))
+                    marks.append(("admissions_reset_rows", lap()))
+                cohort = s.server.cohort
+                p_ac = s.p_ac[cohort]
+            counts = binomial_arrivals_batched(s.rng, xc.arrivals, p_ac)
             if s.stacked_req:
-                arrivals = s.rstream.draw(counts, xc.dataset, xc.arrivals)
+                if s.sparse:
+                    full = np.zeros(s.U, counts.dtype)
+                    full[cohort] = counts
+                    xs, ys, cnt = s.rstream.draw(full, xc.dataset,
+                                                 s.arr_width)
+                    rows = torch.as_tensor(cohort, device=dev)
+                    arrivals = (xs[rows], ys[rows], cnt[cohort])
+                else:
+                    arrivals = s.rstream.draw(counts, xc.dataset,
+                                              s.arr_width)
             else:
                 arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
-                                              width=xc.arrivals)
+                                              width=s.arr_width)
             marks.append(("requests", lap()))
             s.sbuf.stage(*arrivals)
             s.sbuf.commit()
             marks.append(("fifo_commit", lap()))
+            sysb = _gather_sys(s.sysb, cohort) if s.sparse else s.sysb
             kappas = optimize_round_batched(
-                s.rng, s.net, s.sysb, s.n_params,
+                s.rng, s.net, sysb, s.n_params,
                 backend=xc.resource_backend, device=dev).kappa
             marks.append(("resource_solve", lap()))
             active = kappas >= 1
+            if sel is not None:
+                sel_mask = np.zeros(s.C, bool)
+                sel_mask[s.server.pool.user_slot[sel]] = True
+                active = active & sel_mask & (s.sbuf.sizes > 0)
             slots = s.sbuf.sample_slots(s.rng, (s.fl.kappa_max, xc.batch))
             batch = s.sbuf.gather(slots)
             marks.append(("slots_gather", lap()))
@@ -728,20 +838,26 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
             upd = s.codec.flatten_stacked(d)
             del d, batch
             marks.append(("local_sgd", lap()))
-            s.server.round_stacked(upd, active)
+            if s.sparse:
+                s.server.inner.round_stacked(upd, active)
+                marks.append(("server_round", lap()))
+                s.server._write_back()
+                marks.append(("tables_write_back", lap()))
+            else:
+                s.server.round_stacked(upd, active)
+                marks.append(("server_round", lap()))
             del upd
-            marks.append(("server_round", lap()))
             float(small_loss(s.server.params, s.test_batch, s.model)[0])
             marks.append(("eval", lap()))
             stages = {name: marks[i + 1][1] - marks[i][1]
                       for i, (name, _) in enumerate(marks[1:])}
             stages["total"] = marks[-1][1] - marks[0][1]
             t0 = time.perf_counter()
-            optimize_round_batched(np.random.default_rng(t), s.net, s.sysb,
+            optimize_round_batched(np.random.default_rng(t), s.net, sysb,
                                    s.n_params, device="cpu")
             stages["resource_solve_on_cpu"] = time.perf_counter() - t0
             say(f"breakdown {xc.model} {xc.request_backend} requests "
-                f"round {t} (s): {json.dumps(stages)}")
+                f"{small_key(run_kw)} round {t} (s): {json.dumps(stages)}")
 
 
 def grid_phase(main: dict) -> list:
@@ -962,23 +1078,24 @@ def checkpoint_phase() -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def loop_resume_phase() -> dict:
-    """The loop engine's blocking v1 snapshots on the card (``LOOP_RESUME``,
-    the MLP at U=16): 4 rounds straight against 2 + save + resume + 2;
-    histories and final snapshots bit for bit."""
+def resume_phase(label: str, kw: dict) -> dict:
+    """A run's snapshots on the card (``kw``: 4 rounds): 4 rounds straight
+    against 2 + save + resume + 2; histories and final snapshots bit for
+    bit. The loop engine writes blocking v1 snapshots, the stacked engine
+    async v2."""
     import shutil
     import tempfile
 
     from repro_torch import checkpoint
     from repro_torch.harness import checkpoint_path
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_loop_"))
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_resume_"))
     try:
-        full = fl_run("loop resume straight", "osafl", LOOP_RESUME, 64,
+        full = fl_run(f"{label} straight", "osafl", kw, 64,
                       save_every_k=4, checkpoint_dir=root / "a")
-        half = dict(LOOP_RESUME, rounds=2)
-        fl_run("loop resume first half", "osafl", half, 64,
+        half = dict(kw, rounds=2)
+        fl_run(f"{label} first half", "osafl", half, 64,
                save_every_k=2, checkpoint_dir=root / "b")
-        resumed = fl_run("loop resume second half", "osafl", LOOP_RESUME,
+        resumed = fl_run(f"{label} second half", "osafl", kw,
                          64, start_round=2, save_every_k=2,
                          checkpoint_dir=root / "b",
                          resume_from=checkpoint_path(root / "b", 2))
@@ -988,14 +1105,44 @@ def loop_resume_phase() -> dict:
         diffs = checkpoint.diff_snapshots(
             checkpoint.load_run_state(checkpoint_path(root / "a", 4)),
             checkpoint.load_run_state(checkpoint_path(root / "b", 4)))
-        say("loop resume " + json.dumps({"bit_identical": same,
-                                         "snapshot_diffs": diffs[:8]}))
+        say(f"{label} " + json.dumps({"bit_identical": same,
+                                      "snapshot_diffs": diffs[:8]}))
         if not same or diffs:
-            raise AssertionError("the loop engine's resumed run did not "
-                                 f"repeat the straight one: {diffs}")
+            raise AssertionError(f"{label}: the resumed run did not repeat "
+                                 f"the straight one: {diffs}")
         return {"runs": [full, resumed]}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def loop_resume_phase() -> dict:
+    """The loop engine's blocking v1 snapshots on the card (``LOOP_RESUME``,
+    the MLP at U=16)."""
+    return resume_phase("loop resume", LOOP_RESUME)
+
+
+def cohort_phase() -> dict:
+    """Phase 6g: ``COHORT_RUNS`` at full width through ``fl_run`` (launch
+    gate: ``scored_launches`` a round), one summary line of their
+    ``round_s``, ``request_gen_s``, participants and peaks; breakdowns of
+    the hierarchical, the sparse and the sketched round; ``COHORT_SMALL``
+    card against CPU; the sparse hierarchical resume (``HIER_RESUME``) bit
+    for bit."""
+    runs = [(name, fl_run(f"cohort phase {name}", "osafl", kw,
+                          FIG1_EVAL if name == "fig1" else MAIN_EVAL))
+            for name, kw in COHORT_RUNS]
+    say("cohort phase " + json.dumps({
+        f"{name} {small_key(row['config'])}": {
+            k: [r[k] for r in row["rounds"]]
+            for k in ("round_s", "request_gen_s", "participants")}
+        | {"max_memory_allocated": row["max_memory_allocated"],
+           "scored_reduce": row["launches"]["scored_reduce"]}
+        for name, row in runs}))
+    for name in ("hier", "cohort", "sketch"):
+        breakdown_phase(dict(COHORT_RUNS)[name])
+    small = small_run_phase(COHORT_SMALL)
+    resume = resume_phase("sparse hierarchical resume", HIER_RESUME)
+    return {"runs": runs, "small": small, "resume": resume}
 
 
 def _clock() -> float:
@@ -1179,6 +1326,7 @@ def main() -> int:
     ckpt = checkpoint_phase()
     loop_resume = loop_resume_phase()
     breakdown_phase(dict(MAIN_RUN, request_backend="stacked"))
+    cohorts = cohort_phase()
     serving = serving_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
@@ -1207,6 +1355,14 @@ def main() -> int:
                                    for r in loop_resume["runs"]],
                    "serving": serving["launches"][k]}
                for k in ("scored_reduce", "flash_attention")}
+    for path in dict(COHORT_RUNS):
+        for k in by_path:
+            got = [row["launches"][k] for n, row in cohorts["runs"]
+                   if n == path]
+            by_path[k][path] = got[0] if len(got) == 1 else got
+    by_path["scored_reduce"]["cohort_small"] = cohorts["small"]
+    by_path["scored_reduce"]["hier_resume"] = [
+        r["launches"]["scored_reduce"] for r in cohorts["resume"]["runs"]]
     by_path["scored_reduce"]["loop_small"] = small_loop
     by_path["scored_reduce"]["stacked_small"] = stacked_small
     line = {"kernels": [{

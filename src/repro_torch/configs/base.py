@@ -182,8 +182,11 @@ class FLConfig:
 @dataclass
 class ExperimentConfig:
     """One harness run (``repro_torch.harness.run``). Every field and default
-    of the reference's ``ExperimentConfig``; ``harness/compat.py`` says which
-    values the port runs so far."""
+    of the reference's ``ExperimentConfig``, plus ``score_sketch_dim``, the
+    ``FLConfig`` knob that the reference's harness does not pass on (its
+    sketched runs build the servers by hand, ``benchmarks/
+    ablation_scores.py``); ``harness/compat.py`` says which values the port
+    runs so far."""
     model: str = "fcn"
     dataset: int = 1                  # 1 | 2
     num_clients: int = 12
@@ -207,6 +210,7 @@ class ExperimentConfig:
     num_clusters: int = 0
     cell_radius_m: float = 600.0
     scenario: str = ""
+    score_sketch_dim: int = 0         # >0: OSAFL scores on k-dim sketches
 
     def validate(self, alg: str = "osafl", mesh=None):
         """Check this config against ``repro_torch.harness.compat.RULES``

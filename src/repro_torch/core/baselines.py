@@ -19,8 +19,9 @@ as one shared tree. The stacked servers (``STACKED_SERVERS``) keep one
 host: a client's last reported value sticks while it sits a round out.
 Both compute the aggregation weights on the host in float64, as the
 reference does; a stacked round aggregates with one (U,) @ (U, N)
-product. Their ``state_dict``s are the reference's, key for key. The
-sparse cohort and cluster tiers are not ported yet.
+product (their two-tier forms, ``core/hierarchy.py``, one per cluster
+block). Their ``state_dict``s are the reference's, key for key.
+``make_server`` also builds the sparse-cohort server (``core/cohort.py``).
 """
 from __future__ import annotations
 
@@ -353,23 +354,36 @@ SERVERS = {
 
 def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
                 device=None):
-    """The dense server of ``fl.algorithm`` on ``fl.engine``: on
-    ``"stacked"``, ``StackedOSAFLServer`` or one of ``STACKED_SERVERS``; on
-    ``"loop"``, ``OSAFLServer`` or one of ``SERVERS``. The sparse cohort
-    pool and the cluster tier raise until they are ported."""
-    missing = []
+    """The server of ``fl.algorithm`` on ``fl.engine``, as the reference's
+    ``make_server`` picks it (without a mesh): with ``cohort_size > 0`` the
+    sparse-cohort server (``core/cohort.py``, stacked engine only); on
+    ``"stacked"`` the two-tier servers of ``core/hierarchy.py`` when
+    ``num_clusters >= 1``, else ``StackedOSAFLServer`` or one of
+    ``STACKED_SERVERS``; on ``"loop"``, ``OSAFLServer`` or one of
+    ``SERVERS``. The pod engine raises until it is ported."""
     if fl.engine not in ("stacked", "loop"):
-        missing.append(f"engine={fl.engine!r}")
-    if fl.cohort_size:
-        missing.append(f"cohort_size={fl.cohort_size}")
-    if fl.num_clusters >= 1:
-        missing.append(f"num_clusters={fl.num_clusters}")
-    if missing:
         raise NotImplementedError(
-            "not ported to repro_torch yet: " + ", ".join(missing)
-            + " (ported: the dense stacked and loop servers)")
-    servers = ({"osafl": StackedOSAFLServer, **STACKED_SERVERS}
-               if fl.engine == "stacked" else
-               {"osafl": OSAFLServer, **SERVERS})
+            f"not ported to repro_torch yet: engine={fl.engine!r} (ported: "
+            "the stacked and loop servers)")
+    if fl.cohort_size:
+        from repro_torch.core.cohort import SparseCohortServer
+        if fl.engine != "stacked":
+            raise ValueError(
+                "cohort_size>0 needs the stacked engine (the loop servers "
+                f"are dense per-user oracles; got engine={fl.engine!r})")
+        return SparseCohortServer(params, fl, num_clients, seed=seed,
+                                  device=device)
+    if fl.engine == "stacked":
+        if fl.num_clusters >= 1:
+            from repro_torch.core.hierarchy import make_hier_server
+            return make_hier_server(params, fl, num_clients, seed=seed,
+                                    device=device)
+        servers = {"osafl": StackedOSAFLServer, **STACKED_SERVERS}
+    else:
+        if fl.num_clusters >= 1:
+            raise ValueError(
+                "num_clusters>=1 needs the stacked engine (the loop servers "
+                f"are flat per-user oracles; got engine={fl.engine!r})")
+        servers = {"osafl": OSAFLServer, **SERVERS}
     return servers[fl.algorithm](params, fl, num_clients, seed=seed,
                                  device=device)

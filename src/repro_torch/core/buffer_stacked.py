@@ -12,6 +12,7 @@ sequential insert loop:
   * ``size`` becomes ``min(size + n, cap)`` and ``head`` advances by the
     overflow ``max(size + n - cap, 0)``.
 
+A sparse-cohort admission reassigns rows to new clients (``reset_rows``).
 The reference is ``repro/core/buffer_stacked.py`` without the mesh.
 Labels and Dataset-2 features are int64 here; the reference's JAX arrays
 hold them as int32 (``canonicalize_dtype(np.int64)`` with x64 off), with
@@ -128,6 +129,39 @@ class StackedOnlineBuffer:
             head=(h + torch.clamp(s + n - c, min=0)) % c,
             staged_n=torch.zeros_like(n))
         return total
+
+    # -- slot reassignment (sparse-cohort admissions) ------------------------
+    def reset_rows(self, rows, capacities) -> None:
+        """Reassign storage rows to new clients (a slot-pool admission,
+        ``core/cohort.py``): each row's capacity becomes the incoming
+        client's D_u and its FIFO window and staging empty out. The storage
+        is reused: the evicted client's samples are dead (size 0 masks
+        them from the live window, the histograms and the slot sampling)
+        and are overwritten as the new resident's arrivals land. The four
+        (U,) pointer tensors are replaced, not written in place, so a
+        snapshot taken before keeps its values."""
+        rows = np.asarray(rows, np.int64).ravel()
+        if rows.size == 0:
+            return
+        caps = np.asarray(capacities, np.int32).ravel()
+        if caps.shape != rows.shape:
+            raise ValueError(
+                f"reset_rows needs one capacity per row (got {rows.size} "
+                f"rows, {caps.size} capacities)")
+        D = int(self.state.y.shape[1])
+        if caps.min(initial=1) < 1 or caps.max(initial=0) > D:
+            raise ValueError(
+                f"reassigned capacities must lie in [1, {D}] (the allocated "
+                f"storage depth); got [{caps.min()}, {caps.max()}]")
+        st = self.state
+        idx = torch.as_tensor(rows, device=self.device)
+        zero = torch.zeros(rows.size, dtype=torch.int32, device=self.device)
+        self.state = st._replace(
+            cap=st.cap.index_copy(0, idx, torch.as_tensor(
+                caps, device=self.device)),
+            size=st.size.index_copy(0, idx, zero),
+            head=st.head.index_copy(0, idx, zero),
+            staged_n=st.staged_n.index_copy(0, idx, zero))
 
     # -- views ----------------------------------------------------------------
     @property

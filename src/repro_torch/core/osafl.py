@@ -7,10 +7,12 @@ Participating clients overwrite their slot; slots of clients that never
 took part are refreshed (to zero, or to w^t/eta under Algorithm 2's literal
 init). Scores lambda_u = (chi + cos(d_u, mean)) / (chi + 1) (eqs. 19-21)
 are computed on the buffer, and the global model takes the scored SGD step
-(eq. 17): w <- w - eta~ * eta * sum_u alpha_u lambda_u d[u].
+(eq. 17): w <- w - eta~ * eta * sum_u alpha_u lambda_u d[u]. With
+``score_sketch_dim > 0`` the scores are computed on k-dim count-sketches
+of the contributions, whose signs come from the server's ``sketch_key``
+(``seed_key``, ``scores.sketch_signs``).
 ``repro/core/osafl.py`` is the reference. Both servers' ``state_dict``s
-are the reference's, key for key; ``sketch_key`` is carried opaquely (see
-``seed_key``).
+are the reference's, key for key.
 """
 from __future__ import annotations
 
@@ -23,26 +25,20 @@ import torch
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
                                       tree_map)
-from repro_torch.core.scores import (lambda_scores, tree_add, tree_scale,
-                                     tree_sub, tree_zeros_like)
+from repro_torch.core.scores import (lambda_scores, lambda_scores_sketched,
+                                     sketch_stacked, sketch_tree, tree_add,
+                                     tree_scale, tree_sub, tree_zeros_like)
 from repro_torch.device import owned_tensor, resolve_device
 from repro_torch.kernels.ref import scored_reduce_reference
 from repro_torch.kernels.scored_reduce import scored_reduce
 
 
-def _refuse_sketches(fl: FLConfig) -> None:
-    if fl.score_sketch_dim:
-        raise NotImplementedError(
-            "score_sketch_dim > 0 is not ported to repro_torch yet (ROADMAP "
-            "A6): the reference draws its sketch signs from jax's threefry")
-
-
 def seed_key(seed: int) -> np.ndarray:
     """The (2,) uint32 words of ``seed``, high word first: what the
     reference's servers hold as ``sketch_key`` (its default ``PRNGKey(seed)``
-    for a seed below 2**32). The port writes it to snapshots and restores
-    whatever a snapshot holds, unchanged; nothing reads it until sketched
-    scores are ported (ROADMAP A6)."""
+    for a seed below 2**32). The sketched scores draw their signs from it
+    (``scores.sketch_signs``); it never advances, so every round flips the
+    same signs, and a snapshot that restores it continues them."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return np.array([s >> 32, s & 0xFFFFFFFF], np.uint32)
 
@@ -51,19 +47,20 @@ def _tree_to(tree, dev):
     return tree_map(lambda a: owned_tensor(a, dev), tree)
 
 
-def make_stacked_round_body(fl: FLConfig):
-    """The stacked OSAFL round as one function
+def _check_sketch_dim(fl: FLConfig) -> None:
+    if fl.score_sketch_dim < 0:
+        raise ValueError(f"score_sketch_dim must be >= 0 (0 = exact "
+                         f"scores), got {fl.score_sketch_dim}")
 
-        rnd(w, buf, part_prev, lam_prev, d_new, active, alphas)
-            -> (w, buf, part, lam_use, lam)
 
-    ``buf`` is updated in place and returned: at U=256 clients of the FCN it
-    is 3.9 GB, and rewriting only the rows that change saves a second copy
-    and its traffic. Scores go through the CUDA kernel (``score_backend=
-    "kernel"``, which takes its plain version for CPU tensors) or the
-    plain-torch oracle (``"reference"``); the mean and the final weighted sum
-    are plain torch ops, as the reference leaves them outside its kernel."""
-    _refuse_sketches(fl)
+def make_scores_fn(fl: FLConfig):
+    """``scores_of(rows, key)``: the eq. 19-21 lambda scores of a (n, N)
+    row block against its own mean, the stacked round's scoring. Exact
+    scores reduce through the CUDA kernel (``score_backend="kernel"``,
+    which takes its plain version for CPU tensors) or the plain-torch
+    oracle (``"reference"``); with ``score_sketch_dim > 0`` the rows are
+    count-sketched first under ``key`` and nothing launches the kernel."""
+    _check_sketch_dim(fl)
     if fl.score_backend == "kernel":
         reduce = scored_reduce
     elif fl.score_backend == "reference":
@@ -72,22 +69,56 @@ def make_stacked_round_body(fl: FLConfig):
         raise ValueError(f"unknown score_backend {fl.score_backend!r} "
                          "(expected 'kernel' or 'reference')")
 
-    def rnd(w, buf, part_prev, lam_prev, d_new, active, alphas):
-        part = part_prev | active
-        rows = torch.nonzero(active).squeeze(1)
-        buf.index_copy_(0, rows, d_new.index_select(0, rows))
-        # Algorithm 2 line 17: refresh never-participated slots
-        stale = torch.nonzero(~part).squeeze(1)
-        if fl.literal_init_buffer:
-            refresh = (w / fl.local_lr)[None, :].expand(stale.numel(), -1)
-            buf.index_copy_(0, stale, refresh)
+    def scores_of(rows, key):
+        if fl.score_sketch_dim:
+            sk = sketch_stacked(rows, key, fl.score_sketch_dim)
+            mean = torch.mean(sk, dim=0)
+            dots = sk @ mean
+            norms = torch.sum(sk * sk, dim=1)
+            msq = torch.sum(mean * mean)
         else:
-            buf.index_fill_(0, stale, 0.0)
-        mean = torch.mean(buf, dim=0)
-        dots, norms, msq = reduce(buf, mean)
+            mean = torch.mean(rows, dim=0)
+            dots, norms, msq = reduce(rows, mean)
         cos = dots / torch.clamp(torch.sqrt(norms) * torch.sqrt(msq),
                                  min=1e-12)
-        lam = (fl.chi + cos) / (fl.chi + 1.0)
+        return (fl.chi + cos) / (fl.chi + 1.0)
+
+    return scores_of
+
+
+def write_back(fl: FLConfig, w, buf, part_prev, d_new, active):
+    """Algorithm 2's buffer update, in place: the active rows take their
+    new updates and the slots of clients that never took part are
+    refreshed (line 17). Returns the new participation mask."""
+    part = part_prev | active
+    rows = torch.nonzero(active).squeeze(1)
+    buf.index_copy_(0, rows, d_new.index_select(0, rows))
+    stale = torch.nonzero(~part).squeeze(1)
+    if fl.literal_init_buffer:
+        refresh = (w / fl.local_lr)[None, :].expand(stale.numel(), -1)
+        buf.index_copy_(0, stale, refresh)
+    else:
+        buf.index_fill_(0, stale, 0.0)
+    return part
+
+
+def make_stacked_round_body(fl: FLConfig):
+    """The stacked OSAFL round as one function
+
+        rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None)
+            -> (w, buf, part, lam_use, lam)
+
+    ``buf`` is updated in place and returned: at U=256 clients of the FCN it
+    is 3.9 GB, and rewriting only the rows that change saves a second copy
+    and its traffic. Scores come from ``make_scores_fn`` (the CUDA kernel,
+    the plain-torch oracle, or the sketch under ``key``, the server's
+    ``sketch_key``); the mean and the final weighted sum are plain torch
+    ops, as the reference leaves them outside its kernel."""
+    scores_of = make_scores_fn(fl)
+
+    def rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None):
+        part = write_back(fl, w, buf, part_prev, d_new, active)
+        lam = scores_of(buf, key)
         # stale_scores: weight THIS round's buffer with the PREVIOUS
         # round's scores
         lam_use = lam_prev if fl.stale_scores else lam
@@ -117,7 +148,7 @@ class OSAFLServer:
     def __init__(self, params, fl: FLConfig, num_clients: int,
                  alphas: Optional[np.ndarray] = None, seed: int = 0,
                  device=None):
-        _refuse_sketches(fl)
+        _check_sketch_dim(fl)
         dev = self.device = resolve_device(device)
         self.params = tree_map(lambda x: x.to(dev), params)
         self.fl = fl
@@ -144,7 +175,13 @@ class OSAFLServer:
         refresh = self._refresh()
         for u in np.flatnonzero(~self.participated):
             self.d_buffer[u] = refresh
-        lam = lambda_scores(self.d_buffer, fl.chi)
+        if fl.score_sketch_dim:
+            sk = torch.stack([sketch_tree(d, self._sketch_key,
+                                          fl.score_sketch_dim)
+                              for d in self.d_buffer])
+            lam = lambda_scores_sketched(sk, fl.chi)
+        else:
+            lam = lambda_scores(self.d_buffer, fl.chi)
         if fl.stale_scores:
             # weight THIS round's updates with the PREVIOUS round's scores
             # (lam becomes next round's)
@@ -226,7 +263,7 @@ class StackedOSAFLServer:
         (self.w, self.d_buffer, self.participated, lam_use,
          self._lam_prev) = self._round_fn(
             self.w, self.d_buffer, self.participated, self._lam_prev,
-            d_new, active, self.alphas)
+            d_new, active, self.alphas, self._sketch_key)
         self.last_scores = lam_use.cpu().numpy()
         return self.w
 

@@ -1,9 +1,9 @@
 """The experiment-configuration compatibility matrix.
 
 ``RULES`` is the reference's matrix (``repro/harness/compat.py``), copied
-rule for rule except the three scenario rules, which need the scenario
-layer. ``PORT_RULES`` then rejects, in the same uniform form, every knob
-the port does not run yet. ``resolve()`` evaluates both lists in order and
+rule for rule in its order. ``PORT_RULES`` then rejects, in the same
+uniform form, what the port does not run yet: the pod engine, the fused
+round and a mesh. ``resolve()`` evaluates both lists in order and
 raises on the first match:
 
     invalid experiment configuration [rule-key]: why
@@ -32,7 +32,9 @@ class ExperimentConfigError(ValueError):
 
 @dataclasses.dataclass(frozen=True)
 class ResolvedPlan:
-    """The validated engine/backend combination a run will execute."""
+    """The validated engine/backend combination a run will execute.
+    ``scn`` is the parsed (unbound) scenario, carried so callers do not
+    parse it again; plans compare without it."""
     alg: str
     engine: str                 # loop | stacked | pod | centralized (resolved)
     request_backend: str
@@ -45,6 +47,7 @@ class ResolvedPlan:
     num_clients: int
     scenario: str
     mesh: bool = False          # a mesh was passed
+    scn: object = dataclasses.field(repr=False, compare=False, default=None)
 
     def describe(self) -> str:
         """One log line naming the resolved combination — the smoke tools
@@ -180,16 +183,36 @@ RULES = (
          lambda p: f"num_clusters must divide cohort_size (got "
                    f"K={p.num_clusters}, C={p.cohort_size}); each cluster "
                    "owns an equal contiguous slot block"),
+    Rule("scenario-engine",
+         lambda p: p.scn is not None and not p.scn.is_null
+         and p.engine in ("loop", "centralized"),
+         lambda p: f"{_oracle(p)} does not apply scenario perturbations "
+                   f"(got scenario={p.scenario!r}); run scenarios on the "
+                   "stacked or pod engine with round_backend='dispatch'"),
+    Rule("scenario-fused",
+         lambda p: p.round_backend == "fused"
+         and p.scn is not None and not p.scn.is_null,
+         lambda p: "the fused round does not apply scenario perturbations "
+                   f"(got scenario={p.scenario!r}); run scenarios with "
+                   "round_backend='dispatch'"),
+    Rule("cluster-churn",
+         lambda p: p.scn is not None
+         and getattr(p.scn, "moves_clusters", False)
+         and p.num_clusters > 1 and not p.cohort_size,
+         lambda p: "cluster membership churn needs the slot-pool engine: "
+                   "set cohort_size>0 so a mover can re-seat in its new "
+                   "cluster's slot block (the dense buffer has no "
+                   "user->slot indirection)"),
 )
 
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to repro_torch yet (the port runs every "
-            "algorithm on the dense stacked dispatch round, engine "
-            "'stacked' or 'auto', and on the per-client loop oracle, engine "
-            "'loop', and the centralized genie: round_backend='dispatch', "
-            "either request and resource backend, checkpoints, no mesh, "
-            "scenario ''/'null')")
+            "algorithm on the stacked dispatch round, engine 'stacked' or "
+            "'auto', with the sparse cohort, the cluster tier, scenarios and "
+            "sketched scores, on the per-client loop oracle, engine 'loop', "
+            "and the centralized genie: round_backend='dispatch', either "
+            "request and resource backend, checkpoints, no mesh)")
 
 
 #: What the port does not run yet, checked after ``RULES``.
@@ -200,18 +223,9 @@ PORT_RULES = (
     Rule("port-round-backend",
          lambda p: p.round_backend != "dispatch",
          lambda p: _not_ported(f"round_backend={p.round_backend!r}")),
-    Rule("port-cohort",
-         lambda p: p.cohort_size > 0,
-         lambda p: _not_ported(f"cohort_size={p.cohort_size}")),
-    Rule("port-hierarchy",
-         lambda p: p.num_clusters >= 1,
-         lambda p: _not_ported(f"num_clusters={p.num_clusters}")),
     Rule("port-mesh",
          lambda p: p.mesh,
          lambda p: _not_ported("a mesh")),
-    Rule("port-scenario",
-         lambda p: (p.scenario or "").strip() not in ("", "null"),
-         lambda p: _not_ported(f"scenario={p.scenario!r}")),
 )
 
 
@@ -221,13 +235,16 @@ def resolve(alg: str, xc, mesh=None,
     return the resolved plan. ``engine="auto"`` resolves to ``"pod"`` when a
     mesh is passed and ``"stacked"`` otherwise (``alg="centralized"`` forces
     the genie). Raises ``ExperimentConfigError`` on the first matching
-    rule."""
+    rule; a malformed scenario spec raises ``ValueError`` first, as
+    ``parse_scenario`` words it."""
+    from repro_torch.scenarios import parse_scenario
     engine = xc.engine
     if engine == "auto":
         if alg == "centralized":
             engine = "centralized"
         else:
             engine = "pod" if mesh is not None else "stacked"
+    scn = parse_scenario(xc.scenario, seed=xc.seed)
     plan = ResolvedPlan(
         alg=alg, engine=engine,
         request_backend=xc.request_backend,
@@ -240,7 +257,7 @@ def resolve(alg: str, xc, mesh=None,
         participation=float(xc.participation),
         num_clusters=int(getattr(xc, "num_clusters", 0)),
         num_clients=int(xc.num_clients),
-        scenario=xc.scenario, mesh=mesh is not None)
+        scenario=xc.scenario, mesh=mesh is not None, scn=scn)
     for rule in RULES + PORT_RULES:
         if rule.key == "rounds-per-dispatch":
             # placeholder in the reference's order: rpd is checked here

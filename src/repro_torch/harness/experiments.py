@@ -22,6 +22,14 @@ server (``OSAFLServer``, which scores without the kernel, or one of
 (``full_f32_convolutions``) and to deterministic algorithms
 (``deterministic_convolutions``).
 
+The stacked engine also runs the sparse cohort (``cohort_size``,
+``participation``: only C slots of round state exist, a sample of the
+registered users is seated each round, ``core/cohort.py``), the edge
+cluster tier (``num_clusters``, ``core/hierarchy.py``), the scenario layer
+(``scenario``, ``repro_torch/scenarios/``) as the reference does, and
+sketched scores (``score_sketch_dim``), which the reference's harness does
+not pass on to its servers.
+
 Checkpoints (``save_every_k`` + ``checkpoint_dir``, ``resume_from``,
 ``keep_last``, ``checkpoint_async``) write the reference's RunState
 snapshots, key for key: the stacked engine through the async v2 writer by
@@ -47,7 +55,9 @@ from repro_torch.core.baselines import make_server
 from repro_torch.core.buffer import OnlineBuffer, binomial_arrivals
 from repro_torch.core.buffer_stacked import StackedOnlineBuffer
 from repro_torch.core.client import local_train, make_vmapped_local_train
+from repro_torch.core.cohort import sample_participants
 from repro_torch.core.flatten import tree_map
+from repro_torch.core.hierarchy import sample_participants_clustered
 from repro_torch.core.osafl import ClientUpdate
 from repro_torch.core.resource import (NetworkConfig, make_clients,
                                        optimize_round)
@@ -63,6 +73,7 @@ from repro_torch.device import (deterministic_convolutions,
                                 full_f32_convolutions, resolve_device)
 from repro_torch.harness.compat import resolve
 from repro_torch.models.small import init_small, small_loss
+from repro_torch.scenarios import parse_scenario
 
 _LOG = logging.getLogger("repro_torch.harness")
 
@@ -115,8 +126,12 @@ def _run_shape(xc: ExperimentConfig, eval_samples: int) -> dict:
     but ``rounds`` (resuming into a longer run is the point) and the
     engine-selection fields ``engine``/``pod_engine`` (the snapshot's
     top-level ``engine`` tag is compared instead), plus the eval set size.
-    JSON-normalized so it compares against a loaded snapshot."""
+    JSON-normalized so it compares against a loaded snapshot. The port's
+    own ``score_sketch_dim`` is left out at 0, so that an exact run's
+    snapshot is the reference's, field for field."""
     cfg = dataclasses.asdict(xc)
+    if not cfg["score_sketch_dim"]:
+        cfg.pop("score_sketch_dim")
     cfg.pop("rounds")
     cfg.pop("engine")
     cfg.pop("pod_engine")
@@ -169,11 +184,22 @@ def _draw(stream, n, dataset):
 
 def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
                    device: torch.device) -> SimpleNamespace:
-    """Deterministic run setup: population and request streams, capacities,
-    the FIFO buffers' initial fill, the eval set, the server and the client
-    system parameters, drawing the host RNG in the reference's order."""
+    """Deterministic run setup: the scenario (bound to the population),
+    population and request streams, capacities, the server (with the
+    sparse cohort's initial residents seated), the FIFO buffers' initial
+    fill (residents only), the eval set and the client system parameters,
+    drawing the host RNG in the reference's order."""
     stacked_req = xc.request_backend == "stacked"
     model, U = xc.model, xc.num_clients
+    sparse = xc.cohort_size > 0
+    C = xc.cohort_size if sparse else U
+    K = int(xc.num_clusters)
+    # the scenario's hooks fire only where a perturbation applies, so ""
+    # and "null" keep the run's own path
+    scn = parse_scenario(xc.scenario, seed=xc.seed)
+    if scn is not None:
+        scn.bind(U)
+    arr_width = scn.arrival_width(xc.arrivals) if scn else xc.arrivals
     cat, streams = make_population(xc.seed, U, topk=xc.topk)
     rstream = (StackedRequestStream.from_streams(cat, streams, seed=xc.seed,
                                                  device=device)
@@ -182,6 +208,8 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
     feat_shape, dtype = dataset_layout(xc.dataset)
     lo, hi = xc.capacity
     caps = rng.integers(lo, max(hi, lo + 1), size=U)
+    if scn is not None:
+        caps = scn.setup_capacities(caps)
     fl = FLConfig(num_clients=U, local_lr=xc.local_lr,
                   global_lr=(xc.global_lr if alg in ("osafl", "afa_cd")
                              else 1.0),
@@ -191,25 +219,39 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
                   resource_backend=xc.resource_backend,
                   cohort_size=xc.cohort_size,
                   participation=xc.participation,
-                  num_clusters=xc.num_clusters, scenario=xc.scenario)
+                  num_clusters=K, scenario=xc.scenario,
+                  score_sketch_dim=xc.score_sketch_dim)
     server = make_server(init_small(xc.seed, model, device), fl, U,
                          seed=xc.seed, device=device)
-    sbuf = StackedOnlineBuffer.create(caps, feat_shape, 100,
-                                      stage_capacity=xc.arrivals,
-                                      dtype=dtype, device=device)
-    # initial fill: FIFO commits compose, so ingest the cap_u seed samples
-    # in arrival-width chunks through the round's staging area
+    if sparse:
+        # the first C users (under the hierarchy the first C/K members of
+        # each cluster), arange(C) at K <= 1: the parity anchors
+        server.admit(server.initial_residents())
+    cohort0 = server.cohort if sparse else np.arange(U)
+    sbuf = StackedOnlineBuffer.create(
+        caps[cohort0] if sparse else caps, feat_shape, 100,
+        stage_capacity=arr_width, dtype=dtype, device=device,
+        # slot storage must fit any later-admitted resident's capacity
+        depth=int(caps.max()) if sparse else None)
+    # initial fill (residents only): FIFO commits compose, so ingest the
+    # cap_u seed samples in arrival-width chunks through the staging area
     if stacked_req:
         filled = np.zeros(U, np.int64)
-        while (filled < caps).any():
-            chunk = np.minimum(caps - filled, xc.arrivals)
-            sbuf.stage(*rstream.draw(chunk, xc.dataset, xc.arrivals))
+        target = np.zeros(U, np.int64)
+        target[cohort0] = caps[cohort0]
+        rows = torch.as_tensor(cohort0, device=device)
+        while (filled < target).any():
+            chunk = np.minimum(target - filled, xc.arrivals)
+            xs, ys, cnt = rstream.draw(chunk, xc.dataset, xc.arrivals)
+            if sparse:
+                xs, ys, cnt = xs[rows], ys[rows], cnt[cohort0]
+            sbuf.stage(xs, ys, cnt)
             sbuf.commit()
             filled += chunk
     else:
         init = [_draw(streams[u], int(caps[u]), xc.dataset)
-                for u in range(U)]
-        for off in range(0, int(caps.max()), xc.arrivals):
+                for u in cohort0]
+        for off in range(0, int(caps[cohort0].max()), xc.arrivals):
             chunk = [(x[off:off + xc.arrivals], y[off:off + xc.arrivals])
                      if off < len(y) else None for x, y in init]
             sbuf.stage(*pad_arrival_batch(chunk, xc.arrivals, xc.dataset))
@@ -231,16 +273,24 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
 
     sysb = stack_clients(make_clients(rng, U,
                                       cell_radius_m=xc.cell_radius_m))
+    if scn is not None:
+        sysb = scn.setup_system(sysb)
     return SimpleNamespace(
         stacked_req=stacked_req, model=model, U=U, streams=streams,
         rstream=rstream, rng=rng, caps=caps, sbuf=sbuf, p_ac=p_ac,
         test_batch=test_batch, fl=fl, server=server,
-        codec=server.codec, device=device,
+        codec=server.codec, device=device, scn=scn, arr_width=arr_width,
         grad_fn=torch.func.grad(lambda p, b: small_loss(p, b, model)[0]),
         weights_alg=alg in ("fedavg", "fedprox", "feddisco"),
         prox_mu=fl.fedprox_mu if alg == "fedprox" else 0.0,
         net=NetworkConfig(), sysb=sysb,
-        n_params=MODEL_PARAMS.get(model, 1_000_000))
+        n_params=MODEL_PARAMS.get(model, 1_000_000),
+        # the sparse cohort's bookkeeping (dense: C = U, no sample);
+        # m_active is the flat participation target, of which the
+        # clustered sampler seats at most m + K - 1
+        sparse=sparse, C=C, K=K,
+        m_active=max(1, int(round(xc.participation * C))),
+        resample=sparse and (C < U or xc.participation < 1.0))
 
 
 def _resume_stacked(s: SimpleNamespace, snap: dict) -> tuple:
@@ -257,30 +307,111 @@ def _resume_stacked(s: SimpleNamespace, snap: dict) -> tuple:
     return list(snap["history"]), int(snap["next_round"])
 
 
-def _draw_round_inputs(s: SimpleNamespace, xc: ExperimentConfig) -> tuple:
-    """One round of host draws, in the reference's order: arrival counts
-    and samples (staged and committed FIFO), the resource solve's kappas,
-    the straggler mask and the local-SGD batch slots. Returns
-    ``(req_s, kappas, active, slots)``; ``req_s`` covers the samples'
-    draw, synchronized when the stacked sampler runs on the card."""
+def _gather_sys(sysb, rows):
+    """The cohort's rows of a ``ClientSystemBatch`` (every field is
+    (U,))."""
+    return dataclasses.replace(
+        sysb, **{f.name: getattr(sysb, f.name)[rows]
+                 for f in dataclasses.fields(sysb)})
+
+
+def _admitted(s: SimpleNamespace, users, res) -> None:
+    """Reset the dataset rows of the slots an admission newly seated to
+    the incoming users' capacities (the evicted residents' data is
+    lost)."""
+    if res is not None and res.newly.any():
+        s.sbuf.reset_rows(res.slots[res.newly],
+                          s.caps[np.asarray(users)[res.newly]])
+
+
+def _draw_round_inputs(s: SimpleNamespace, xc: ExperimentConfig,
+                       t: int) -> tuple:
+    """One round of host draws, in the reference's order: (sparse only)
+    the scenario's cluster moves, the round-active sample and the slot
+    admissions; the arrival counts and samples (staged and committed
+    FIFO), the resource solve's kappas, the straggler mask and the
+    local-SGD batch slots. Returns ``(req_s, kappas, active, slots)``, all
+    slot-indexed (width C; dense runs are the C = U identity); ``req_s``
+    covers the draws of the admissions and the samples, synchronized when
+    the stacked sampler runs on the card. The scenario perturbs the
+    cluster map, the sample (availability, selection weights), the
+    arrival process, the resource rows and the active mask, each from its
+    own seeded streams; a hook that does not fire leaves its input as it
+    was, so ``"null"`` draws the host RNG as a run without a scenario."""
     t0 = time.perf_counter()
-    counts = binomial_arrivals_batched(s.rng, xc.arrivals, s.p_ac)
+    scn = s.scn
+    if s.sparse and s.K >= 1 and scn is not None and scn.moves_clusters:
+        # membership moves first: the sample and the admissions see the
+        # round-t cluster map
+        mv = scn.round_cluster_moves(t, s.U, s.K)
+        if mv is not None:
+            _admitted(s, *s.server.apply_cluster_moves(*mv))
+    avail = scn.round_available(t, s.U) if scn is not None else None
+    sel = None
+    if s.sparse:
+        if s.resample:
+            weights = (scn.round_selection_weights(t, s.U)
+                       if scn is not None else None)
+            if s.K >= 1:
+                sel = sample_participants_clustered(
+                    s.rng, s.server.assign, s.K, s.m_active, s.C // s.K,
+                    weights=weights, available=avail)
+            else:
+                sel = sample_participants(s.rng, s.U, s.m_active,
+                                          weights=weights, available=avail)
+            _admitted(s, sel, s.server.admit(sel))
+        cohort = s.server.cohort
+        p_ac = s.p_ac[cohort]
+    else:
+        cohort, p_ac = None, s.p_ac
+    e_u = xc.arrivals
+    if scn is not None:
+        e_u, p_ac = scn.round_arrivals(t, e_u, p_ac)
+    if avail is not None:
+        # departed users generate no arrivals this round
+        p_ac = p_ac * (avail[cohort] if s.sparse else avail)
+    counts = binomial_arrivals_batched(s.rng, e_u, p_ac)
     if s.stacked_req:
-        arrivals = s.rstream.draw(counts, xc.dataset, xc.arrivals)
+        if s.sparse:
+            # the stream's state stays (U,)-wide; non-residents draw a
+            # zero count, so their streams do not advance
+            full = np.zeros(s.U, counts.dtype)
+            full[cohort] = counts
+            xs, ys, cnt = s.rstream.draw(full, xc.dataset, s.arr_width)
+            rows = torch.as_tensor(cohort, device=s.device)
+            arrivals = (xs[rows], ys[rows], cnt[cohort])
+        else:
+            arrivals = s.rstream.draw(counts, xc.dataset, s.arr_width)
         _synchronize(s.device)
     else:
-        arrivals = draw_arrival_batch(s.streams, counts, xc.dataset,
-                                      width=xc.arrivals)
+        streams = ([s.streams[u] for u in cohort] if s.sparse
+                   else s.streams)
+        arrivals = draw_arrival_batch(streams, counts, xc.dataset,
+                                      width=s.arr_width)
     req_s = time.perf_counter() - t0
     s.sbuf.stage(*arrivals)
     s.sbuf.commit()
     if xc.use_resource_opt:
-        kappas = optimize_round_batched(s.rng, s.net, s.sysb, s.n_params,
+        sysb = s.sysb
+        if scn is not None:
+            sysb = scn.round_system(t, sysb)
+        if s.sparse:
+            sysb = _gather_sys(sysb, cohort)
+        kappas = optimize_round_batched(s.rng, s.net, sysb, s.n_params,
                                         backend=xc.resource_backend,
                                         device=s.device).kappa
     else:
-        kappas = np.full(s.U, s.fl.kappa_max)
+        kappas = np.full(s.C, s.fl.kappa_max)
     active = kappas >= 1                    # kappa = 0 => straggler
+    if avail is not None:
+        # departed users do not report an update either
+        active = active & (avail[cohort] if s.sparse else avail)
+    if sel is not None:
+        # only the sampled users train; carried residents idle, and a
+        # freshly seated slot with no arrivals has nothing to train on
+        sel_mask = np.zeros(s.C, bool)
+        sel_mask[s.server.pool.user_slot[sel]] = True
+        active = active & sel_mask & (s.sbuf.sizes > 0)
     slots = s.sbuf.sample_slots(s.rng, (s.fl.kappa_max, xc.batch))
     return req_s, kappas, active, slots
 
@@ -322,7 +453,7 @@ def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
     try:
         for t in range(start_round, xc.rounds):
             t_start = time.perf_counter()
-            req_s, kappas, active, slots = _draw_round_inputs(s, xc)
+            req_s, kappas, active, slots = _draw_round_inputs(s, xc, t)
             d, w = local_step(s.server.params, s.sbuf.gather(slots),
                               torch.as_tensor(kappas, device=device))
             upd = s.codec.flatten_stacked(w if s.weights_alg else d)
@@ -412,7 +543,8 @@ def _run_loop(alg: str, xc: ExperimentConfig, eval_samples: int,
     fl = FLConfig(num_clients=U, local_lr=xc.local_lr,
                   global_lr=(xc.global_lr if alg in ("osafl", "afa_cd")
                              else 1.0),
-                  algorithm=alg, engine="loop")
+                  algorithm=alg, engine="loop",
+                  score_sketch_dim=xc.score_sketch_dim)
     server = make_server(init_small(xc.seed, model, device), fl, U,
                          seed=xc.seed, device=device)
     net = NetworkConfig()

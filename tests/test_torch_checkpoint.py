@@ -19,6 +19,11 @@ harness wiring, on the CPU.
     straight run (from the reference's weights).
   * Errors: a reference stacked-stream snapshot is refused naming
     ``streams/key``; a run-shape mismatch names the field.
+  * Sparse cohorts, clusters and sketches: sparse, hierarchical and
+    sparse-hierarchical runs and a sketched one resume bit-exactly (the
+    sketched one with the same signs); flat and hierarchical snapshots
+    refuse each other with the reference's ``CheckpointError``s; cohort
+    snapshots cross the packages with python requests.
 """
 from __future__ import annotations
 
@@ -502,6 +507,114 @@ def test_resume_is_bit_exact(tmp_path, engine, alg, backend, asynchronous):
     diffs = diff_snapshots(sa, sb)
     assert not diffs, diffs
     assert sa["engine"] == engine and sa["next_round"] == rounds
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cohort_size=4, participation=0.5),
+    dict(num_clusters=2),
+    dict(cohort_size=4, participation=0.5, num_clusters=2,
+         request_backend="stacked", scenario="cluster_churn(rate=0.3)"),
+    dict(cohort_size=6, num_clusters=2, scenario="churn(p_away=0.5)"),
+    dict(score_sketch_dim=16),
+], ids=["sparse", "hier", "sparse-hier-stacked", "sparse-hier-churn",
+        "sketched"])
+@pytest.mark.parametrize("alg", ["osafl", "fednova"])
+def test_cohort_cluster_and_sketch_resume_is_bit_exact(tmp_path, kw, alg):
+    """4 rounds straight against 2 + save + resume + 2: histories and final
+    snapshots (the slot pools, per-user tables, cluster carries and the
+    ``sketch_key`` the signs are drawn from) identical."""
+    kwa = dict(eval_samples=64, device="cpu")
+    da, db = tmp_path / "full", tmp_path / "split"
+    full = run(alg, _cfg(4, **kw), save_every_k=4, checkpoint_dir=da, **kwa)
+    run(alg, _cfg(2, **kw), save_every_k=2, checkpoint_dir=db, **kwa)
+    resumed = run(alg, _cfg(4, **kw), save_every_k=2, checkpoint_dir=db,
+                  resume_from=checkpoint_path(db, 2), **kwa)
+    keys = ("round", "test_loss", "test_acc", "participants")
+    assert [[h[k] for k in keys] for h in full] == [
+        [h[k] for k in keys] for h in resumed]
+    sa = load_run_state(checkpoint_path(da, 4))
+    diffs = diff_snapshots(sa, load_run_state(checkpoint_path(db, 4)))
+    assert not diffs, diffs
+    server = sa["server"]
+    if kw.get("cohort_size"):
+        assert {"inner", "pool", "tables"} <= set(server)
+        assert ("pools" in server["pool"]) == bool(kw.get("num_clusters"))
+        server = server["inner"]
+    if alg == "osafl":
+        np.testing.assert_array_equal(server["sketch_key"], [0, 5])
+        assert ("clam_prev" in server) == bool(kw.get("num_clusters"))
+
+
+def _sparse_pair(reference, K):
+    fl = dict(num_clients=8, local_lr=0.1, global_lr=1.0, algorithm="osafl",
+              engine="stacked", cohort_size=4, num_clusters=K)
+    w = {"a": np.arange(6, dtype=np.float32)}
+    return (make_server({"a": torch.as_tensor(w["a"])}, FLConfig(**fl), 8,
+                        device="cpu"),
+            reference.baselines.make_server(
+                {"a": jax.numpy.asarray(w["a"])},
+                reference.base.FLConfig(**fl), 8))
+
+
+def test_flat_and_hierarchical_snapshots_refuse_each_other(reference):
+    """The reference's ``CheckpointError``s, word for word: a flat pool into
+    a clustered run, a clustered pool into a flat one, a dense server's
+    snapshot into a sparse run, a dense flat server's into a two-tier one."""
+    flat_t, flat_j = _sparse_pair(reference, 0)
+    hier_t, hier_j = _sparse_pair(reference, 2)
+    dense_fl = dict(num_clients=4, algorithm="osafl", engine="stacked")
+    dense = make_server({"a": torch.zeros(6)}, FLConfig(**dense_fl), 4,
+                        device="cpu")
+    cases = [(hier_t, hier_j, flat_t.state_dict(), flat_j.state_dict()),
+             (flat_t, flat_j, hier_t.state_dict(), hier_j.state_dict()),
+             (flat_t, flat_j, dense.state_dict(), dense.state_dict())]
+    for got_srv, want_srv, got_sd, want_sd in cases:
+        with pytest.raises(reference.checkpoint.CheckpointError) as want:
+            want_srv.load_state_dict(want_sd)
+        with pytest.raises(CheckpointError) as got:
+            got_srv.load_state_dict(got_sd)
+        assert str(got.value) == str(want.value)
+    two_tier = make_server({"a": torch.zeros(6)}, FLConfig(
+        **dense_fl, num_clusters=2), 4, device="cpu")
+    jtwo = reference.baselines.make_server(
+        {"a": jax.numpy.zeros(6)},
+        reference.base.FLConfig(**dense_fl, num_clusters=2), 4)
+    with pytest.raises(reference.checkpoint.CheckpointError) as want:
+        jtwo.load_state_dict(dense.state_dict())
+    with pytest.raises(CheckpointError) as got:
+        two_tier.load_state_dict(dense.state_dict())
+    assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("direction", ["reference-to-port",
+                                       "port-to-reference"])
+@pytest.mark.parametrize("K", [0, 2])
+def test_cohort_snapshot_crosses_the_packages(reference, monkeypatch,
+                                              tmp_path, direction, K):
+    """A sparse (and sparse-hierarchical) snapshot written by one package,
+    with python requests, resumes in the other: rounds 2-3 within 1e-4 of
+    the writer's straight run, participants exact."""
+    xc_kw = dict(model="mlp", dataset=2, num_clients=8, rounds=4,
+                 capacity=(12, 24), arrivals=4, batch=8, seed=5,
+                 cohort_size=4, participation=0.5, num_clusters=K)
+    R = reference.harness
+    if direction == "reference-to-port":
+        want = R.run("osafl", R.ExperimentConfig(**xc_kw), eval_samples=64,
+                     save_every_k=2, checkpoint_dir=tmp_path)
+        got = run("osafl", ExperimentConfig(**xc_kw), eval_samples=64,
+                  device="cpu", resume_from=checkpoint_path(tmp_path, 2))
+    else:
+        _reference_weights(reference, monkeypatch, "mlp", 5)
+        want = run("osafl", ExperimentConfig(**xc_kw), eval_samples=64,
+                   device="cpu", save_every_k=2, checkpoint_dir=tmp_path)
+        got = R.run("osafl", R.ExperimentConfig(**xc_kw), eval_samples=64,
+                    resume_from=checkpoint_path(tmp_path, 2))
+    assert [h["round"] for h in got] == [0, 1, 2, 3]
+    for g, w in zip(got[2:], want[2:]):
+        assert g["participants"] == w["participants"]
+        np.testing.assert_allclose(g["test_loss"], w["test_loss"],
+                                   rtol=1e-4)
+    assert any(g["participants"] for g in got[2:])
 
 
 def test_run_shape_mismatch_names_the_field(tmp_path):

@@ -223,6 +223,103 @@ def test_resume_on_card_is_bit_exact(cuda, tmp_path, backend):
         load_run_state(checkpoint_path(tmp_path / "b", 4)))
 
 
+# the new knobs on the MLP, card against CPU: every algorithm with a sparse
+# cohort and with 2 clusters, OSAFL under every registry scenario on the
+# dense and the sparse path, and sketched
+_MLP = dict(model="mlp", dataset=2, num_clients=16, rounds=3,
+            capacity=(16, 32), seed=3)
+_SPARSE = dict(cohort_size=8, participation=0.5)
+_SCENARIOS = ["churn(p_away=0.3)", "flash_crowd(period=2,scale=3)",
+              "quiet(scale=0.5)", "radius_step(at=1,factor=1.67)",
+              "device_classes", "cluster_churn(rate=0.3)",
+              "pareto_select(alpha=1.5)"]
+_ALGS = ["osafl", "fedavg", "fedprox", "fednova", "afa_cd", "feddisco"]
+NEW_KNOBS = (
+    [(a, dict(_SPARSE)) for a in _ALGS]
+    + [(a, dict(num_clusters=2)) for a in _ALGS]
+    + [("osafl", dict(scenario=sc)) for sc in _SCENARIOS]
+    + [("osafl", dict(_SPARSE, scenario=sc,
+                      num_clusters=2 if "cluster" in sc else 0))
+       for sc in _SCENARIOS]
+    + [("osafl", dict(score_sketch_dim=64)),
+       ("osafl", dict(_SPARSE, num_clusters=2, request_backend="stacked"))])
+
+
+@pytest.mark.parametrize("alg,kw", NEW_KNOBS,
+                         ids=[f"{a}-{i}" for i, (a, _) in
+                              enumerate(NEW_KNOBS)])
+def test_new_knobs_run_matches_cpu_run(cuda, alg, kw):
+    """Cohorts, clusters, scenarios and sketches: the same seeded run on
+    the card and the CPU, participants exact, ``test_loss`` within 1e-4;
+    ``scored_reduce`` launched K + 1 times a round with K > 1 clusters,
+    once without, never when sketched or for a baseline."""
+    from repro_torch.harness import ExperimentConfig, run
+    xc = ExperimentConfig(**_MLP, **kw)
+    before = sr.scored_reduce.launches
+    gpu = run(alg, xc, eval_samples=64)
+    K = xc.num_clusters
+    per_round = (0 if alg != "osafl" or xc.score_sketch_dim
+                 else K + 1 if K > 1 else 1)
+    assert sr.scored_reduce.launches - before == xc.rounds * per_round
+    cpu = run(alg, xc, eval_samples=64, device="cpu")
+    assert len(gpu) == len(cpu) == xc.rounds
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
+
+
+@pytest.mark.parametrize("U", [32, 8])
+def test_scored_reduce_at_the_cluster_shapes(cuda, U):
+    """The FCN's cluster-block (32, N) and tier-2 (8, N) shapes of the
+    K=8 hierarchy, f32, and a contiguous row block of a larger buffer."""
+    from repro_torch.core.flatten import make_codec
+    from repro_torch.models.small import init_small
+    N = make_codec(init_small(0, "fcn", "cpu")).n
+    gen = torch.Generator(device=cuda).manual_seed(U)
+    buf = torch.randn((2 * U, N), generator=gen, device=cuda)
+    for d in (buf[:U], buf[U:]):
+        mean = d.mean(0)
+        dots, norms, msq = sr.scored_reduce(d, mean)
+        pd, pn, pm = sr.scored_reduce_plain(d, mean)
+        torch.testing.assert_close(norms, pn, rtol=1e-4, atol=0)
+        torch.testing.assert_close(msq, pm, rtol=1e-4, atol=0)
+        assert bool(((dots - pd).abs() <= 1e-4 * torch.sqrt(pn * pm)).all())
+
+
+def test_sketch_signs_on_card_are_the_cpu_signs(cuda):
+    from repro_torch.core.scores import sketch_signs, sketch_stacked
+    key = [0, 7]
+    assert torch.equal(sketch_signs(key, 0, 10_007, "cuda").cpu(),
+                       sketch_signs(key, 0, 10_007, "cpu"))
+    d = torch.randn((5, 10_007))
+    torch.testing.assert_close(sketch_stacked(d.cuda(), key, 256).cpu(),
+                               sketch_stacked(d, key, 256),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_sparse_hierarchical_resume_on_card_is_bit_exact(cuda, tmp_path):
+    from repro_torch.checkpoint import diff_snapshots, load_run_state
+    from repro_torch.harness import (ExperimentConfig, checkpoint_path,
+                                     run)
+    xc = ExperimentConfig(**dict(_MLP, rounds=4), **_SPARSE, num_clusters=2,
+                          request_backend="stacked",
+                          scenario="cluster_churn(rate=0.3)")
+    full = run("osafl", xc, eval_samples=64, save_every_k=4,
+               checkpoint_dir=tmp_path / "a")
+    run("osafl", dataclasses.replace(xc, rounds=2), eval_samples=64,
+        save_every_k=2, checkpoint_dir=tmp_path / "b")
+    resumed = run("osafl", xc, eval_samples=64, save_every_k=2,
+                  checkpoint_dir=tmp_path / "b",
+                  resume_from=checkpoint_path(tmp_path / "b", 2))
+    keys = ("test_loss", "test_acc", "participants")
+    assert [[h[k] for k in keys] for h in full] == [
+        [h[k] for k in keys] for h in resumed]
+    assert not diff_snapshots(
+        load_run_state(checkpoint_path(tmp_path / "a", 4)),
+        load_run_state(checkpoint_path(tmp_path / "b", 4)))
+
+
 def test_list_round_matches_loop_server(cuda):
     """``StackedOSAFLServer.round(updates)`` against ``OSAFLServer.round``
     on the same list on the card, 3 rounds of partial participation: one

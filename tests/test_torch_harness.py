@@ -94,13 +94,17 @@ def test_reference_rules_name_the_same_failure(reference, change):
     (dict(engine="pod"), {}, "port-engine"),
     (dict(round_backend="fused", request_backend="stacked"), {},
      "port-round-backend"),
-    (dict(request_backend="stacked", cohort_size=4), {}, "port-cohort"),
-    (dict(resource_backend="f32", num_clusters=2), {}, "port-hierarchy"),
-    (dict(cohort_size=4), {}, "port-cohort"),
-    (dict(num_clusters=2), {}, "port-hierarchy"),
+    (dict(engine="pod", request_backend="stacked", cohort_size=4), {},
+     "port-engine"),
+    (dict(engine="stacked", resource_backend="f32", num_clusters=2),
+     dict(mesh=object()), "port-mesh"),
+    (dict(engine="stacked", cohort_size=4), dict(mesh=object()),
+     "port-mesh"),
+    (dict(engine="pod", num_clusters=2), {}, "port-engine"),
     (dict(engine="stacked"), dict(mesh=object()), "port-mesh"),
-    (dict(scenario="churn(p_away=0.3)"), {}, "port-scenario"),
-    (dict(engine="pod", request_backend="stacked"), {}, "port-engine"),
+    (dict(engine="pod", scenario="churn(p_away=0.3)"), {}, "port-engine"),
+    (dict(round_backend="fused", request_backend="stacked",
+          scenario="null"), {}, "port-round-backend"),
 ])
 def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)

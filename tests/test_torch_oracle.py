@@ -38,6 +38,8 @@ _REFERENCE_MODULES = (
     "repro.kernels.ops", "repro.kernels.ref", "repro.kernels.scored_reduce",
     "repro.models.attention", "repro.models.layers", "repro.models.small",
     "repro.models.transformer",
+    "repro.core.cohort", "repro.core.hierarchy",
+    "repro.scenarios", "repro.scenarios.base", "repro.scenarios.library",
 )
 
 
@@ -61,11 +63,18 @@ def reference_importable():
 @pytest.fixture(scope="module")
 def reference():
     """Namespace of reference modules: ``reference.osafl`` is
-    ``repro.core.osafl`` and so on (the last dotted component)."""
+    ``repro.core.osafl`` and so on (the last dotted component; where two
+    share it, the later one takes its last two joined by ``_``:
+    ``reference.base`` is ``repro.configs.base``, ``reference.
+    scenarios_base`` is ``repro.scenarios.base``)."""
     import importlib
     with reference_importable():
-        mods = {name.rsplit(".", 1)[-1]: importlib.import_module(name)
-                for name in _REFERENCE_MODULES}
+        mods = {}
+        for name in _REFERENCE_MODULES:
+            key = name.rsplit(".", 1)[-1]
+            if key in mods:
+                key = "_".join(name.rsplit(".", 2)[-2:])
+            mods[key] = importlib.import_module(name)
         yield types.SimpleNamespace(**mods)
 
 
@@ -74,6 +83,38 @@ def to_numpy_tree(tree):
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
+
+
+def run_both(reference, monkeypatch, alg, kw, eval_samples=32,
+             rtol=1e-4):
+    """``alg`` under the config ``kw`` through the reference's
+    ``harness.run`` and the port's on the CPU, the port started from the
+    reference's initial weights (it cannot draw threefry ones); asserts
+    the same rounds with the same participants and ``test_loss`` within
+    ``rtol``, and returns both histories."""
+    import jax
+    import repro_torch.harness.experiments as tex
+    from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.models.small import params_from_numpy
+    want = reference.harness.run(
+        alg, reference.harness.ExperimentConfig(**kw),
+        eval_samples=eval_samples)
+    seed = kw.get("seed", 0)
+    w0 = to_numpy_tree(reference.small.init_small(
+        jax.random.PRNGKey(seed), kw["model"]))
+    monkeypatch.setattr(tex, "init_small",
+                        lambda seed, name, device: params_from_numpy(
+                            name, w0, device))
+    got = run(alg, ExperimentConfig(**kw), eval_samples=eval_samples,
+              device="cpu")
+    assert len(got) == len(want) == kw["rounds"]
+    for g, w in zip(got, want):
+        assert set(g) == set(w)
+        assert g["round"] == w["round"]
+        assert g["participants"] == w["participants"]
+        np.testing.assert_allclose(g["test_loss"], w["test_loss"],
+                                   rtol=rtol)
+    return got, want
 
 
 # -- tests of the port's entry-point device rule --------------------------

@@ -134,8 +134,9 @@ def test_make_server_returns_each_stacked_server(alg):
 
 
 @pytest.mark.parametrize("change", [
-    dict(engine="pod"), dict(cohort_size=4), dict(num_clusters=1),
-    dict(engine="loop", score_sketch_dim=64),
+    dict(engine="pod"), dict(engine="pod", cohort_size=4),
+    dict(engine="pod", num_clusters=1),
+    dict(engine="pod", score_sketch_dim=64),
 ])
 def test_make_server_rejects_what_is_not_ported(change):
     fl = dataclasses.replace(FLConfig(engine="stacked"), **change)
@@ -157,5 +158,17 @@ def test_make_server_returns_each_loop_server(alg):
 
 
 def test_sketched_scores_are_refused():
-    with pytest.raises(NotImplementedError, match="threefry"):
-        make_stacked_round_body(FLConfig(score_sketch_dim=64))
+    """Sketched scores are ported: the sketched round builds and runs
+    without the kernel; only a negative sketch width is refused."""
+    with pytest.raises(ValueError, match="score_sketch_dim"):
+        make_stacked_round_body(FLConfig(score_sketch_dim=-1))
+    rnd = make_stacked_round_body(FLConfig(score_sketch_dim=8))
+    g = torch.Generator().manual_seed(0)
+    d = torch.randn((4, 37), generator=g)
+    active = torch.tensor([True, True, False, True])
+    w, buf, part, lam_use, lam = rnd(
+        torch.zeros(37), torch.zeros((4, 37)), torch.zeros(4, dtype=bool),
+        torch.ones(4), d, active, torch.full((4,), 0.25),
+        np.array([0, 1], np.uint32))
+    assert torch.equal(part, active)
+    assert lam.shape == (4,) and bool(((lam >= 0) & (lam <= 1 + 1e-6)).all())
