@@ -69,6 +69,21 @@ Phases, each fatal on failure:
      under every registry scenario on the dense and the sparse path and
      sketched; and a sparse hierarchical run resumed on the card, bit for
      bit;
+  6h. the fused round, each segment of ``rounds_per_dispatch`` rounds one
+     captured CUDA graph replayed once: the main path's configuration
+     with stacked requests and the f32 solve in 3-round segments over 6
+     rounds and 1-round segments over 3 (the first 3 rounds bit for bit),
+     beside the dispatch round on it (``round_s``, capture seconds, peak
+     memory, launches = rounds); replay parity (the dispatch components fed
+     the fused draws, x64) on the small MLP and at full width, with peak
+     memory after one and two captured lengths and a profiled warm
+     segment (one ``cudaGraphLaunch``, no ``cudaLaunchKernel``);
+     ``scored_reduce`` inside a graph beside its launched time; Fig. 1's
+     preset as one 8-round segment beside its dispatch run; small fused
+     runs card against CPU; train-while-serve: the fused main path writing
+     a snapshot every 2 of 4 rounds while ``repro_torch.launch.serve``
+     scores request batches on the card, its round-4 logits bit for bit
+     the trainer's;
   7. the serving path: deepseek-coder-33b at full width (d_model 7168,
      56/8 heads, head_dim 128), depth cut to 8 layers, random weights from
      a seed: ``make_prefill_step`` on 4 x 4096-token prompts, then
@@ -231,6 +246,40 @@ COHORT_SMALL = (
 HIER_RESUME = dict(SMALL_SPARSE, rounds=4, num_clusters=2,
                    request_backend="stacked",
                    scenario="cluster_churn(rate=0.3)")
+# the fused round (phase 6h): the main path's configuration with stacked
+# requests and the f32 solve, as CUDA-graph segments of 3 rounds over 6 and
+# of 1 round over 3 (the first 3 rounds must agree bit for bit), beside the
+# dispatch round on the same configuration
+FUSED_KW = dict(request_backend="stacked", round_backend="fused")
+FUSED_RUN = dict(MAIN_RUN, **FUSED_KW, resource_backend="f32", rounds=6,
+                 rounds_per_dispatch=3)
+FUSED_ONE = dict(FUSED_RUN, rounds=3, rounds_per_dispatch=1)
+FUSED_DISPATCH = dict(MAIN_RUN, request_backend="stacked",
+                      resource_backend="f32")
+# replay parity: the dispatch components fed the fused engine's draws, x64
+FUSED_PARITY = (dict(SMALL_MLP, **FUSED_KW),
+                dict(MAIN_RUN, **FUSED_KW))
+# Fig. 1's paper preset (cohort phase's "fig1") as one 8-round segment
+FUSED_FIG1 = dict(next(kw for name, kw in COHORT_RUNS if name == "fig1"),
+                  **FUSED_KW, rounds=8, rounds_per_dispatch=8)
+# small fused runs, card against CPU: each model with both solves, and one
+# sketched run; 2-round segments, so a 3-round run captures two lengths
+FUSED_SMALL = [("osafl", dict(kw, **FUSED_KW, resource_backend=b,
+                              rounds_per_dispatch=2))
+               for kw in (SMALL_MLP,
+                          dict(model="fcn", dataset=1, num_clients=8,
+                               rounds=2, capacity=(16, 32), seed=3),
+                          dict(SMALL_CONV, model="cnn"),
+                          dict(model="lstm", dataset=2, num_clients=8,
+                               rounds=3, capacity=(16, 32), seed=3))
+               for b in ("f32", "x64")] + [
+    ("osafl", dict(SMALL_MLP, **FUSED_KW, resource_backend="f32",
+                   rounds_per_dispatch=2, score_sketch_dim=64))]
+# train-while-serve: the fused main path writing a snapshot every 2 of 4
+# rounds while a model server scores Dataset-1 request batches on the card
+SERVE_TRAIN = dict(FUSED_RUN, rounds=4)
+SERVE_EVERY = 2
+
 # the serving path: deepseek-coder-33b, depth cut 62 -> 8 (f32 weights of
 # all 62 layers are 133 GB, more than the card holds)
 SERVE_LAYERS = 8
@@ -517,10 +566,11 @@ def scored_launches(alg: str, xc) -> int:
 
 
 def small_key(kw: dict) -> str:
-    """The knobs of phase 6g that a run sets, as a short label."""
+    """The knobs of phases 6g and 6h that a run sets, as a short label."""
     return " ".join(f"{k}={kw[k]}" for k in (
         "cohort_size", "participation", "num_clusters", "scenario",
-        "score_sketch_dim") if kw.get(k))
+        "score_sketch_dim", "round_backend", "resource_backend",
+        "rounds_per_dispatch") if kw.get(k))
 
 
 def small_run_phase(runs=SMALL_RUNS) -> dict:
@@ -1150,6 +1200,336 @@ def _clock() -> float:
     return time.perf_counter()
 
 
+class _EngineRecorder:
+    """Records every ``(engine, setup)`` that ``build_fused_engine`` makes
+    while it is entered, so a phase can read a harness run's captured
+    graphs and its final state."""
+
+    def __enter__(self):
+        import repro_torch.harness.experiments as tex
+        self._tex, self._build = tex, tex.build_fused_engine
+        self.made = []
+
+        def build(*args, **kwargs):
+            self.made.append(self._build(*args, **kwargs))
+            return self.made[-1]
+        tex.build_fused_engine = build
+        return self
+
+    def __exit__(self, *exc):
+        self._tex.build_fused_engine = self._build
+        return False
+
+
+def fused_fl_run(label: str, kw: dict, eval_samples: int,
+                 keep_setup: bool = False, **run_kw) -> dict:
+    """``fl_run`` of a fused configuration, with each capture's seconds,
+    warm-up seconds and launches per replay added to its row (and, with
+    ``keep_setup``, the run's setup namespace under ``"setup"``, whose
+    server holds the final weights)."""
+    with _EngineRecorder() as rec:
+        row = fl_run(label, "osafl", kw, eval_samples, **run_kw)
+    row["captured"] = [c for eng, _ in rec.made for c in eng.capture_log]
+    say(f"{label} captured " + json.dumps(row["captured"]))
+    if keep_setup:
+        row["setup"] = rec.made[-1][1]
+    return row
+
+
+def fused_parity(kw: dict, lengths=(1, 2)) -> dict:
+    """Replay parity on the card: the fused engine runs segments of
+    ``lengths`` (x64 solve), printing the peak memory after each capture;
+    then the dispatch round's components, fed the same draws, must give
+    the same losses, participants, weights, contribution buffer, FIFO and
+    stream state. At full width a difference is printed and ``test_loss``
+    held to rtol 1e-5 with participants exact. Then one more, warm,
+    segment is profiled: one ``cudaGraphLaunch`` and no
+    ``cudaLaunchKernel`` from the host."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import round_fused as rf
+    from repro_torch.core.client import make_vmapped_local_train
+    from repro_torch.core.resource import pathloss_linear
+    from repro_torch.core.resource_stacked import (ChannelBatch,
+                                                   optimize_clients_batched)
+    from repro_torch.device import (deterministic_convolutions,
+                                    full_f32_convolutions)
+    from repro_torch.harness import ExperimentConfig, build_fused_engine
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.models.small import small_loss
+    dev = torch.device("cuda")
+    xc = ExperimentConfig(**dict(kw, resource_backend="x64"))
+    ev = MAIN_EVAL if xc.num_clients == MAIN_U else 64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    row = {"config": dict(kw, resource_backend="x64"), "segments": []}
+    with full_f32_convolutions(), deterministic_convolutions():
+        eng, s = build_fused_engine("osafl", xc, ev)
+        carry = eng.init_carry(s.server, s.sbuf, s.rstream, 0)
+        outs = []
+        for n in lengths:
+            t0 = _clock()
+            outs.append(eng.run_segment(carry, n)[1])
+            row["segments"].append({
+                "length": n, "seconds": _clock() - t0,
+                "capture_s": eng.capture_log[-1]["capture_s"],
+                "max_memory_allocated": torch.cuda.max_memory_allocated()})
+        fused = {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        rounds = sum(lengths)
+        _, s2 = build_fused_engine("osafl", xc, ev)
+        step = make_vmapped_local_train(s2.grad_fn, s2.fl.local_lr,
+                                        s2.fl.kappa_max)
+        xi = pathloss_linear(s2.sysb.distance)
+        losses, parts = [], []
+        for t in range(rounds):
+            dr = rf.round_draws(eng.spec, torch.tensor(t, device=dev))
+            counts = rf.draw_counts(dr.arrivals, eng.p_ac).cpu().numpy()
+            s2.rstream._noise = lambda L, noise=dr.noise: noise
+            s2.sbuf.stage(*s2.rstream.draw(counts, xc.dataset, xc.arrivals))
+            s2.sbuf.commit()
+            gamma = 10.0 ** (rf.draw_shadowing_db(dr.normals).double()
+                             / 10.0)
+            dec = optimize_clients_batched(
+                s2.net, s2.sysb, ChannelBatch(xi=xi,
+                                              gamma=gamma.cpu().numpy()),
+                s2.n_params, backend="x64", device=dev)
+            st = s2.sbuf.state
+            slots = rf.draw_slots(dr.slots, st.size, st.head, st.cap)
+            d, _ = step(s2.server.params, s2.sbuf.gather(
+                slots.cpu().numpy()), torch.as_tensor(dec.kappa, device=dev))
+            upd = s2.codec.flatten_stacked(d)
+            del d
+            s2.server.round_stacked(upd, dec.kappa >= 1)
+            del upd
+            losses.append(float(small_loss(s2.server.params,
+                                           s2.test_batch, s2.model)[0]))
+            parts.append(int((dec.kappa >= 1).sum()))
+        same = {
+            "test_loss": fused["test_loss"].tolist() == losses,
+            "participants": fused["participants"].tolist() == parts,
+            "w": torch.equal(carry.w, s2.server.w),
+            "d_buffer": torch.equal(carry.d_buffer, s2.server.d_buffer),
+            "buffer": all(torch.equal(getattr(carry.buf, f),
+                                      getattr(s2.sbuf.state, f))
+                          for f in carry.buf._fields),
+            "stream": all(torch.equal(getattr(carry.stream, f),
+                                      getattr(s2.rstream.state, f))
+                          for f in carry.stream._fields)}
+        row["bit_for_bit"] = same
+        row["max_abs_diff"] = {
+            "test_loss": max(abs(a - b) for a, b in
+                             zip(fused["test_loss"].tolist(), losses)),
+            "w": float((carry.w - s2.server.w).abs().max()),
+            "d_buffer": float((carry.d_buffer
+                               - s2.server.d_buffer).abs().max())}
+        row["losses"] = {"fused": fused["test_loss"].tolist(),
+                         "dispatch": losses}
+        del s2
+        torch.cuda.empty_cache()
+        before = sr.scored_reduce.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.run_segment(carry, lengths[0])
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()]
+        row["warm_segment"] = {
+            "length": lengths[0],
+            "cudaGraphLaunch": names.count("cudaGraphLaunch"),
+            "cudaLaunchKernel": names.count("cudaLaunchKernel"),
+            "scored_reduce_launches": sr.scored_reduce.launches - before}
+    eng.release()
+    del eng, carry, s
+    torch.cuda.empty_cache()
+    say("fused parity " + json.dumps(row))
+    if not (same["participants"] and all(same.values()) or (
+            xc.num_clients == MAIN_U and same["participants"]
+            and all(abs(a - b) <= 1e-5 * abs(b)
+                    for a, b in zip(fused["test_loss"].tolist(), losses)))):
+        raise AssertionError(f"fused replay parity failed: {row}")
+    ws = row["warm_segment"]
+    if (ws["cudaGraphLaunch"], ws["cudaLaunchKernel"]) != (1, 0) or \
+            ws["scored_reduce_launches"] != lengths[0] * (
+                0 if xc.score_sketch_dim else 1):
+        raise AssertionError(f"a warm fused segment is not one graph "
+                             f"launch: {ws}")
+    return row
+
+
+def warm_replay_round_s(kw: dict, eval_samples: int) -> float:
+    """Seconds a round of ``kw``'s fused segment takes once its graph is
+    captured: the engine's second segment of ``rounds_per_dispatch``
+    rounds, synchronized, over its length."""
+    from repro_torch.harness import ExperimentConfig, build_fused_engine
+    xc = ExperimentConfig(**kw)
+    eng, s = build_fused_engine("osafl", xc, eval_samples)
+    carry = eng.init_carry(s.server, s.sbuf, s.rstream, 0)
+    n = xc.rounds_per_dispatch
+    eng.run_segment(carry, n)
+    t0 = _clock()
+    eng.run_segment(carry, n)
+    out = (_clock() - t0) / n
+    eng.release()
+    del eng, s, carry
+    torch.cuda.empty_cache()
+    return out
+
+
+def scored_in_graph() -> dict:
+    """``scored_reduce`` at the FCN's (256, N) f32 inside a captured CUDA
+    graph (one launch a replay, timed by CUDA events over replays) beside
+    the same call launched from the host."""
+    from repro_torch.kernels import scored_reduce as sr
+    N = buffer_n("fcn")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d = torch.randn((MAIN_U, N), generator=gen, device="cuda")
+    mean = d.mean(0)
+    want = sr.scored_reduce(d, mean)
+    torch.cuda.synchronize()
+    sr.prepare(d.device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = sr.scored_reduce(d, mean)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(want, got))
+    row = {"U": MAIN_U, "N": N, "bitwise_equal": same,
+           "graph_ms": time_ms(graph.replay, 30),
+           "launched_ms": time_ms(lambda: sr.scored_reduce(d, mean), 30)}
+    del d, mean, graph, got, want
+    torch.cuda.empty_cache()
+    say("scored_reduce in a graph " + json.dumps(row))
+    if not same:
+        raise AssertionError(f"scored_reduce in a graph disagrees: {row}")
+    return row
+
+
+def serve_phase() -> dict:
+    """Train-while-serve at full width: the fused main path (``SERVE_TRAIN``)
+    in a thread, writing an async snapshot every 2 of its 4 rounds
+    (``keep_last=1``), while ``serve_loop`` maps them and scores Dataset-1
+    request batches on the card. Gates: the server reaches round 4 with no
+    failed load, and the logits it serves there equal, bit for bit, those
+    of the trainer's final weights on the same batch."""
+    import shutil
+    import tempfile
+    import threading
+
+    import numpy as np
+    from repro_torch.launch.serve import (ModelServer, make_request_batch,
+                                          serve_loop)
+    from repro_torch.models.small import small_forward
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+    model, dataset = SERVE_TRAIN["model"], SERVE_TRAIN["dataset"]
+    result = {}
+
+    def train():
+        try:
+            result["row"] = fused_fl_run(
+                "train-while-serve trainer", SERVE_TRAIN, MAIN_EVAL,
+                keep_setup=True, save_every_k=SERVE_EVERY,
+                checkpoint_dir=root, keep_last=1)
+        except BaseException as e:       # raised again below
+            result["error"] = e
+    trainer = threading.Thread(target=train, daemon=True)
+    try:
+        trainer.start()
+        try:
+            stats = serve_loop(root, until_round=SERVE_TRAIN["rounds"],
+                               poll_s=0.05, batch=32, dataset=dataset,
+                               timeout_s=900.0)
+        finally:
+            trainer.join(timeout=900.0)
+        if trainer.is_alive() or "error" in result:
+            raise result.get("error") or AssertionError(
+                "the train-while-serve trainer did not finish")
+        row = result["row"]
+        s = row.pop("setup")
+        x = make_request_batch(np.random.default_rng(3), 32, dataset)
+        with ModelServer(root, claim=False) as server:
+            server.poll()
+            served = server.score(x)
+            mapped = server.mapped_round
+        with torch.no_grad():
+            want = small_forward(s.codec.unflatten(s.server.w),
+                                 torch.as_tensor(x, device="cuda"),
+                                 model).cpu().numpy()
+        del s
+        out = {"reloads": stats["reloads"],
+               "behind_at_swap": [r["behind"] for r in stats["reloads"]],
+               "mapped_rounds": stats["mapped_rounds"],
+               "failed_loads": stats["failed_loads"],
+               "batches": stats["batches"],
+               "requests_scored": stats["requests_scored"],
+               "score_s_per_batch": {
+                   "median": float(np.median(stats["score_s"])),
+                   "min": min(stats["score_s"]),
+                   "max": max(stats["score_s"])},
+               "final_mapped_round": mapped,
+               "logits_bit_identical": bool(np.array_equal(served, want)),
+               "logits_max_abs_diff": float(np.abs(served - want).max())}
+        say("train-while-serve " + json.dumps(out))
+        if not (out["logits_bit_identical"]
+                and mapped == SERVE_TRAIN["rounds"]
+                and stats["failed_loads"] == 0):
+            raise AssertionError(f"train-while-serve failed: {out}")
+        return {"trainer": row, **out}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def fused_phase() -> dict:
+    """Phase 6h: the fused round as CUDA-graph segments. The main path's
+    configuration (stacked requests, f32 solve) as 3-round segments over 6
+    rounds and 1-round segments over 3 (their first 3 rounds bit for bit),
+    and the dispatch round on it; replay parity on the small MLP and at
+    full width, each with a profiled warm segment; ``scored_reduce`` inside
+    a graph; Fig. 1's preset as one 8-round segment beside its dispatch
+    run; small fused runs card against CPU; train-while-serve."""
+    runs = [fused_fl_run("fused main path", FUSED_RUN, MAIN_EVAL),
+            fused_fl_run("fused main path, 1-round segments", FUSED_ONE,
+                         MAIN_EVAL)]
+    dispatch = fl_run("fused main path's dispatch round", "osafl",
+                      FUSED_DISPATCH, MAIN_EVAL)
+    keys = ("test_loss", "test_acc", "participants")
+    head = [[[r[k] for k in keys] for r in row["rounds"][:3]]
+            for row in runs]
+    summary = {
+        "segment_invariance_bit_for_bit": head[0] == head[1],
+        "round_s": {"fused_3": [r["round_s"] for r in runs[0]["rounds"]],
+                    "fused_1": [r["round_s"] for r in runs[1]["rounds"]],
+                    "dispatch": [r["round_s"] for r in dispatch["rounds"]]},
+        "max_memory_allocated": {
+            "fused_3": runs[0]["max_memory_allocated"],
+            "fused_1": runs[1]["max_memory_allocated"],
+            "dispatch": dispatch["max_memory_allocated"]},
+        "captured": {"fused_3": runs[0]["captured"],
+                     "fused_1": runs[1]["captured"]},
+        "scored_reduce": [r["launches"]["scored_reduce"] for r in runs]}
+    say("fused main path " + json.dumps(summary))
+    if not summary["segment_invariance_bit_for_bit"]:
+        raise AssertionError("the fused main path's first 3 rounds differ "
+                             f"between segment lengths 3 and 1: {head}")
+    parity = [fused_parity(kw) for kw in FUSED_PARITY]
+    in_graph = scored_in_graph()
+    fig1 = fused_fl_run("fused fig1 preset", FUSED_FIG1, FIG1_EVAL)
+    fig1_dispatch = fl_run("fig1 preset, dispatch round", "osafl",
+                           dict(FUSED_FIG1, round_backend="dispatch"),
+                           FIG1_EVAL)
+    say("fused fig1 " + json.dumps({
+        "round_s": {"fused_8": [r["round_s"] for r in fig1["rounds"]],
+                    "fused_8_warm_replay": warm_replay_round_s(FUSED_FIG1,
+                                                               FIG1_EVAL),
+                    "dispatch": [r["round_s"]
+                                 for r in fig1_dispatch["rounds"]]},
+        "max_memory_allocated": [fig1["max_memory_allocated"],
+                                 fig1_dispatch["max_memory_allocated"]]}))
+    small = small_run_phase(FUSED_SMALL)
+    serve = serve_phase()
+    return {"runs": runs, "dispatch": dispatch, "parity": parity,
+            "in_graph": in_graph, "fig1": fig1, "fig1_dispatch":
+            fig1_dispatch, "small": small, "serve": serve}
+
+
 def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
     """Last-position logits of ``forward`` (the flash path) against those
     of sequential ``decode_step``s over a cache (``_sdpa``), same prompt.
@@ -1327,6 +1707,7 @@ def main() -> int:
     loop_resume = loop_resume_phase()
     breakdown_phase(dict(MAIN_RUN, request_backend="stacked"))
     cohorts = cohort_phase()
+    fused = fused_phase()
     serving = serving_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
@@ -1365,6 +1746,13 @@ def main() -> int:
         r["launches"]["scored_reduce"] for r in cohorts["resume"]["runs"]]
     by_path["scored_reduce"]["loop_small"] = small_loop
     by_path["scored_reduce"]["stacked_small"] = stacked_small
+    for k in by_path:
+        by_path[k]["fused"] = [r["launches"][k] for r in fused["runs"]]
+        by_path[k]["fused_fig1"] = fused["fig1"]["launches"][k]
+        by_path[k]["serve"] = fused["serve"]["trainer"]["launches"][k]
+    by_path["scored_reduce"]["fused_small"] = fused["small"]
+    by_path["scored_reduce"]["fused_parity_warm_segment"] = [
+        p["warm_segment"]["scored_reduce_launches"] for p in fused["parity"]]
     line = {"kernels": [{
         "name": "scored_reduce", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/scored_reduce.cu",
@@ -1373,7 +1761,8 @@ def main() -> int:
         "launches_by_path": by_path["scored_reduce"],
         "max_abs_err": max(m["max_abs_err"].values()),
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"], "library_ms": m["library_ms"]}, {
+        "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        "in_graph_ms": fused["in_graph"]["graph_ms"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

@@ -13,6 +13,9 @@ sequential insert loop:
     overflow ``max(size + n - cap, 0)``.
 
 A sparse-cohort admission reassigns rows to new clients (``reset_rows``).
+``stage_in_place`` and ``commit_in_place`` are the fixed-shape forms of
+``stage`` and ``commit`` that the fused round's CUDA graphs hold (the
+reference's ``_stage_impl`` and ``_commit_impl``, written in place).
 The reference is ``repro/core/buffer_stacked.py`` without the mesh.
 Labels and Dataset-2 features are int64 here; the reference's JAX arrays
 hold them as int32 (``canonicalize_dtype(np.int64)`` with x64 off), with
@@ -45,6 +48,68 @@ class BufState(NamedTuple):
 
 # the reference's stored dtype of an int64 leaf (its x64-off JAX arrays)
 _SNAPSHOT_DTYPES = {torch.int64: np.int32}
+
+
+def _feature_mask(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A (U, W) mask broadcast over the feature dims of a (U, W, ...)
+    block."""
+    return mask.reshape(mask.shape + (1,) * (like.dim() - mask.dim()))
+
+
+def _scatter_rows(store: torch.Tensor, slot: torch.Tensor, write,
+                  src: torch.Tensor, fresh: torch.Tensor) -> None:
+    """``store[u, slot[u, j]] = fresh[u, src[u, j]]`` where ``write[u]``,
+    else each row keeps its own value, in fixed shapes: the duplicate
+    indices of a row all carry one value, so the scatter's order does not
+    matter."""
+    U, W = slot.shape
+    uu = torch.arange(U, device=store.device)[:, None].expand(U, W)
+    val = torch.where(_feature_mask(write[:, None], store),
+                      fresh[uu, src].to(store.dtype), store[uu, slot])
+    store[uu, slot] = val
+
+
+def stage_in_place(st: BufState, x_new, y_new, counts) -> torch.Tensor:
+    """``StackedOnlineBuffer.stage`` for a captured CUDA graph: the same
+    staged values, written into ``st``'s own tensors with no host read and
+    no data-dependent shape. A padding column rewrites its row's last
+    arrival (or, in a row with none, keeps the slot's value), in the
+    reference's place of a dropped scatter index. Returns a 0-d overflow
+    flag (more staged than the stage capacity) for the caller to read after
+    the segment, where ``stage`` raises at once."""
+    S = st.staged_y.shape[1]
+    A = y_new.shape[1]
+    cnt = counts.to(torch.int64)
+    j = torch.arange(A, device=cnt.device)[None, :]
+    src = torch.where(j < cnt[:, None], j, (cnt - 1).clamp(min=0)[:, None])
+    pos = (st.staged_n.to(torch.int64)[:, None] + src).clamp(max=S - 1)
+    live = cnt > 0
+    _scatter_rows(st.staged_x, pos, live, src, x_new)
+    _scatter_rows(st.staged_y, pos, live, src, y_new)
+    overflow = torch.any(st.staged_n.to(torch.int64) + cnt > S)
+    st.staged_n.add_(cnt.to(st.staged_n.dtype))
+    return overflow
+
+
+def commit_in_place(st: BufState) -> None:
+    """``StackedOnlineBuffer.commit`` for a captured CUDA graph: the same
+    FIFO commit, into ``st``'s own tensors. A staged sample that is not
+    kept rewrites its row's last kept one (or, in a row with nothing
+    staged, keeps the slot's value)."""
+    S = st.staged_y.shape[1]
+    n, c = st.staged_n.to(torch.int64), st.cap.to(torch.int64)
+    h, s = st.head.to(torch.int64), st.size.to(torch.int64)
+    j = torch.arange(S, device=n.device)[None, :]
+    # keep only the last cap staged samples; they land in distinct slots
+    keep = (j < n[:, None]) & (j >= (n - c)[:, None])
+    src = torch.where(keep, j, (n - 1).clamp(min=0)[:, None])
+    slot = ((h + s)[:, None] + src) % c[:, None]
+    live = n > 0
+    _scatter_rows(st.x, slot, live, src, st.staged_x)
+    _scatter_rows(st.y, slot, live, src, st.staged_y)
+    st.size.copy_(torch.minimum(s + n, c))
+    st.head.copy_((h + torch.clamp(s + n - c, min=0)) % c)
+    st.staged_n.zero_()
 
 
 @dataclass

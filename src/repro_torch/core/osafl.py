@@ -102,7 +102,23 @@ def write_back(fl: FLConfig, w, buf, part_prev, d_new, active):
     return part
 
 
-def make_stacked_round_body(fl: FLConfig):
+def write_back_masked(fl: FLConfig, w, buf, part_prev, d_new, active):
+    """``write_back`` in fixed shapes and without a host read, for a
+    captured CUDA graph: two masked passes over ``buf``, each written into
+    ``buf`` itself, so no second (U, N) tensor is made. The
+    values are ``write_back``'s: each row is copied from ``d_new``, from the
+    refresh row or from itself."""
+    part = part_prev | active
+    torch.where(active[:, None], d_new, buf, out=buf)
+    stale = (~part)[:, None]
+    if fl.literal_init_buffer:
+        torch.where(stale, (w / fl.local_lr)[None, :], buf, out=buf)
+    else:
+        buf.masked_fill_(stale, 0.0)
+    return part
+
+
+def make_stacked_round_body(fl: FLConfig, fixed_shape: bool = False):
     """The stacked OSAFL round as one function
 
         rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None)
@@ -113,11 +129,14 @@ def make_stacked_round_body(fl: FLConfig):
     and its traffic. Scores come from ``make_scores_fn`` (the CUDA kernel,
     the plain-torch oracle, or the sketch under ``key``, the server's
     ``sketch_key``); the mean and the final weighted sum are plain torch
-    ops, as the reference leaves them outside its kernel."""
+    ops, as the reference leaves them outside its kernel. ``fixed_shape``
+    takes ``write_back_masked`` (the fused round's, which a CUDA graph can
+    hold) for ``write_back``."""
     scores_of = make_scores_fn(fl)
+    update = write_back_masked if fixed_shape else write_back
 
     def rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None):
-        part = write_back(fl, w, buf, part_prev, d_new, active)
+        part = update(fl, w, buf, part_prev, d_new, active)
         lam = scores_of(buf, key)
         # stale_scores: weight THIS round's buffer with the PREVIOUS
         # round's scores

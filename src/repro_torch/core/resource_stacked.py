@@ -22,17 +22,27 @@ Two numeric backends (``resource_backend``):
     f, p and e_total at most 1e-3. Feasible lanes that come back
     non-finite raise ``ResourceSolveError``.
 
-The solve sits on two knife edges by construction: Lemma 2 picks f so
-that the deadline binds, so the next Lemma 1 floor sees j = kappa and the
-SCA's minimum power sees p_lo = p. The reference's slacks there
-(``_J_SLACK`` 1e-7, ``_P_SLACK`` 1e-9) are below float32's resolution,
-and with them the side each lane lands on is decided by rounding: in
-torch on the CPU, at U=256, most lanes fall to the other side than x64
-(median relative p difference 0.90 at the MLP's payload, 12 % kappa
-flips at the FCN's), fewer in XLA. So on the f32 backend each slack is
-widened to a few float32 ulps of its term (``_F32_ULPS``), and the f32
-solve then lands where x64 does (``tests/test_torch_online.py``, ``-k
-slacks``, prints both); x64 keeps the reference's slacks.
+The solve sits on knife edges by construction: Lemma 2 picks f so that
+the deadline binds, so the next Lemma 1 floor sees j = kappa, the SCA's
+minimum power sees p_lo = p, and the deadline checks see t_total = t_th.
+The reference's slacks there (``_J_SLACK`` 1e-7, ``_P_SLACK`` 1e-9, and
+1e-6 relative in the checks) are at or below float32's resolution, and
+with them the side each lane lands on is decided by rounding: in torch on
+the CPU, at U=256, most lanes fall to the other side than x64 (median
+relative p difference 0.90 at the MLP's payload, 12 % kappa flips at the
+FCN's), fewer in XLA; and the card, whose ``log`` and ``exp`` round
+otherwise than the CPU's, lands on yet another side on some lanes (at the
+FCN's payload a round's kappa went 5 on the CPU, 3 on the card). So on the
+f32 backend each slack is widened to float32 ulps of what rounds
+(``_F32_ULPS``): Lemma 1's floor by ulps of the larger term of j, not of j
+(``e_bd`` over its denominator, or ``f t_th / cc``: the differences
+``e_bd - e_up`` and ``t_th - t_up`` cancel), the minimum-power check by
+ulps of its log, scaled by how much ``t_left``'s cancellation amplifies
+it, and the deadline and energy checks by ulps of their bounds. The f32
+solve then lands where x64 does, on the CPU and with every transcendental
+result moved by up to 4 ulps (``tests/test_torch_online.py``: ``-k
+slacks`` prints the readings, ``-k other_rounding`` moves the results);
+x64 keeps the reference's slacks.
 
 ``sample_channels`` draws the same channel stream from an
 ``np.random.Generator`` as the reference.
@@ -55,10 +65,11 @@ _LN2 = float(np.log(2.0))
 RESOURCE_BACKENDS = ("x64", "f32")
 BACKEND_DTYPES = {"x64": torch.float64, "f32": torch.float32}
 _FRACS = (1.0, 0.1, 0.01, 1e-3, 1e-4)     # Algorithm 1's initial power points
-# f32 knife-edge slacks, in float32 ulps: of j in Lemma 1's floor, and of
-# log p_lo against log p_max, whose rounding t_left = t_th - t_cp amplifies
-# by t_th / t_left (see the module docstring)
-_F32_ULPS = {"kappa": 8.0, "power": 4.0}
+# f32 knife-edge slacks, in float32 ulps: of the larger term of j in Lemma
+# 1's floor, of log p_lo against log p_max, whose rounding t_left = t_th -
+# t_cp amplifies by t_th / t_left, and of the deadline and energy bounds in
+# the feasibility checks (see the module docstring)
+_F32_ULPS = {"kappa": 32.0, "power": 4.0, "check": 64.0}
 
 
 class ResourceSolveError(RuntimeError):
@@ -112,13 +123,16 @@ class ResourceDecisionBatch:
     e_total: np.ndarray     # (U,) float64
 
 
-def make_solver_core(net: NetworkConfig, backend: str = "x64"):
+def make_solver_core(net: NetworkConfig, backend: str = "x64", device=None):
     """The all-clients solve as a function of (c, s, f_max, p_max, e_bd, xi,
     gamma) — (U,) tensors of the backend's dtype (``BACKEND_DTYPES``) on
     one device — and the scalar payload ``n_params``, returning the six
     decision columns as tensors. Every formula mirrors the reference line
     for line; on the f32 backend the minimum-power step runs in the log
-    domain."""
+    domain. The solve's constant tensors are built once per device, up
+    front for ``device`` (a CUDA graph cannot hold their copies from the
+    host), at a device's first call otherwise; the payload is a fill on
+    the device."""
     if backend not in RESOURCE_BACKENDS:
         raise ValueError(f"unknown resource backend {backend!r} "
                          f"(expected one of {RESOURCE_BACKENDS})")
@@ -126,17 +140,29 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
     dtype = BACKEND_DTYPES[backend]
     noise = net.noise_power
     inf = float("inf")
+    consts = {}
+
+    def constants(dev: torch.device) -> tuple:
+        """(fracs, ks, log1p_slack) on ``dev``."""
+        if dev not in consts:
+            kw = dict(dtype=dtype, device=dev)
+            consts[dev] = (
+                torch.tensor(_FRACS, **kw),
+                torch.arange(1.0, net.kappa_max + 1, **kw)[:, None, None],
+                torch.log1p(torch.tensor(_P_SLACK, **kw)))
+        return consts[dev]
+
+    if device is not None:
+        constants(torch.empty(0, device=device).device)
 
     def solve(c, s, f_max, p_max, e_bd, xi, gamma, n_params):
         kw = dict(dtype=dtype, device=c.device)
-        fracs = torch.tensor(_FRACS, **kw)
-        ks = torch.arange(1.0, net.kappa_max + 1, **kw)[:, None, None]
+        fracs, ks, log1p_slack = constants(c.device)
         xg = xi * gamma
         cc = net.n * net.nbar * c * s               # cycles per local round
         # upload payload (bits), in the backend's dtype as the reference's
-        nb = torch.tensor(float(n_params), **kw) * (FPP + 1)
+        nb = torch.full((), float(n_params), **kw) * (FPP + 1)
         g = xg / noise                              # SNR slope: snr = g*p
-        log1p_slack = torch.log1p(torch.tensor(_P_SLACK, **kw))
         eps = torch.finfo(dtype).eps
 
         def rate(p):
@@ -150,11 +176,17 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
 
         def opt_kappa(f, p):
             """Lemma 1 (eq. 42)."""
-            j1 = (e_bd - e_up(p)) / (0.5 * net.v * cc * f ** 2)
+            den1 = 0.5 * net.v * cc * f ** 2
+            j1 = (e_bd - e_up(p)) / den1
             j2 = f * (net.t_th - t_up(p)) / cc
             j = torch.minimum(j1, j2)
-            slack = (torch.clamp(_F32_ULPS["kappa"] * eps * j, min=_J_SLACK)
-                     if log_domain else _J_SLACK)
+            if log_domain:
+                # j rounds as its larger term does, not as the difference
+                term = torch.where(j1 < j2, e_bd / den1, f * net.t_th / cc)
+                slack = torch.clamp(_F32_ULPS["kappa"] * eps * term,
+                                    min=_J_SLACK)
+            else:
+                slack = _J_SLACK
             k = torch.clamp(torch.floor(j + slack), max=float(net.kappa_max))
             return torch.clamp(k, min=0.0)
 
@@ -196,6 +228,9 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
             p_lo = torch.exp(torch.minimum(log_p_lo, log_cap))
             return torch.where(valid, p_lo, 1e-6), valid
 
+        # relative slack of the deadline and energy checks
+        rel = max(1e-6, _F32_ULPS["check"] * eps) if log_domain else 1e-6
+
         def sca_power(kappa, f, p0):
             """SCA (eqs. 50-52) with convergence/abort masks per lane."""
             e_cp = 0.5 * net.v * cc * kappa * f ** 2
@@ -230,8 +265,8 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
                 p = torch.where(act, torch.where(conv, p_new,
                                                  0.5 * (p + p_new)), p)
                 done = done | (act & conv)
-            ok = valid & (e_up(p) + e_cp <= e_bd * (1 + 1e-6)) \
-                & (t_cp + t_up(p) <= net.t_th * (1 + 1e-6))
+            ok = valid & (e_up(p) + e_cp <= e_bd * (1 + rel)) \
+                & (t_cp + t_up(p) <= net.t_th * (1 + rel))
             return p, ok
 
         # all five initial power points at once: (5, U) lanes
@@ -264,8 +299,8 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
             p = torch.where(alive, p_sca, p)
             t_tot = cc * kappa / f + t_up(p)
             e_tot = 0.5 * net.v * cc * kappa * f ** 2 + e_up(p)
-            okc = alive & (t_tot <= net.t_th * (1 + 1e-6)) \
-                & (e_tot <= e_bd * (1 + 1e-6))
+            okc = alive & (t_tot <= net.t_th * (1 + rel)) \
+                & (e_tot <= e_bd * (1 + rel))
             rk = torch.where(okc, kappa, rk)
             rf = torch.where(okc, f, rf)
             rp = torch.where(okc, p, rp)
@@ -293,7 +328,8 @@ def make_solver_core(net: NetworkConfig, backend: str = "x64"):
 
 def _check_finite(kappa, f, p, feas, backend: str) -> None:
     """Feasible lanes must carry finite decisions: raise, never hand
-    non-finite kappa/f/p to the round loop."""
+    non-finite kappa/f/p to the round loop. (The fused round keeps the same
+    test on the device as a per-round flag, ``FusedEngine.check_outputs``.)"""
     bad = feas & ~(np.isfinite(kappa) & np.isfinite(f) & np.isfinite(p))
     if bad.any():
         lanes = np.flatnonzero(bad)[:8]

@@ -115,7 +115,7 @@ def _draw_block(consts: StreamConsts, state: StreamState,
     if u_br.shape != (L, U):
         raise ValueError(f"noise for {tuple(u_br.shape)} steps x users, "
                          f"the block needs ({L}, {U})")
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = float("-inf")
     genre, file_, has_last = state.genre, state.file, state.has_last
     hist, hist_len = state.hist, state.hist_len
     emitted = torch.zeros(U, dtype=torch.int64, device=dev)

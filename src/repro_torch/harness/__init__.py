@@ -5,9 +5,12 @@ from repro_torch.configs.base import ExperimentConfig
 from repro_torch.harness.compat import (ALL_ALGS, ENGINES, POD_ENGINES,
                                         ExperimentConfigError, ResolvedPlan,
                                         resolve)
-from repro_torch.harness.experiments import (MODEL_PARAMS, checkpoint_path,
+from repro_torch.harness.experiments import (MODEL_PARAMS,
+                                             build_fused_engine,
+                                             checkpoint_path,
                                              resume_smoke_config, run)
 
 __all__ = ["ALL_ALGS", "ENGINES", "POD_ENGINES", "MODEL_PARAMS",
            "ExperimentConfig", "ExperimentConfigError", "ResolvedPlan",
-           "checkpoint_path", "resolve", "resume_smoke_config", "run"]
+           "build_fused_engine", "checkpoint_path", "resolve",
+           "resume_smoke_config", "run"]

@@ -1,10 +1,11 @@
 """The experiment-configuration compatibility matrix.
 
 ``RULES`` is the reference's matrix (``repro/harness/compat.py``), copied
-rule for rule in its order. ``PORT_RULES`` then rejects, in the same
-uniform form, what the port does not run yet: the pod engine, the fused
-round and a mesh. ``resolve()`` evaluates both lists in order and
-raises on the first match:
+rule for rule in its order; its ``fused-*`` and ``scenario-fused`` rules
+alone decide which fused rounds run. ``PORT_RULES`` then rejects, in the
+same uniform form, what the port does not run yet: the pod engine and a
+mesh. ``resolve()`` evaluates both lists in order and raises on the first
+match:
 
     invalid experiment configuration [rule-key]: why
 """
@@ -210,9 +211,10 @@ def _not_ported(what: str) -> str:
     return (f"{what} is not ported to repro_torch yet (the port runs every "
             "algorithm on the stacked dispatch round, engine 'stacked' or "
             "'auto', with the sparse cohort, the cluster tier, scenarios and "
-            "sketched scores, on the per-client loop oracle, engine 'loop', "
-            "and the centralized genie: round_backend='dispatch', either "
-            "request and resource backend, checkpoints, no mesh)")
+            "sketched scores, OSAFL on the fused round "
+            "(round_backend='fused'), the per-client loop oracle, engine "
+            "'loop', and the centralized genie: either request and resource "
+            "backend, checkpoints, no mesh)")
 
 
 #: What the port does not run yet, checked after ``RULES``.
@@ -220,9 +222,6 @@ PORT_RULES = (
     Rule("port-engine",
          lambda p: p.engine not in ("stacked", "loop", "centralized"),
          lambda p: _not_ported(f"engine={p.engine!r}")),
-    Rule("port-round-backend",
-         lambda p: p.round_backend != "dispatch",
-         lambda p: _not_ported(f"round_backend={p.round_backend!r}")),
     Rule("port-mesh",
          lambda p: p.mesh,
          lambda p: _not_ported("a mesh")),

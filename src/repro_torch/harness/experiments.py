@@ -63,6 +63,7 @@ from repro_torch.core.resource import (NetworkConfig, make_clients,
                                        optimize_round)
 from repro_torch.core.resource_stacked import (optimize_round_batched,
                                                stack_clients)
+from repro_torch.core.round_fused import FusedEngine
 from repro_torch.data.online import (binomial_arrivals_batched,
                                      dataset_layout, draw_arrival_batch,
                                      load_streams_state, pad_arrival_batch,
@@ -490,6 +491,92 @@ def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
     return history
 
 
+def build_fused_engine(alg: str, xc: ExperimentConfig,
+                       eval_samples: int = 400, device=None) -> tuple:
+    """The deterministic setup and a ``core/round_fused.FusedEngine`` over
+    it: ``(engine, s)``, ``s`` the ``_stacked_setup`` namespace whose
+    server, buffer and stream the engine's carries are made from and
+    written back to. Validates the fused shape of the compatibility matrix
+    first, whatever ``xc.round_backend`` says: calling this is choosing
+    the fused round. ``device=None`` is the CUDA device."""
+    resolve(alg, dataclasses.replace(xc, engine="stacked",
+                                     round_backend="fused"))
+    device = resolve_device(device)
+    s = _stacked_setup(alg, xc, eval_samples, device)
+    engine = FusedEngine(
+        fl=s.fl, codec=s.codec, model=s.model, consts=s.rstream.consts,
+        topk=s.rstream.topk, dataset=xc.dataset, arrivals=xc.arrivals,
+        batch=xc.batch, p_ac=s.p_ac, sysb=s.sysb, net=s.net,
+        n_params=s.n_params, test_batch=s.test_batch, alphas=s.server.alphas,
+        sketch_key=s.server._sketch_key, seed=xc.seed,
+        use_resource_opt=xc.use_resource_opt,
+        resource_backend=xc.resource_backend, device=device)
+    return engine, s
+
+
+def _run_fused(alg: str, xc: ExperimentConfig, eval_samples: int,
+               device: torch.device, save_every_k=None, checkpoint_dir=None,
+               resume_from=None, checkpoint_async: bool = True,
+               keep_last=None) -> list:
+    """The ``round_backend="fused"`` body of the stacked engine: the same
+    trajectory state and RunState snapshots, but rounds run in segments of
+    up to ``xc.rounds_per_dispatch``, cut at checkpoint boundaries (the
+    draws are keyed on the absolute round, so the cut does not show in the
+    trajectory). History rows are the dispatch round's; there are no
+    per-round host draws, so ``request_gen_s`` is 0, and ``round_s`` is the
+    synchronized segment's wall clock divided by its length."""
+    engine, s = build_fused_engine(alg, xc, eval_samples, device)
+    writer = _make_ckpt_writer(save_every_k, checkpoint_async, keep_last)
+    history, start_round = [], 0
+    if resume_from is not None:
+        snap = checkpoint.load_run_state(resume_from)
+        _check_snapshot(snap, "stacked", alg, xc, eval_samples)
+        history, start_round = _resume_stacked(s, snap)
+        del snap
+    carry = engine.init_carry(s.server, s.sbuf, s.rstream, start_round)
+    t, outs = start_round, None
+    try:
+        while t < xc.rounds:
+            seg = min(xc.rounds_per_dispatch, xc.rounds - t)
+            if save_every_k:
+                boundary = (t // save_every_k + 1) * save_every_k
+                seg = min(seg, boundary - t)
+            t_start = time.perf_counter()
+            carry, outs = engine.run_segment(carry, seg)
+            _synchronize(device)
+            seg_s = time.perf_counter() - t_start
+            engine.check_outputs(outs)
+            for i in range(seg):
+                history.append({"round": t + i,
+                                "test_loss": float(outs["test_loss"][i]),
+                                "test_acc": float(outs["test_acc"][i]),
+                                "participants": int(outs["participants"][i]),
+                                "request_gen_s": 0.0,
+                                "round_s": seg_s / seg})
+            t += seg
+            if save_every_k and t % save_every_k == 0:
+                engine.write_back(carry, outs, s.server, s.sbuf, s.rstream)
+                writer.submit(
+                    checkpoint_path(checkpoint_dir, t),
+                    {"engine": "stacked", "alg": alg,
+                     "config": _run_shape(xc, eval_samples), "next_round": t,
+                     "rng": checkpoint.generator_state(s.rng),
+                     "server": s.server.state_dict(),
+                     "buffer": s.sbuf.state_dict(),
+                     "streams": s.rstream.state_dict(),
+                     "history": history},
+                    metadata={"engine": "stacked", "alg": alg, "round": t})
+        if writer is not None:
+            writer.close()          # drain barrier: all snapshots committed
+    finally:
+        engine.release()            # the graphs' memory goes with the run
+        if writer is not None:
+            writer.shutdown()
+    if outs is not None:
+        engine.write_back(carry, outs, s.server, s.sbuf, s.rstream)
+    return history
+
+
 def _client_setup(xc: ExperimentConfig, eval_samples: int,
                   device: torch.device) -> tuple:
     """The loop oracle's and the genie's setup, in the reference's order of
@@ -676,6 +763,6 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
         if plan.engine == "loop":
             return _run_loop(alg, xc, eval_samples, device, save_every_k,
                              checkpoint_dir, resume_from, keep_last)
-        return _run_stacked(alg, xc, eval_samples, device, save_every_k,
-                            checkpoint_dir, resume_from, checkpoint_async,
-                            keep_last)
+        body = _run_fused if plan.round_backend == "fused" else _run_stacked
+        return body(alg, xc, eval_samples, device, save_every_k,
+                    checkpoint_dir, resume_from, checkpoint_async, keep_last)

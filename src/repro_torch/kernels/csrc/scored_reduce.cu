@@ -223,6 +223,21 @@ int scored_reduce_launch(int dtype, const void* d, const float* mean,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Loads the kernels' module on the current device without launching
+// anything, so that a first launch inside a CUDA graph capture finds it
+// loaded.
+int scored_reduce_prepare(void) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, partial_kernel<float>);
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&attr, partial_kernel<unsigned short>);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&attr, finalize_kernel);
+  }
+  return static_cast<int>(err);
+}
+
 const char* scored_reduce_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

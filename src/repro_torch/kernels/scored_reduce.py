@@ -109,7 +109,22 @@ def _library() -> ctypes.CDLL:
         lib.scored_reduce_launch.restype = ctypes.c_int
         lib.scored_reduce_error_string.argtypes = [ctypes.c_int]
         lib.scored_reduce_error_string.restype = ctypes.c_char_p
+        lib.scored_reduce_prepare.argtypes = []
+        lib.scored_reduce_prepare.restype = ctypes.c_int
     return lib
+
+
+def prepare(device) -> None:
+    """Build and load the kernel library, and load its kernels on the CUDA
+    ``device``, without launching anything: what a CUDA graph capture of a
+    path through ``scored_reduce`` needs done before it starts (the build
+    may run ``nvcc``; the loads are host calls a capture cannot hold)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        err = lib.scored_reduce_prepare()
+    if err != 0:
+        raise RuntimeError("scored_reduce kernels failed to load: "
+                           + lib.scored_reduce_error_string(err).decode())
 
 
 def osafl_scores_fused(d: torch.Tensor, chi: float = 1.0) -> torch.Tensor:

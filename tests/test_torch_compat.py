@@ -3,7 +3,7 @@ over a grid of engine x request and round backend x ``cohort_size`` x
 ``participation`` x ``num_clusters`` x scenario: wherever the reference
 raises, the port raises the same rule key; where it does not, the port
 resolves the same plan or rejects it with a ``port-*`` rule, and only for
-the pod engine, the fused round or a mesh."""
+the pod engine or a mesh."""
 import dataclasses
 import itertools
 
@@ -25,10 +25,8 @@ ENGINES = ("auto", "stacked", "loop", "centralized", "pod")
 ROUNDS = ("dispatch", "fused")
 
 
-def test_port_rules_are_pod_fused_and_mesh():
-    assert [r.key for r in PORT_RULES] == ["port-engine",
-                                           "port-round-backend",
-                                           "port-mesh"]
+def test_port_rules_are_pod_and_mesh():
+    assert [r.key for r in PORT_RULES] == ["port-engine", "port-mesh"]
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -62,10 +60,31 @@ def test_matrix_matches_the_reference(reference, engine, round_backend,
             assert got_key.startswith("port-"), what
             plan_engine = ("pod" if engine == "pod" or (
                 engine == "auto" and mesh) else engine)
-            assert (plan_engine == "pod" or round_backend == "fused"
-                    or mesh), what
+            assert plan_engine == "pod" or mesh, what
         else:
             assert got.describe() == want.describe(), what
-            assert not mesh and engine != "pod" and round_backend != "fused"
+            assert not mesh and engine != "pod"
         seen.add(got_key or "ok")
     assert seen - {"ok"}                        # the grid reaches the rules
+
+
+@pytest.mark.parametrize("change", [
+    dict(request_backend="stacked"),
+    dict(engine="stacked", request_backend="stacked",
+         resource_backend="f32", rounds_per_dispatch=8),
+    dict(request_backend="stacked", scenario="null"),
+    dict(request_backend="stacked", score_sketch_dim=16),
+    dict(request_backend="stacked", use_resource_opt=False),
+], ids=["auto", "stacked-f32-8", "null-scenario", "sketched", "no-solve"])
+def test_resolve_accepts_the_fused_round(reference, change):
+    """The fused shapes the reference accepts resolve to its plan."""
+    xc = dataclasses.replace(ExperimentConfig(num_clients=8),
+                             round_backend="fused", **change)
+    rkw = {k: v for k, v in change.items() if k != "score_sketch_dim"}
+    rxc = dataclasses.replace(
+        reference.harness.ExperimentConfig(num_clients=8),
+        round_backend="fused", **rkw)
+    want = reference.harness.resolve("osafl", rxc)
+    got = resolve("osafl", xc)
+    assert got.describe() == want.describe()
+    assert (got.engine, got.round_backend) == ("stacked", "fused")

@@ -493,3 +493,164 @@ def test_prefill_step_launches_flash_once_per_layer(cuda):
     torch.cuda.synchronize()
     assert fa.flash_attention_bhsd.launches == before + cfg.n_layers
     assert nxt.shape == (2,) and nxt.dtype == torch.int32
+
+
+# -- the fused round under CUDA-graph replay, and serving -------------------
+
+FUSED = dict(model="mlp", dataset=2, num_clients=8, rounds=4,
+             capacity=(12, 24), arrivals=4, batch=8, seed=5,
+             request_backend="stacked", round_backend="fused",
+             rounds_per_dispatch=2)
+
+
+def _fused_engine(device, **change):
+    from repro_torch.harness import ExperimentConfig, build_fused_engine
+    xc = ExperimentConfig(**dict(FUSED, **change))
+    eng, s = build_fused_engine("osafl", xc, 64, device=device)
+    return eng, s, eng.init_carry(s.server, s.sbuf, s.rstream, 0)
+
+
+@pytest.mark.parametrize("change", [
+    dict(resource_backend="f32"), dict(resource_backend="x64"),
+    dict(resource_backend="f32", score_sketch_dim=16),
+    dict(model="fcn", dataset=1, num_clients=4, resource_backend="f32"),
+    dict(model="lstm", resource_backend="x64", rounds=3,
+         rounds_per_dispatch=3),
+], ids=["mlp-f32", "mlp-x64", "mlp-sketched", "fcn-f32", "lstm-x64"])
+def test_fused_run_matches_cpu_run(cuda, change):
+    from repro_torch.harness import ExperimentConfig, run
+    xc = ExperimentConfig(**dict(FUSED, **change))
+    before = sr.scored_reduce.launches
+    gpu = run("osafl", xc, eval_samples=64)
+    want = 0 if xc.score_sketch_dim else xc.rounds
+    assert sr.scored_reduce.launches == before + want
+    cpu = run("osafl", xc, eval_samples=64, device="cpu")
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
+
+
+def test_fused_segments_are_invariant_under_replay(cuda):
+    eng, _, carry = _fused_engine(cuda, resource_backend="f32")
+    _, full = eng.run_segment(carry, 4)
+    eng2, _, c2 = _fused_engine(cuda, resource_backend="f32")
+    parts = [eng2.run_segment(c2, k)[1] for k in (2, 1, 1)]
+    for k in ("test_loss", "participants", "lam_use"):
+        assert torch.equal(full[k], torch.cat([p[k] for p in parts])), k
+    assert torch.equal(carry.w, c2.w)
+    assert torch.equal(carry.d_buffer, c2.d_buffer)
+    assert [c["length"] for c in eng2.capture_log] == [2, 1]
+
+
+def test_fused_replay_parity_on_card(cuda):
+    """The dispatch round's components on the card, fed the fused engine's
+    draws (x64 solve), give the replayed segment bit for bit."""
+    import numpy as np
+    from repro_torch.core import round_fused as rf
+    from repro_torch.core.client import make_vmapped_local_train
+    from repro_torch.core.resource import pathloss_linear
+    from repro_torch.core.resource_stacked import (ChannelBatch,
+                                                   optimize_clients_batched)
+    from repro_torch.models.small import small_loss
+    eng, _, carry = _fused_engine(cuda, resource_backend="x64")
+    _, outs = eng.run_segment(carry, 2)
+    _, s, _ = _fused_engine(cuda, resource_backend="x64")
+    local_step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
+                                          s.fl.kappa_max)
+    xi = pathloss_linear(s.sysb.distance)
+    losses = []
+    for t in range(2):
+        dr = rf.round_draws(eng.spec, torch.tensor(t, device=cuda))
+        counts = rf.draw_counts(dr.arrivals, eng.p_ac).cpu().numpy()
+        s.rstream._noise = lambda L, noise=dr.noise: noise
+        s.rstream._to_device = lambda noise: noise
+        s.sbuf.stage(*s.rstream.draw(counts, 2, 4))
+        s.sbuf.commit()
+        gamma = 10.0 ** (rf.draw_shadowing_db(dr.normals).double() / 10.0)
+        dec = optimize_clients_batched(
+            s.net, s.sysb, ChannelBatch(xi=xi, gamma=gamma.cpu().numpy()),
+            s.n_params, backend="x64", device=cuda)
+        st = s.sbuf.state
+        slots = rf.draw_slots(dr.slots, st.size, st.head, st.cap)
+        d, _ = local_step(s.server.params, s.sbuf.gather(slots.cpu().numpy()),
+                          torch.as_tensor(dec.kappa, device=cuda))
+        s.server.round_stacked(s.codec.flatten_stacked(d), dec.kappa >= 1)
+        losses.append(float(small_loss(s.server.params, s.test_batch,
+                                       s.model)[0]))
+    assert outs["test_loss"].tolist() == losses
+    assert torch.equal(carry.w, s.server.w)
+    assert torch.equal(carry.d_buffer, s.server.d_buffer)
+    assert torch.equal(carry.buf.x, s.sbuf.state.x)
+    assert np.array_equal(outs["lam_use"][-1].numpy(),
+                          np.asarray(s.server.last_scores, np.float32))
+
+
+def test_counter_draws_on_card_are_the_cpu_draws(cuda):
+    from repro_torch.core import round_fused as rf
+    eng, _, _ = _fused_engine("cpu")
+    for t in (0, 5, 2 ** 33 + 3):
+        a = rf.round_draws(eng.spec, torch.tensor(t))
+        b = rf.round_draws(eng.spec, torch.tensor(t, device=cuda))
+        for x, y in zip((a.arrivals, a.normals, a.slots, *a.noise),
+                        (b.arrivals, b.normals, b.slots, *b.noise)):
+            assert torch.equal(x, y.cpu())
+
+
+def test_warm_segment_is_one_graph_launch(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    eng, _, carry = _fused_engine(cuda, resource_backend="f32")
+    eng.run_segment(carry, 2)                 # capture
+    before = sr.scored_reduce.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.run_segment(carry, 2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert names.count("cudaGraphLaunch") == 1
+    assert names.count("cudaLaunchKernel") == 0
+    assert sr.scored_reduce.launches == before + 2
+    assert [c["launches"] for c in eng.capture_log] == [2]
+
+
+def test_serving_on_card_matches_cpu(cuda, tmp_path):
+    import numpy as np
+    from repro_torch.checkpoint import save_run_state_v2
+    from repro_torch.core.flatten import make_codec
+    from repro_torch.launch.serve import ModelServer, make_request_batch
+    from repro_torch.models.small import init_small
+    for model, dataset in (("mlp", 2), ("fcn", 1)):
+        w = make_codec(init_small(1, model, "cpu")).flatten(
+            init_small(1, model, "cpu"))
+        d = tmp_path / model
+        save_run_state_v2(d / "round_00002",
+                          {"config": {"model": model},
+                           "server": {"w": w.numpy()}, "next_round": 2})
+        x = make_request_batch(np.random.default_rng(0), 16, dataset)
+        with ModelServer(d, device=cuda) as gpu, \
+                ModelServer(d, claim=False, device="cpu") as cpu:
+            assert gpu.poll() and cpu.poll()
+            np.testing.assert_allclose(gpu.score(x), cpu.score(x),
+                                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n_params", [18_000, 381_284, 1_118_500,
+                                      3_900_000])
+def test_f32_solve_decisions_on_card_are_the_cpu_decisions(cuda, n_params):
+    """The card's transcendental functions round otherwise than the CPU's;
+    the f32 solve's knife-edge slacks keep its kappas and feasibility the
+    CPU's (and x64's) at the paper's cohort."""
+    import numpy as np
+    from repro_torch.core import resource as tres
+    from repro_torch.core import resource_stacked as trs
+    net = tres.NetworkConfig()
+    rng = np.random.default_rng(0)
+    sysb = trs.stack_clients(tres.make_clients(rng, 256))
+    for _ in range(4):
+        chb = trs.sample_channels(rng, sysb)
+        got = trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                           backend="f32", device=cuda)
+        want = trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                            backend="f32", device="cpu")
+        np.testing.assert_array_equal(got.kappa, want.kappa)
+        np.testing.assert_array_equal(got.feasible, want.feasible)

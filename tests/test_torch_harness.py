@@ -92,8 +92,8 @@ def test_reference_rules_name_the_same_failure(reference, change):
 @pytest.mark.parametrize("change,kwargs,key", [
     (dict(engine="loop"), dict(mesh=object()), "port-mesh"),
     (dict(engine="pod"), {}, "port-engine"),
-    (dict(round_backend="fused", request_backend="stacked"), {},
-     "port-round-backend"),
+    (dict(engine="stacked", round_backend="fused",
+          request_backend="stacked"), dict(mesh=object()), "port-mesh"),
     (dict(engine="pod", request_backend="stacked", cohort_size=4), {},
      "port-engine"),
     (dict(engine="stacked", resource_backend="f32", num_clusters=2),
@@ -103,8 +103,7 @@ def test_reference_rules_name_the_same_failure(reference, change):
     (dict(engine="pod", num_clusters=2), {}, "port-engine"),
     (dict(engine="stacked"), dict(mesh=object()), "port-mesh"),
     (dict(engine="pod", scenario="churn(p_away=0.3)"), {}, "port-engine"),
-    (dict(round_backend="fused", request_backend="stacked",
-          scenario="null"), {}, "port-round-backend"),
+    (dict(engine="pod", resource_backend="f32"), {}, "port-engine"),
 ])
 def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)

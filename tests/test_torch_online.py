@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.core import resource as tres
 from repro_torch.core import resource_stacked as trs
@@ -331,7 +332,8 @@ def test_f32_slacks_keep_the_design_tolerance(reference, monkeypatch,
             **dataclasses.asdict(sysb)),
         reference.resource_stacked.ChannelBatch(chb.xi, chb.gamma),
         n_params, backend="f32")
-    monkeypatch.setattr(trs, "_F32_ULPS", {"kappa": 0.0, "power": 0.0})
+    monkeypatch.setattr(trs, "_F32_ULPS", {"kappa": 0.0, "power": 0.0,
+                                           "check": 0.0})
     narrow = readings(trs.optimize_clients_batched(
         net, sysb, chb, n_params, backend="f32", device="cpu"))
     print(f"f32 slacks at U=256, n_params={n_params}: widened {widened}; "
@@ -343,3 +345,49 @@ def test_f32_slacks_keep_the_design_tolerance(reference, monkeypatch,
                 and max(r["f"], r["p"], r["e_total"]) <= 1e-3)
     assert meets(widened)
     assert not meets(narrow)
+
+
+def _ulp_noise(fn, gen, k):
+    """``fn`` whose float32 results move by a random -k..k ulps each."""
+    def noisy(x, *args, **kwargs):
+        y = fn(x, *args, **kwargs)
+        if y.dtype != torch.float32:
+            return y
+        steps = torch.randint(-k, k + 1, y.shape, generator=gen)
+        up = torch.full_like(y, float("inf"))
+        for _ in range(k):
+            y = torch.where(steps > 0, torch.nextafter(y, up), y)
+            y = torch.where(steps < 0, torch.nextafter(y, -up), y)
+            steps = steps - steps.sign()
+        return y
+    return noisy
+
+
+@pytest.mark.parametrize("n_params", [381_284, 1_118_500, 3_900_000])
+def test_f32_solve_lands_where_it_does_under_other_rounding(monkeypatch,
+                                                            n_params):
+    """The card's ``log``, ``exp`` and kin round otherwise than the CPU's.
+    With every transcendental result of the f32 solve moved by up to 4
+    ulps, no kappa and no feasibility flag moves at the paper's cohort over
+    4 channel draws, and the decisions stay x64's."""
+    net = tres.NetworkConfig()
+    rng = np.random.default_rng(0)
+    sysb = trs.stack_clients(tres.make_clients(rng, 256))
+    fns = ("log", "log2", "exp", "expm1", "log1p")
+    originals = {name: getattr(torch, name) for name in fns}
+    for draw in range(4):
+        chb = trs.sample_channels(rng, sysb)
+        want = trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                            backend="f32", device="cpu")
+        dx = trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                          device="cpu")
+        np.testing.assert_array_equal(want.kappa, dx.kappa)
+        gen = torch.Generator().manual_seed(draw)
+        for name in fns:
+            monkeypatch.setattr(torch, name,
+                                _ulp_noise(originals[name], gen, 4))
+        got = trs.optimize_clients_batched(net, sysb, chb, n_params,
+                                           backend="f32", device="cpu")
+        monkeypatch.undo()
+        np.testing.assert_array_equal(got.kappa, want.kappa)
+        np.testing.assert_array_equal(got.feasible, want.feasible)

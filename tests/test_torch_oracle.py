@@ -40,6 +40,7 @@ _REFERENCE_MODULES = (
     "repro.models.transformer",
     "repro.core.cohort", "repro.core.hierarchy",
     "repro.scenarios", "repro.scenarios.base", "repro.scenarios.library",
+    "repro.core.round_fused", "repro.launch.serve",
 )
 
 
