@@ -90,7 +90,20 @@ Phases, each fatal on failure:
      ``serve_decode.run`` (batch 8, 32-token prompts, 32 decode steps,
      4096-position cache), launch counts reset just before and read just
      after; a profile of one prefill call by kernel; then the flash
-     prefill against the KV-cache decode path on one prompt.
+     prefill against the KV-cache decode path on one prompt;
+  8. the training path: the flash backward kernels against their plain
+     version (log-sum-exp of the forward included) at the training shape,
+     ragged and small shapes, f32 and bf16, causal and not, and timed at
+     the serving prefill shape beside its bound and the backward of
+     ``scaled_dot_product_attention`` (the forward timed there with and
+     without its log-sum-exp); then ``repro_torch.launch.train.run`` on
+     qwen1.5-4b at full width, depth cut to 8 layers, batch 8 x 1024, 5
+     steps of each engine at lr 0.005 (recompute and stale with 4
+     clients, fedavg, exact_tp on the one client row), launch counts
+     reset just before and read just after each run and held to layers x
+     passes a step; exact_tp against fedavg on one step; recompute's first
+     step twice, bit for bit; small float32 runs of every engine card
+     against CPU.
 Convolutions run in full f32 and deterministic inside every harness run
 (cuDNN's TF32 and benchmarking are held off and restored after). The line
 before the last is one JSON object with every kernel's numbers
@@ -180,6 +193,9 @@ FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
 # the kernels of csrc/flash_attention.cu, by symbol (prefill_breakdown)
 FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
                  "flash_f32_kernel")
+# and of csrc/flash_attention_bwd.cu
+FLASH_BWD_SYMBOLS = ("delta_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel",
+                     "dkdv_f32_kernel", "dq_f32_kernel")
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the paper presets as configured (benchmarks/table2_dataset1.py:31-36 and
 # table4_dataset2.py:30-36: U=256, stacked requests), depth cut to 3 rounds
@@ -287,6 +303,41 @@ SERVE_PREFILL = dict(batch=4, seq=4096)
 SERVE_DECODE = dict(batch=8, prompt_len=32, decode_steps=32, cache_len=4096,
                     seed=1)
 LOGIT_TOL = 2e-2                 # bf16 (tests/test_kernels.py:26)
+# the transformer zoo's training path (phase 8): qwen1.5-4b at full width
+# (d_model 2560, 20 heads x 128, d_ff 6912, vocab 151,936, qkv bias; bf16
+# compute, f32 params), depth cut 40 -> 8: recompute holds five
+# parameter-sized f32 trees, 28 GB at 8 layers and ~79 GB at 40; batch 8 x
+# 1024 of the learnable task, 5 steps per engine, lr 0.005. Plain SGD's
+# step on the logits grows with d_model (the final norm gives the hidden
+# state a norm of ~sqrt(2560)): at the trainer's default lr of 0.1
+# recompute's loss went 12.67, 5.81, 2.23, 24.59, 48.72, at 0.02 12.67,
+# 7.05, 0.92, 7.06, 9.25 (NVIDIA H100 80GB HBM3, 700 W)
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_LAYERS = 8
+TRAIN_RUN = dict(batch=8, seq=1024, lr=0.005, seed=0)
+TRAIN_STEPS = 5
+TRAIN_CLIENTS = {"recompute": 4, "stale": 4, "fedavg": 1, "exact_tp": 1}
+# each layer's forward (and backward) passes in a step: clients x passes
+TRAIN_PASSES = {"recompute": 8, "stale": 4, "fedavg": 1, "exact_tp": 1}
+# small runs card against CPU: reduced configs in float32 (deepseek-coder's
+# keeps GQA, G = 2), every engine, 2 steps, two clients of two sequences
+TRAIN_SMALL = ("qwen1.5-4b", "deepseek-coder-33b")
+TRAIN_SMALL_RUN = dict(batch=4, seq=64, lr=0.1, steps=2, num_clients=2)
+TRAIN_TOL = 1e-4
+# the backward kernels against their plain version (B, H, Hkv, S, D): the
+# training shape, S of one key, S ending mid-tile, D = 40 (filled to the
+# 64 bucket), 64 and 256 (two column blocks); the serving prefill shape is
+# timed. Each gradient is held on its own (grad_errors): its largest error
+# to FLASH_TOL of its own largest magnitude, its error's Frobenius norm to
+# FRO_TOL of its own; the log-sum-exp to LSE_TOL (absolute)
+BWD_TRAIN = (2, 20, 20, 1024, 128)
+# ops.flash_attention's autograd on bf16 model-layout (B, S, H, D) tensors,
+# as the full-width fedavg and exact_tp steps give them (B, H, Hkv, S, D)
+BWD_MODEL_LAYOUT = (8, 20, 20, 1024, 128)
+FRO_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+BWD_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 130, 128), (2, 14, 2, 130, 40),
+              (1, 4, 4, 130, 64), (1, 8, 2, 130, 256))
+LSE_TOL = 1e-4
 
 
 def say(*parts) -> None:
@@ -1561,23 +1612,27 @@ def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
     return out, a
 
 
-def prefill_breakdown(prefill, params, tokens) -> dict:
-    """Device time of one prefill call by kernel (torch.profiler), grouped
-    into the flash kernel, matrix products and everything else."""
+def device_breakdown(fn) -> dict:
+    """Device time of one call of ``fn`` by kernel (torch.profiler),
+    grouped into the flash forward, its backward, matrix products and
+    everything else."""
     from torch.profiler import ProfilerActivity, profile
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prefill(params, {"tokens": tokens})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
     kernels = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0)
         if us > 0 and ev.device_type.name == "CUDA":
             kernels.append((ev.key, us / 1e3, ev.count))
-    groups = {"flash_attention": 0.0, "matmul": 0.0, "other": 0.0}
+    groups = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
+              "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
         low = name.lower()
-        if any(sym in low for sym in FLASH_SYMBOLS):
+        if any(sym in low for sym in FLASH_BWD_SYMBOLS):
+            groups["flash_attention_bwd"] += ms
+        elif any(sym in low for sym in FLASH_SYMBOLS):
             groups["flash_attention"] += ms
         elif any(w in low for w in ("gemm", "nvjet", "xmma", "cutlass",
                                     "sm90_")):     # cuBLAS's kernel names
@@ -1585,9 +1640,21 @@ def prefill_breakdown(prefill, params, tokens) -> dict:
         else:
             groups["other"] += ms
     top = sorted(kernels, key=lambda k: -k[1])[:8]
+    # zero fills: a training step's count shows whether gradients of the
+    # stacked layers scatter into whole-stack zeros
+    fills = [(ms, c) for name, ms, c in kernels if "FillFunctor" in name]
     return {"device_ms": sum(groups.values()), "by_group_ms": groups,
+            "launches": sum(c for _, _, c in kernels),
+            "fills": {"ms": sum(ms for ms, _ in fills),
+                      "count": sum(c for _, c in fills)},
             "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
                             for n, ms, c in top]}
+
+
+def prefill_breakdown(prefill, params, tokens) -> dict:
+    """``device_breakdown`` of one prefill call."""
+    with torch.inference_mode():
+        return device_breakdown(lambda: prefill(params, {"tokens": tokens}))
 
 
 def serving_phase() -> dict:
@@ -1682,6 +1749,343 @@ def serving_phase() -> dict:
     return out
 
 
+def grad_errors(got, want, dtype) -> tuple:
+    """dq, dk, dv against their plain versions, each on its own: the
+    largest error within FLASH_TOL of the gradient's own largest magnitude
+    and the error's Frobenius norm within FRO_TOL of its own. With one key,
+    dS = P (dp - delta) cancels to rounding noise in dq and dk, so at S = 1
+    both are taken over the largest among the three instead. Returns
+    (ok, {name: readings, with the gradient's median magnitude})."""
+    want = [w.float() for w in want]
+    one_key = want[0].shape[-2] == 1
+    top = max(float(w.abs().max()) for w in want)
+    top_fro = max(float(w.norm()) for w in want)
+    ok, out = True, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        e = g.float() - w
+        largest, fro = ((top, top_fro) if one_key
+                        else (float(w.abs().max()), float(w.norm())))
+        r = {"max_abs_err": float(e.abs().max()), "largest": largest,
+             "max_err_share": float(e.abs().max()) / largest,
+             "fro_err_share": float(e.norm()) / fro,
+             "median_abs": float(w.abs().median()),
+             "tol": FLASH_TOL[dtype], "fro_tol": FRO_TOL[dtype]}
+        ok &= (r["max_err_share"] <= r["tol"]
+               and r["fro_err_share"] <= r["fro_tol"]
+               and bool(torch.isfinite(g).all()))
+        out[name] = r
+        del e
+    return ok, out
+
+
+def check_flash_bwd(shape, dtype, causal: bool, timed: bool) -> dict:
+    """The backward kernels against their plain version on one draw, with
+    the forward's log-sum-exp against the plain one's; timed: the
+    backward, its plain version, the backward of
+    ``scaled_dot_product_attention`` through autograd on the same inputs,
+    and the forward without and with the log-sum-exp, in turns."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    B, H, Hkv, S, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(S * 131 + H * 7 + D + 1)
+    q, do = (torch.randn((B, H, S, D), generator=gen, device="cuda")
+             .to(dtype) for _ in range(2))
+    k, v = (torch.randn((B, Hkv, S, D), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    lse = torch.empty((B, H, S), device="cuda")
+    o = fa.flash_attention_bhsd(q, k, v, causal=causal, lse=lse)
+    lse_err = float((lse - fa.flash_attention_plain(
+        q, k, v, causal=causal, return_lse=True)[1]).abs().max())
+
+    def kernel():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    got = kernel()
+    want = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    ok, err = grad_errors(got, want, dtype)
+    del want
+    ok = ok and lse_err <= LSE_TOL
+    same = all(torch.equal(a, b) for a, b in zip(got, kernel()))
+    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+           "causal": causal, "gradients": err,
+           "max_abs_err": max(e["max_abs_err"] for e in err.values()),
+           "lse_max_abs_err": lse_err, "ok": ok, "bitwise_repeat": same}
+    if timed:
+        row["ms"] = time_ms(kernel, 10)
+        row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain_bwd(
+            q, k, v, o, lse, do, causal=causal), 1, warmup=1)
+        torch.cuda.empty_cache()
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qq, kk, vv, is_causal=causal, scale=D ** -0.5, enable_gqa=True)
+        row["library_ms"] = time_ms(lambda: torch.autograd.grad(
+            out, (qq, kk, vv), do, retain_graph=True), 5)
+        del out, qq, kk, vv
+        flops = fa.bound_flops_bwd(q, k, causal=causal)
+        nbytes = fa.bound_bytes_bwd(q, k, v)
+        peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+        t_ops = flops / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row["bound_ms"] = max(t_ops, t_bytes)
+        row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tflop_per_s"] = flops / row["ms"] / 1e9
+
+        def fwd(with_lse):
+            return time_ms(lambda: fa.flash_attention_bhsd(
+                q, k, v, causal=causal, lse=lse if with_lse else None), 20)
+        turns = [fwd(False), fwd(True), fwd(True), fwd(False)]
+        row["forward_ms"] = {"without_lse": [turns[0], turns[3]],
+                             "with_lse": [turns[1], turns[2]]}
+    say("flash_attention_bwd " + json.dumps(row))
+    if not (ok and same):
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                             f"version or is not repeatable: {row}")
+    return row
+
+
+def check_flash_model_layout(shape) -> dict:
+    """``ops.flash_attention`` forward and backward through autograd on bf16
+    model-layout tensors (B, S, H, D), which the kernels read and write
+    through strides as the training path has them do, against the plain
+    forward and backward on the (B, H, S, D) views of the same inputs."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    B, H, Hkv, S, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(S + H + D + 5)
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((B, S, Hkv, D), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    before = fa.flash_attention_bwd.launches
+    ops.flash_attention(qg, kg, vg, causal=True).backward(do)
+    torch.cuda.synchronize()
+    launched = fa.flash_attention_bwd.launches - before
+    bq, bk, bv, bdo = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(bq, bk, bv, causal=True,
+                                      return_lse=True)
+    want = fa.flash_attention_plain_bwd(bq, bk, bv, o, lse, bdo, causal=True)
+    ok, err = grad_errors([x.grad.transpose(1, 2) for x in (qg, kg, vg)],
+                          want, torch.bfloat16)
+    row = {"shape": list(shape), "layout": "B S H D (strided views)",
+           "dtype": "bfloat16", "causal": True, "gradients": err,
+           "backward_launches": launched, "ok": ok and launched == 1}
+    say("flash_attention_bwd model layout " + json.dumps(row))
+    if not row["ok"]:
+        raise AssertionError(f"ops.flash_attention's gradient on model-layout "
+                             f"views disagrees with the plain version: {row}")
+    return row
+
+
+def flash_bwd_phase() -> dict:
+    t0 = _clock()
+    main = check_flash_bwd(FLASH_MAIN, torch.bfloat16, causal=True,
+                           timed=True)
+    torch.cuda.empty_cache()
+    main["train_shape"] = check_flash_bwd(BWD_TRAIN, torch.bfloat16,
+                                          causal=True, timed=True)
+    torch.cuda.empty_cache()
+    main["model_layout"] = check_flash_model_layout(BWD_MODEL_LAYOUT)
+    torch.cuda.empty_cache()
+    for shape in BWD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                check_flash_bwd(shape, dtype, causal, timed=False)
+    say(f"flash_attention_bwd phase: {_clock() - t0:.3f} s")
+    return main
+
+
+def _params_close(a: dict, b: dict, rtol: float) -> tuple:
+    """Whether two parameter trees agree leaf by leaf to ``rtol`` with an
+    absolute floor of ``rtol`` times the leaf's largest magnitude, and the
+    largest error relative to that leaf magnitude."""
+    from repro_torch.core.flatten import tree_get, tree_paths
+    ok, worst = True, 0.0
+    for path in tree_paths(b):
+        x, y = tree_get(a, path).float(), tree_get(b, path).float()
+        y = y.to(x.device)
+        top = float(y.abs().max())
+        ok &= bool(torch.allclose(x, y, rtol=rtol, atol=rtol * top))
+        worst = max(worst, float((x - y).abs().max()) / max(top, 1e-30))
+    return ok, worst
+
+
+def _train(engine: str, cfg, steps: int = TRAIN_STEPS, **kw):
+    """``repro_torch.launch.train.run`` with the flash counts reset just
+    before and read just after: (params, history, launches)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch import train
+    fa.flash_attention_bhsd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+    sr.scored_reduce.launches = 0
+    params, hist = train.run(TRAIN_ARCH, cfg=cfg, engine=engine,
+                             steps=steps, log_every=steps, **kw)
+    return params, hist, {"flash_attention": fa.flash_attention_bhsd.launches,
+                          "flash_attention_bwd": fa.flash_attention_bwd.launches,
+                          "scored_reduce": sr.scored_reduce.launches}
+
+
+def small_train_phase(devices=("cuda", "cpu")) -> list:
+    """Reduced configs in float32, every engine for 2 steps on the card and
+    on the CPU from the same weights and batches (``train.run``'s weight
+    draw and batch draw replaced by CPU draws moved to the device), full
+    f32 matrix products on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as T
+    saved = (train.init_model, train.learnable_sequence_batch,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    try:
+        for arch in TRAIN_SMALL:
+            cfg = dataclasses.replace(get_config(arch).reduced(),
+                                      dtype="float32")
+            tree = tree_map(lambda t: t.numpy(), T.init_model(
+                torch.Generator().manual_seed(7), cfg))
+            for engine in train.ENGINES:
+                res = {}
+                for dev in devices:
+                    draws = torch.Generator().manual_seed(11)
+                    train.init_model = (lambda gen, c, dev=dev:
+                                        T.params_from_numpy(tree, c, dev))
+                    train.learnable_sequence_batch = (
+                        lambda gen, c, b, s, dev=dev, draws=draws: {
+                            k: x.to(dev) for k, x in synthetic.
+                            learnable_sequence_batch(draws, c, b, s).items()})
+                    params, hist, launches = _train(
+                        engine, cfg, device=dev, **TRAIN_SMALL_RUN)
+                    res[dev] = (params, [h["loss"] for h in hist], launches)
+                (gp, gl, gn), (cp, cl, _) = (res[d] for d in devices)
+                ok, worst = _params_close(gp, cp, TRAIN_TOL)
+                loss_err = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+                ok &= (loss_err <= TRAIN_TOL and gn["flash_attention"] > 0
+                       and gn["flash_attention_bwd"] > 0)
+                row = {"arch": arch, "engine": engine,
+                       "params_rel_err": worst, "loss_rel_err": loss_err,
+                       "losses": {"cuda": gl, "cpu": cl}, "launches": gn,
+                       "ok": ok}
+                say("small train run " + json.dumps(row))
+                if not ok:
+                    raise AssertionError(f"a training run on the card "
+                                         f"drifted from the CPU's: {row}")
+                rows.append(row)
+    finally:
+        (train.init_model, train.learnable_sequence_batch,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    return rows
+
+
+def train_phase() -> dict:
+    """The training path at full width (qwen1.5-4b, 8 layers): every
+    engine for 5 steps through ``repro_torch.launch.train.run``; then
+    exact_tp against fedavg on one step, recompute's first step twice, and
+    the small runs card against CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_get, tree_paths
+    t_phase = _clock()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_LAYERS)
+    out = {"config": f"{cfg.name} n_layers={cfg.n_layers} (of 40) d_model="
+                     f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+                     f"head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff} "
+                     f"vocab={cfg.vocab_size} dtype={cfg.dtype}",
+           "reduced": "depth 40 -> 8 layers: recompute's five f32 "
+                      "parameter-sized trees are ~79 GB at 40",
+           "runs": {}}
+    chi = 1.0                                     # FLConfig's default
+    for engine in ("recompute", "stale", "fedavg", "exact_tp"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = _clock()
+        params, hist, launches = _train(engine, cfg,
+                                        num_clients=TRAIN_CLIENTS[engine],
+                                        **TRAIN_RUN)
+        wall = _clock() - t0
+        del params
+        per_step = {k: n / TRAIN_STEPS for k, n in launches.items()}
+        want = TRAIN_LAYERS * TRAIN_PASSES[engine]
+        row = {"engine": engine, "clients": TRAIN_CLIENTS[engine],
+               "history": hist, "step_s": [h["step_s"] for h in hist],
+               "seconds": wall, "max_memory_allocated":
+               torch.cuda.max_memory_allocated(), "launches": launches,
+               "launches_per_step": per_step,
+               "tokens_per_s": [TRAIN_RUN["batch"] * TRAIN_RUN["seq"]
+                                / h["step_s"] for h in hist]}
+        out["runs"][engine] = row
+        say("training run " + json.dumps(row))
+        losses = [h["loss"] for h in hist]
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{engine}: the loss did not fall: "
+                                 f"{losses}")
+        if per_step["flash_attention"] != want or \
+                per_step["flash_attention_bwd"] != want:
+            raise AssertionError(f"{engine}: flash launched {per_step} a "
+                                 f"step, not {want} forward and backward")
+        if engine == "recompute" and not all(
+                (chi - 1) / (chi + 1) <= h["lambda_min"]
+                <= h["lambda_max"] <= 1 + 1e-6 for h in hist):
+            raise AssertionError(f"recompute's lambdas left [0, 1]: {hist}")
+    torch.cuda.empty_cache()
+    # exact_tp on one row is fedavg up to its lambda (one step, same
+    # weights and batch); recompute's first step repeats bit for bit
+    tp, tp_hist, _ = _train("exact_tp", cfg, steps=1, **TRAIN_RUN)
+    fedavg, _, _ = _train("fedavg", cfg, steps=1, **TRAIN_RUN)
+    same_ok, same_err = _params_close(tp, fedavg, 1e-6)
+    del tp, fedavg
+    torch.cuda.empty_cache()
+    a, _, _ = _train("recompute", cfg, steps=1, num_clients=4, **TRAIN_RUN)
+    b, _, _ = _train("recompute", cfg, steps=1, num_clients=4, **TRAIN_RUN)
+    rerun = all(torch.equal(tree_get(a, p), tree_get(b, p))
+                for p in tree_paths(a))
+    del a, b
+    torch.cuda.empty_cache()
+    out["fedavg_step"] = fedavg_step_breakdown(cfg)
+    out["exact_tp_vs_fedavg"] = {"ok": same_ok, "max_rel_err": same_err,
+                                 "lambda": tp_hist[0]["lambda_mean"]}
+    out["recompute_rerun_bitwise"] = rerun
+    say("training checks " + json.dumps(
+        {k: out[k] for k in ("exact_tp_vs_fedavg",
+                             "recompute_rerun_bitwise")}))
+    if not (same_ok and rerun):
+        raise AssertionError(f"exact_tp left fedavg or recompute did not "
+                             f"repeat: {out['exact_tp_vs_fedavg']}, {rerun}")
+    out["small"] = small_train_phase()
+    out["seconds"] = _clock() - t_phase
+    say(f"training phase: {out['seconds']:.3f} s")
+    return out
+
+
+def fedavg_step_breakdown(cfg) -> dict:
+    """Where a full-width training step's device time goes: one warm
+    fedavg step (its own forward and backward, nothing else), timed and
+    then profiled by kernel group."""
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.pod import make_fedavg_train_step
+    from repro_torch.data.synthetic import learnable_sequence_batch
+    from repro_torch.models.transformer import init_model
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_RUN["seed"])
+    params = init_model(gen, cfg)
+    batch = learnable_sequence_batch(gen, cfg, TRAIN_RUN["batch"],
+                                     TRAIN_RUN["seq"])
+    step = make_fedavg_train_step(cfg, FLConfig(kappa_max=1,
+                                                local_lr=TRAIN_RUN["lr"]))
+    step(params, batch)                          # warm-up
+    t0 = _clock()
+    step(params, batch)
+    step_s = _clock() - t0
+    row = device_breakdown(lambda: step(params, batch))
+    row["step_s"] = step_s
+    row["busy_share_of_timed_step"] = row["device_ms"] / 1e3 / step_s
+    del params
+    torch.cuda.empty_cache()
+    say("fedavg step breakdown " + json.dumps(row))
+    return row
+
+
 def main() -> int:
     name, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -1709,6 +2113,8 @@ def main() -> int:
     cohorts = cohort_phase()
     fused = fused_phase()
     serving = serving_phase()
+    bwd = flash_bwd_phase()
+    training = train_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
     # every run of the grid (the main path's among them) and its
@@ -1750,6 +2156,9 @@ def main() -> int:
         by_path[k]["fused"] = [r["launches"][k] for r in fused["runs"]]
         by_path[k]["fused_fig1"] = fused["fig1"]["launches"][k]
         by_path[k]["serve"] = fused["serve"]["trainer"]["launches"][k]
+    for k in by_path:
+        for engine, row in training["runs"].items():
+            by_path[k][f"train_{engine}"] = row["launches"][k]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
         p["warm_segment"]["scored_reduce_launches"] for p in fused["parity"]]
@@ -1770,7 +2179,20 @@ def main() -> int:
         "launches_by_path": by_path["flash_attention"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}]}
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:26",
+        "launches": sum(r["launches"]["flash_attention_bwd"]
+                        for r in training["runs"].values()),
+        "launches_by_path": {
+            **{f"train_{e}": r["launches"]["flash_attention_bwd"]
+               for e, r in training["runs"].items()},
+            "train_small": [r["launches"]["flash_attention_bwd"]
+                            for r in training["small"]]},
+        "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

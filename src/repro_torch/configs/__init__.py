@@ -1,7 +1,8 @@
 """Configurations and the architecture registry (``repro/configs``).
 
 ``get_config(name)`` knows every architecture id of the reference. It
-returns the configs of the dense full-attention GQA decoders, which
+returns the configs of the dense GQA decoders (full or sliding-window
+attention), which
 ``repro_torch.models.transformer`` runs, and the paper's four models'
 pseudo-configs (``paper-*``, run by ``repro_torch.models.small``); any
 other architecture raises ``NotImplementedError`` (ROADMAP.md queue A
@@ -23,6 +24,7 @@ ARCH_IDS = (
 
 _MODULES = {
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "h2o-danube-3-4b": "h2o_danube_3_4b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen1.5-4b": "qwen1_5_4b",
     "paper-fcn": "paper_models",

@@ -1,15 +1,277 @@
-"""Serving steps of the transformer zoo (``repro/core/pod.py``:
-``make_serve_step``, ``make_prefill_step``). The pod training engines are
-not ported yet (ROADMAP.md queue A)."""
+"""Pod-scale OSAFL train steps and the serving steps of the transformer zoo
+(``repro/core/pod.py``), on one card.
+
+The reference maps clients onto the client axes ('pod', 'data') of a TPU
+mesh. On one card those axes hold one device: every ``psum`` over them is
+the identity, and the tensor-parallel engine runs one client row (U = 1).
+The stationary-batch engines are ported as the reference computes them:
+
+exact_tp    one client row: its gradient d, cos(d, d_mean) with d_mean =
+            d, lambda = (chi + cos) / (chi + 1) and the update lambda d (a
+            count-sketch cosine with ``sketch_dim``). A mesh of more than
+            one client row raises (ROADMAP A10.6, ``torch.distributed``).
+recompute   clients in sequence, two backwards: pass 1 sums d_u, pass 2
+            recomputes each d_u, scores it against d_mean and sums lambda_u
+            d_u; f32 accumulators (bf16 with ``REPRO_ACCUM_BF16=1``).
+stale       one backward: round t is weighted by round t-1's lambdas, and
+            this round's count sketches give round t+1's.
+fedavg      the unscored data-parallel step.
+
+Each step returns new parameters and leaves its inputs alone; the
+accumulators of a step are summed in place (they are the step's own).
+Online mode (``batch_fn``/``grad_fn``, ``make_pod_batch_fn``) raises
+``NotImplementedError`` until A10.6. The count-sketch signs are the port's
+(``core/scores.sketch_signs`` under ``SKETCH_KEY``), equal to the
+reference's ``PRNGKey(17)`` signs only in distribution.
+"""
 from __future__ import annotations
 
+import os
 from typing import Callable
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import decode_step, forward
+from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.core.flatten import (tree_from_leaves, tree_get, tree_map,
+                                      tree_paths)
+from repro_torch.core.scores import sketch_tree, tree_dot, tree_norm
+from repro_torch.models.transformer import decode_step, forward, loss_fn
 
+# the (2,) uint32 words of the reference's PRNGKey(17)
+SKETCH_KEY = (0, 17)
+
+
+def num_pod_clients(mesh=None) -> int:
+    """Client rows of the layout: 1 on one card."""
+    _one_row(mesh)
+    return 1
+
+
+def _one_row(mesh) -> None:
+    if mesh not in (None, 1):
+        raise NotImplementedError(
+            f"repro_torch runs the pod engines on one card, one client row; "
+            f"got the layout {mesh!r}. Client rows across cards come with "
+            f"torch.distributed (ROADMAP.md A10.6)")
+
+
+def _offline(batch_fn, grad_fn) -> None:
+    if batch_fn is not None or grad_fn is not None:
+        raise NotImplementedError(
+            "online mode (batch_fn/grad_fn: rows sampling their own buffer "
+            "shard) is not ported yet (ROADMAP.md A10.6)")
+
+
+def make_pod_batch_fn() -> Callable:
+    raise NotImplementedError(
+        "make_pod_batch_fn belongs to online mode, which is not ported yet "
+        "(ROADMAP.md A10.6)")
+
+
+def _lambda(chi, cos):
+    return (chi + cos) / (chi + 1.0)
+
+
+def _scored_metrics(lam, loss, U: int) -> dict:
+    """The reference's metrics from the client rows' lambdas and losses
+    (psums and pmaxes over the rows; one row on one card)."""
+    lam, loss = torch.atleast_1d(lam), torch.atleast_1d(loss)
+    return {"loss": loss.sum() / U, "lambda_mean": lam.sum() / U,
+            "lambda_min": lam.min(), "lambda_max": lam.max()}
+
+
+def _loss_and_grad(params, batch, cfg: ModelConfig):
+    """``loss_fn``'s loss (detached) and its gradient tree at ``params``."""
+    paths = tree_paths(params)
+    leaves = [tree_get(params, p).detach().requires_grad_() for p in paths]
+    with torch.enable_grad():
+        loss, _ = loss_fn(tree_from_leaves(paths, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_from_leaves(paths, grads)
+
+
+def _apply(params, update, lr_eff: float):
+    return tree_map(lambda w, u: w - lr_eff * u.to(w.dtype), params, update)
+
+
+def _add_(acc, tree, scale=None) -> None:
+    """acc += (scale *) tree, leaf by leaf in acc's dtype, in place; the
+    product is taken in f32 first, as the reference casts it."""
+    for p in tree_paths(acc):
+        a, x = tree_get(acc, p), tree_get(tree, p)
+        a.add_(x.to(a.dtype) if scale is None
+               else (scale * x.float()).to(a.dtype))
+
+
+# ---------------------------------------------------------------------------
+# exact_tp (one client row on one card)
+# ---------------------------------------------------------------------------
+
+def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
+                       sketch_dim: int = 0, batch_fn: Callable = None,
+                       grad_fn: Callable = None,
+                       prox_mu: float = 0.0) -> Callable:
+    """``step(params, batch) -> (new params, metrics)`` on one client row:
+    the whole batch is the row's; ``kappa_max`` > 1 splits it into that
+    many microbatches whose gradients are averaged."""
+    _offline(batch_fn, grad_fn)
+    _one_row(mesh)
+    U = 1
+    lr_eff = fl.global_lr * fl.local_lr
+    chi = fl.chi
+
+    def local_update(params, batch):
+        if fl.kappa_max <= 1:
+            return _loss_and_grad(params, batch, cfg)
+        kappa = fl.kappa_max
+        split = {k: x.reshape((kappa, -1) + tuple(x.shape[1:]))
+                 for k, x in batch.items()}
+        loss = torch.zeros((), dtype=torch.float32,
+                           device=batch["tokens"].device)
+        g = tree_map(torch.zeros_like, params)
+        for tau in range(kappa):
+            l, g_tau = _loss_and_grad(params, {k: x[tau] for k, x in
+                                               split.items()}, cfg)
+            loss = loss + l / kappa
+            g = tree_map(lambda a, x: a + x * (1.0 / kappa), g, g_tau)
+        return loss, g
+
+    def step(params, batch):
+        loss, g = local_update(params, batch)
+        if sketch_dim:
+            sk = sketch_tree(g, SKETCH_KEY, sketch_dim)
+            sk_mean = sk / U
+            cos = torch.vdot(sk, sk_mean) / torch.clamp(
+                torch.linalg.vector_norm(sk)
+                * torch.linalg.vector_norm(sk_mean), min=1e-12)
+        else:
+            d_mean = tree_map(lambda x: x / U, g)
+            cos = tree_dot(g, d_mean) / torch.clamp(
+                tree_norm(g) * tree_norm(d_mean), min=1e-12)
+        lam = _lambda(chi, cos)
+        update = tree_map(lambda x: lam * x / U, g)
+        return _apply(params, update, lr_eff), _scored_metrics(lam, loss, U)
+    return step
+
+
+# ---------------------------------------------------------------------------
+# exact_recompute (clients in sequence, 2 backwards)
+# ---------------------------------------------------------------------------
+
+def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
+                              num_clients: int, grad_specs=None, *,
+                              batch_fn: Callable = None,
+                              grad_fn: Callable = None,
+                              prox_mu: float = 0.0) -> Callable:
+    """``step(params, batch) -> (new params, metrics)``, batch leaves
+    (U, b, ...). ``grad_specs`` (the reference's sharding pins) is taken
+    and has nothing to pin on one card."""
+    _offline(batch_fn, grad_fn)
+    lr_eff = fl.global_lr * fl.local_lr
+    chi = fl.chi
+    U = num_clients
+    acc_dtype = (torch.bfloat16 if os.environ.get("REPRO_ACCUM_BF16") == "1"
+                 else torch.float32)
+
+    def zeros(params):
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dtype,
+                                              device=p.device), params)
+
+    def client(batch, u):
+        return {k: x[u] for k, x in batch.items()}
+
+    def step(params, batch):
+        sum_d, losses = zeros(params), []
+        for u in range(U):                       # pass 1: sum of d_u
+            loss, g = _loss_and_grad(params, client(batch, u), cfg)
+            _add_(sum_d, g)
+            losses.append(loss)
+        d_mean = tree_map(lambda x: x * (1.0 / U), sum_d)
+        del sum_d
+        nm = tree_norm(d_mean)
+        wsum, lams = zeros(params), []
+        for u in range(U):                       # pass 2: lambda_u d_u
+            _, g = _loss_and_grad(params, client(batch, u), cfg)
+            g = tree_map(lambda x: x.to(acc_dtype), g)
+            cos = tree_dot(g, d_mean) / torch.clamp(tree_norm(g) * nm,
+                                                    min=1e-12)
+            lam = _lambda(chi, cos)
+            _add_(wsum, g, lam)
+            lams.append(lam)
+        update = tree_map(lambda x: x * (1.0 / U), wsum)
+        lams = torch.stack(lams)
+        metrics = {"loss": torch.stack(losses).mean(),
+                   "lambda_mean": lams.mean(), "lambda_min": lams.min(),
+                   "lambda_max": lams.max()}
+        return _apply(params, update, lr_eff), metrics
+    return step
+
+
+# ---------------------------------------------------------------------------
+# stale scores (1 backward; round t weighted by round t-1's lambdas)
+# ---------------------------------------------------------------------------
+
+def make_stale_score_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
+                                num_clients: int, grad_specs=None,
+                                sketch_dim: int = 1024, *,
+                                batch_fn: Callable = None,
+                                grad_fn: Callable = None,
+                                prox_mu: float = 0.0) -> Callable:
+    """``step(params, lam_prev (U,), batch) -> (new params, lam_next,
+    metrics)``, batch leaves (U, b, ...)."""
+    _offline(batch_fn, grad_fn)
+    lr_eff = fl.global_lr * fl.local_lr
+    chi = fl.chi
+    U = num_clients
+
+    def step(params, lam_prev, batch):
+        wsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        losses, sketches = [], []
+        for u in range(U):
+            loss, g = _loss_and_grad(params, {k: x[u] for k, x in
+                                              batch.items()}, cfg)
+            g = tree_map(lambda x: x.float(), g)
+            sketches.append(sketch_tree(g, SKETCH_KEY, sketch_dim))
+            _add_(wsum, g, lam_prev[u])
+            losses.append(loss)
+        update = tree_map(lambda x: x * (1.0 / U), wsum)
+        sketches = torch.stack(sketches)
+        mean_sk = sketches.mean(0)
+        cos = (sketches @ mean_sk) / torch.clamp(
+            torch.linalg.vector_norm(sketches, dim=1)
+            * torch.linalg.vector_norm(mean_sk), min=1e-12)
+        lam_next = _lambda(chi, cos)
+        metrics = {"loss": torch.stack(losses).mean(),
+                   "lambda_mean": lam_next.mean(),
+                   "lambda_min": lam_next.min(),
+                   "lambda_max": lam_next.max()}
+        return _apply(params, update, lr_eff), lam_next, metrics
+    return step
+
+
+# ---------------------------------------------------------------------------
+# plain data-parallel step (the M-FedAvg pod baseline)
+# ---------------------------------------------------------------------------
+
+def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
+                           batch_fn: Callable = None,
+                           grad_fn: Callable = None,
+                           prox_mu: float = 0.0) -> Callable:
+    """``step(params, batch) -> (new params, {"loss"})``: the unscored
+    baseline."""
+    _offline(batch_fn, grad_fn)
+    lr_eff = fl.global_lr * fl.local_lr
+
+    def step(params, batch):
+        loss, g = _loss_and_grad(params, batch, cfg)
+        return _apply(params, g, lr_eff), {"loss": loss}
+    return step
+
+
+# ---------------------------------------------------------------------------
+# serving steps (decode shapes)
+# ---------------------------------------------------------------------------
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """One KV-cache decode step: (params, cache, tokens (B, 1), pos) ->

@@ -3,6 +3,7 @@ precision and determinism its runs hold convolutions to."""
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
@@ -19,6 +20,14 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def clock(device: torch.device) -> float:
+    """``time.perf_counter()`` once the work queued on ``device`` is done
+    (a CUDA device is synchronised first)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
 
 
 def owned_tensor(a, device, dtype=None) -> torch.Tensor:

@@ -62,6 +62,12 @@
 // the same inputs give bit-identical results. The C entry point launches on
 // the caller's stream, allocates nothing, and returns a nonzero code when a
 // tensor map cannot be encoded or the launch fails.
+//
+// For training, each kernel also writes the per-row log-sum-exp of the
+// scaled scores, lse = m + log(l) (natural log, f32, (B, H, S) contiguous),
+// from the m and l its epilogue already holds, when the caller passes a
+// buffer for it; the backward (csrc/flash_attention_bwd.cu) recomputes the
+// probabilities from it. Serving passes none, and nothing more is written.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -74,12 +80,14 @@ namespace {
 constexpr float kMasked = -1e30f;  // the TPU kernel's mask value
 constexpr int kThreads = 128;      // four warps (the f32 kernel)
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) or null
   long long q_sb, q_sh, q_ss;  // strides in elements; the last dim is dense
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -192,6 +200,13 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     }
   }
 
+  if (p.lse != nullptr && lane == 0) {  // q was scaled: m is natural
+    float* lse = p.lse + static_cast<size_t>(blockIdx.y) * p.S;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (row0 + r < p.S) lse[row0 + r] = m[r] + logf(l[r]);
+    }
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (row0 + r >= p.S) continue;
@@ -442,6 +457,11 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
     l_lo += __shfl_xor_sync(0xffffffffu, l_lo, o2);
     l_hi += __shfl_xor_sync(0xffffffffu, l_hi, o2);
   }
+  if (p.lse != nullptr && t == 0) {  // m and l are in the log2 domain
+    float* lse = p.lse + static_cast<size_t>(blockIdx.y) * p.S;
+    if (r_lo < p.S) lse[r_lo] = (m_lo + log2f(l_lo)) * kLn2;
+    if (r_hi < p.S) lse[r_hi] = (m_hi + log2f(l_hi)) * kLn2;
+  }
   const float inv_lo = 1.f / fmaxf(l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(l_hi, 1e-30f);
 #pragma unroll
@@ -502,6 +522,7 @@ struct WsLayout {
 struct WsParams {
   int S, H, group, nq, causal;
   float sl2;  // scale * log2(e): scores go to the log2 domain
+  float* lse;  // (B, H, S) or null
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -964,6 +985,11 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
     st.l_lo += __shfl_xor_sync(0xffffffffu, st.l_lo, x);
     st.l_hi += __shfl_xor_sync(0xffffffffu, st.l_hi, x);
   }
+  if (p.lse != nullptr && t == 0) {  // the rows' final m and l (log2)
+    float* lse = p.lse + static_cast<size_t>(blockIdx.x) * p.S;
+    if (r_lo < p.S) lse[r_lo] = (st.m_lo + log2f(st.l_lo)) * kLn2;
+    if (r_hi < p.S) lse[r_hi] = (st.m_hi + log2f(st.l_hi)) * kLn2;
+  }
   const float inv_lo = 1.f / fmaxf(st.l_lo, 1e-30f);
   const float inv_hi = 1.f / fmaxf(st.l_hi, 1e-30f);
   const int rl = 16 * warp + lane / 4, rh = rl + 8;  // rows within the 64
@@ -1089,6 +1115,7 @@ int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
   wp.nq = nq;
   wp.causal = p.causal;
   wp.sl2 = p.scale * kLog2e;
+  wp.lse = p.lse;
   const dim3 grid(p.B * p.H, nq);
   flash_bf16_wgmma_kernel<DP><<<grid, kWsThreads, L::smem, stream>>>(
       tq, tk, tv, to, wp);
@@ -1099,14 +1126,16 @@ int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). strides holds the
-// (batch, head, sequence) strides in elements of q, k, v and o, in that
-// order; each last dim is dense. The caller guarantees 1 <= S,
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). lse, if not null,
+// receives the (B, H, S) f32 log-sum-exp. strides holds the (batch, head,
+// sequence) strides in elements of q, k, v and o, in that order; each last
+// dim is dense. The caller guarantees 1 <= S,
 // H % Hkv == 0, B * H <= 65535, D % 8 == 0 with 8 <= D <= 256, 16-byte
 // aligned base pointers, and strides that are multiples of 16 bytes and
 // below 2^40 bytes (the tensor maps' limits).
 int flash_attention_launch(int dtype, const void* q, const void* k,
-                           const void* v, void* o, const long long* strides,
+                           const void* v, void* o, float* lse,
+                           const long long* strides,
                            int B, int H, int Hkv, int S, int D, float scale,
                            int causal, void* stream) {
   if ((dtype != 0 && dtype != 1) || D < 8 || D > 256 || D % 8 != 0 || S < 1 ||
@@ -1118,6 +1147,7 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.q_sb = strides[0]; p.q_sh = strides[1]; p.q_ss = strides[2];
   p.k_sb = strides[3]; p.k_sh = strides[4]; p.k_ss = strides[5];
   p.v_sb = strides[6]; p.v_sh = strides[7]; p.v_ss = strides[8];

@@ -14,6 +14,15 @@ serving path's prefill shape). ``flash_attention_bhsd`` launches it for
 CUDA tensors and raises if it cannot; only CPU tensors take
 ``flash_attention_plain``. ``flash_attention_bhsd.launches`` counts the
 kernel's launches.
+
+The backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
+takes the forward's output and its per-row log-sum-exp, which the forward
+writes when it is given an ``lse`` buffer, and gives dq, dk, dv in the
+inputs' dtype and layout; ``flash_attention_plain_bwd`` is its plain
+version. ``flash_attention_bwd.launches`` counts its calls on the card.
+``kernels.ops.flash_attention`` ties the two into one autograd function.
+The plain versions also take float64 (the gradient checks); the kernels
+do not.
 """
 from __future__ import annotations
 
@@ -25,37 +34,84 @@ from repro_torch.kernels.build import load_library
 
 NEG_INF = -1e30                 # the TPU kernel's mask value
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_PLAIN_DTYPES = (*_DTYPE_CODE, torch.float64)   # float64: the plain versions
 _MAX_HEAD_DIM = 256
 _MAX_BATCH_HEADS = 65535        # grid.y limit
 _MAX_STRIDE_BYTES = 1 << 40     # a TMA tensor map's stride limit
 
 
-def flash_attention_plain(q, k, v, *, causal=True, scale=None):
+def _math_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: f32, or f64 for f64 inputs."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _causal_keep(S: int, device):
+    pos = torch.arange(S, device=device)
+    return pos[:, None] >= pos[None, :]
+
+
+def flash_attention_plain(q, k, v, *, causal=True, scale=None,
+                          return_lse=False):
     """The same function in plain torch: f32 math, q scaled before the dot,
     masked scores -1e30, output divided by max(l, 1e-30), cast to q's dtype.
     One batch row at a time, so the (H, S, S) scores of one row are the
     largest temporary; kv heads are broadcast over their query group, never
-    repeated in memory."""
+    repeated in memory. With ``return_lse`` it returns ``(out, lse)``, lse
+    the (B, H, S) log-sum-exp of the scaled scores, m + log(l), in the
+    arithmetic's dtype."""
     _check(q, k, v)
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     scale = D ** -0.5 if scale is None else scale
+    md = _math_dtype(q)
     out = torch.empty_like(q)
-    keep = None
-    if causal:
-        pos = torch.arange(S, device=q.device)
-        keep = pos[:, None] >= pos[None, :]
+    lse = torch.empty((B, H, S), dtype=md, device=q.device)
+    keep = _causal_keep(S, q.device) if causal else None
     for b in range(B):
-        qb = q[b].float().reshape(Hkv, H // Hkv, S, D) * scale
-        s = qb @ k[b].float()[:, None].transpose(-1, -2)    # (Hkv, G, S, S)
+        qb = q[b].to(md).reshape(Hkv, H // Hkv, S, D) * scale
+        s = qb @ k[b].to(md)[:, None].transpose(-1, -2)     # (Hkv, G, S, S)
         if keep is not None:
             s = torch.where(keep, s, NEG_INF)
         m = s.amax(dim=-1, keepdim=True)
-        p = s.sub_(m).exp_()
+        p = torch.exp(s - m)
         den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        o = (p @ v[b].float()[:, None]) / den
+        o = (p @ v[b].to(md)[:, None]) / den
         out[b] = o.reshape(H, S, D).to(q.dtype)
-    return out
+        lse[b] = (m + torch.log(den)).reshape(H, S)
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_plain_bwd(q, k, v, o, lse, do, causal=True, scale=None):
+    """The backward in plain torch: f32 math (f64 for f64 inputs), one batch
+    row at a time. With s = scale q k^T and P = exp(s - lse) (0 where
+    masked): delta = rowsum(do o), dS = P (do v^T - delta), dq = scale dS k,
+    dk = scale dS^T q and dv = P^T do, the last two summed over each kv
+    head's query group. Returns (dq, dk, dv) in the inputs' dtype."""
+    _check(q, k, v)
+    _check_grad_inputs(q, o, lse, do)
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = D ** -0.5 if scale is None else scale
+    md = _math_dtype(q)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    keep = _causal_keep(S, q.device) if causal else None
+    for b in range(B):
+        qb = q[b].to(md).reshape(Hkv, G, S, D)
+        kb = k[b].to(md)[:, None]                            # (Hkv, 1, S, D)
+        vb = v[b].to(md)[:, None]
+        dob = do[b].to(md).reshape(Hkv, G, S, D)
+        s = (qb * scale) @ kb.transpose(-1, -2)              # (Hkv, G, S, S)
+        p = torch.exp(s - lse[b].to(md).reshape(Hkv, G, S, 1))
+        if keep is not None:
+            p = torch.where(keep, p, 0.0)
+        delta = (dob * o[b].to(md).reshape(Hkv, G, S, D)).sum(-1,
+                                                               keepdim=True)
+        ds = p * (dob @ vb.transpose(-1, -2) - delta)
+        dq[b] = (scale * (ds @ kb)).reshape(H, S, D).to(q.dtype)
+        dk[b] = (scale * (ds.transpose(-1, -2) @ qb)).sum(1).to(k.dtype)
+        dv[b] = (p.transpose(-1, -2) @ dob).sum(1).to(v.dtype)
+    return dq, dk, dv
 
 
 def _check(q, k, v) -> None:
@@ -76,11 +132,53 @@ def _check(q, k, v) -> None:
     if D % 8 or not 8 <= D <= _MAX_HEAD_DIM:
         raise ValueError(f"flash attention takes a head dim D that is a "
                          f"multiple of 8 from 8 to {_MAX_HEAD_DIM}; got {D}")
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if (q.dtype not in _PLAIN_DTYPES or k.dtype != q.dtype
+            or v.dtype != q.dtype):
         raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
-                        f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+                        f"of one dtype (float64 in the plain version); got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if not q.device == k.device == v.device:
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
+
+
+def _check_grad_inputs(q, o, lse, do) -> None:
+    B, H, S, _ = q.shape
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"the backward needs {name} like q ({q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}); got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    if (lse.shape != (B, H, S) or lse.dtype != _math_dtype(q)
+            or lse.device != q.device):
+        raise ValueError(f"the backward needs the forward's lse, "
+                         f"{_math_dtype(q)} {(B, H, S)} on {q.device}; got "
+                         f"{lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
+def _check_card(q) -> None:
+    """What the kernels take beyond ``_check``: a CUDA device, f32 or bf16,
+    and B * H within the grid."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the flash attention kernels take float32 or "
+                        f"bfloat16, not {q.dtype}")
+    B, H = q.shape[:2]
+    if B * H > _MAX_BATCH_HEADS:
+        raise ValueError(f"flash attention takes B * H <= "
+                         f"{_MAX_BATCH_HEADS}; got {B * H}")
+
+
+def _out(x, like, name):
+    """``x``, or a new tensor like ``like`` laid out (B, H, S, D)."""
+    if x is None:
+        return torch.empty_like(like, memory_format=torch.contiguous_format)
+    if (x.shape != like.shape or x.dtype != like.dtype
+            or x.device != like.device):
+        raise ValueError(f"{name} must be a {like.dtype} tensor of shape "
+                         f"{tuple(like.shape)} on {like.device}")
+    return x
 
 
 def _check_layout(name: str, x: torch.Tensor) -> None:
@@ -100,28 +198,30 @@ def _check_layout(name: str, x: torch.Tensor) -> None:
                          f"{x.stride()} in {x.element_size()}-byte elements")
 
 
-def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None):
+def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None,
+                         lse=None):
     """q (B, H, S, D); k, v (B, Hkv, S, D) -> (B, H, S, D) in q's dtype.
     Launches the CUDA kernel for CUDA tensors; CPU tensors take
     ``flash_attention_plain``. ``out``, if given, is a (B, H, S, D) tensor
-    (any strides the kernel can write) that receives the result."""
+    (any strides the kernel can write) that receives the result; ``lse``,
+    if given, a contiguous (B, H, S) tensor that receives the log-sum-exp
+    (f32 on the card)."""
     _check(q, k, v)
     B, H, S, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
+    if lse is not None and (lse.shape != (B, H, S) or not lse.is_contiguous()
+                            or lse.dtype != _math_dtype(q)
+                            or lse.device != q.device):
+        raise ValueError(f"lse must be a contiguous {_math_dtype(q)} tensor "
+                         f"of shape {(B, H, S)} on {q.device}")
     if q.device.type == "cpu":
-        res = flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        res, res_lse = flash_attention_plain(q, k, v, causal=causal,
+                                             scale=scale, return_lse=True)
+        if lse is not None:
+            lse.copy_(res_lse)
         return res if out is None else out.copy_(res)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, not "
-                         f"{q.device}")
-    if B * H > _MAX_BATCH_HEADS:
-        raise ValueError(f"flash attention takes B * H <= "
-                         f"{_MAX_BATCH_HEADS}; got {B * H}")
-    if out is None:
-        out = torch.empty_like(q, memory_format=torch.contiguous_format)
-    if out.shape != q.shape or out.dtype != q.dtype or out.device != q.device:
-        raise ValueError(f"out must be a {q.dtype} tensor of shape "
-                         f"{tuple(q.shape)} on {q.device}")
+    _check_card(q)
+    out = _out(out, q, "out")
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, x)
     strides = (ctypes.c_longlong * 12)(
@@ -131,8 +231,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), strides, B, H, k.shape[1], S, D, scale,
-            int(bool(causal)), stream)
+            out.data_ptr(), None if lse is None else lse.data_ptr(), strides,
+            B, H, k.shape[1], S, D, scale, int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
@@ -143,8 +243,69 @@ def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None):
 flash_attention_bhsd.launches = 0   # kernel launches so far (plain excluded)
 
 
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
+                        dq=None, dk=None, dv=None):
+    """The gradients (dq, dk, dv) of ``flash_attention_bhsd`` at q, k, v,
+    given its output o, its log-sum-exp lse and the output's gradient do
+    ((B, H, S, D) like q). Launches the backward kernels (a preprocess for
+    rowsum(do o), then dk/dv and dq) for CUDA tensors and raises if it
+    cannot; CPU tensors take ``flash_attention_plain_bwd``. dq, dk, dv, if
+    given, are tensors (any strides the kernels can write) that receive the
+    results."""
+    _check(q, k, v)
+    _check_grad_inputs(q, o, lse, do)
+    B, H, S, D = q.shape
+    scale = D ** -0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        res = flash_attention_plain_bwd(q, k, v, o, lse, do, causal=causal,
+                                        scale=scale)
+        return tuple(r if x is None else x.copy_(r)
+                     for r, x in zip(res, (dq, dk, dv)))
+    _check_card(q)
+    dq, dk, dv = (_out(x, like, name) for x, like, name in
+                  ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")))
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    for name, x in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"),
+                       tensors):
+        _check_layout(name, x)
+    if not lse.is_contiguous():
+        raise ValueError("the backward needs a contiguous lse")
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for x in tensors for st in x.stride()[:3]))
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            _DTYPE_CODE[q.dtype], *(x.data_ptr() for x in tensors),
+            lse.data_ptr(), delta.data_ptr(), strides, B, H, k.shape[1], S,
+            D, scale, int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError("flash attention backward launch failed: "
+                           + lib.flash_attention_bwd_error_string(err)
+                           .decode())
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0    # backward calls on the card so far
+
+
 def _library() -> ctypes.CDLL:
     return bind(load_library("flash_attention"))
+
+
+def _bwd_library() -> ctypes.CDLL:
+    lib = load_library("flash_attention_bwd")
+    if lib.flash_attention_bwd_launch.argtypes is None:
+        lib.flash_attention_bwd_launch.argtypes = [
+            ctypes.c_int, *[ctypes.c_void_p] * 10,
+            ctypes.POINTER(ctypes.c_longlong), *[ctypes.c_int] * 5,
+            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -153,7 +314,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         lib.flash_attention_launch.argtypes = [
             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.flash_attention_launch.restype = ctypes.c_int
@@ -174,3 +336,17 @@ def bound_flops(q, k, *, causal=True) -> int:
 def bound_bytes(q, k, v) -> int:
     """Bytes the function must move: q, k, v read once, o written once."""
     return (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+
+
+def bound_flops_bwd(q, k, *, causal=True) -> int:
+    """Operations the backward's five products need (s and dp recomputed,
+    dv, dk, dq): 2.5 times the forward's two."""
+    return 5 * bound_flops(q, k, causal=causal) // 2
+
+
+def bound_bytes_bwd(q, k, v) -> int:
+    """Bytes the backward must move: q, k, v, o, do and the f32 lse read
+    once, dq, dk, dv written once."""
+    B, H, S, _ = q.shape
+    return ((4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+            * q.element_size() + 4 * B * H * S)

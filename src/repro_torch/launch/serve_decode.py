@@ -12,20 +12,12 @@ config is passed in, so a caller can cut depth with
 """
 from __future__ import annotations
 
-import time
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.pod import make_serve_step
-from repro_torch.device import resolve_device
+from repro_torch.device import clock, resolve_device
 from repro_torch.models.transformer import init_cache, init_model
-
-
-def _clock(device: torch.device) -> float:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return time.perf_counter()
 
 
 def run(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
@@ -46,17 +38,17 @@ def run(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                            generator=gen, device=dev, dtype=torch.int32)
     serve = make_serve_step(cfg)
     with torch.inference_mode():
-        t0 = _clock(dev)
+        t0 = clock(dev)
         for i in range(prompt_len):
             nxt, cache = serve(params, cache, prompt[:, i:i + 1], i)
-        prefill_s = _clock(dev) - t0
+        prefill_s = clock(dev) - t0
         out = []
         tok = nxt
-        t0 = _clock(dev)
+        t0 = clock(dev)
         for i in range(decode_steps):
             tok, cache = serve(params, cache, tok, prompt_len + i)
             out.append(tok)
-        decode_s = _clock(dev) - t0
+        decode_s = clock(dev) - t0
     tokens = (torch.cat(out, dim=1) if out else
               torch.empty((batch, 0), dtype=torch.int32, device=dev))
     return {"prompt": prompt, "tokens": tokens, "prefill_s": prefill_s,

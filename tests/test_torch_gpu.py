@@ -654,3 +654,156 @@ def test_f32_solve_decisions_on_card_are_the_cpu_decisions(cuda, n_params):
                                             backend="f32", device="cpu")
         np.testing.assert_array_equal(got.kappa, want.kappa)
         np.testing.assert_array_equal(got.feasible, want.feasible)
+
+
+# -- the flash backward and the training path --------------------------------
+
+# (B, H, Hkv, S, D): the training shape, S of one key, ragged S over the
+# f32 and the three bf16 buckets, a 7:1 group
+BWD_SHAPES = [(2, 20, 20, 1024, 128), (1, 7, 1, 1, 128), (2, 14, 2, 130, 40),
+              (1, 4, 4, 77, 64), (2, 4, 2, 300, 128), (1, 8, 2, 130, 256)]
+
+
+# the error's Frobenius norm over the gradient's own
+FRO_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
+
+
+def _grads_close(got, want, dtype):
+    """Each gradient on its own: its largest error within FLASH_TOL of its
+    own largest magnitude, the Frobenius norm of its error within FRO_TOL
+    of its own. With one key, dS = P (dp - delta) cancels to rounding
+    noise in dq and dk, so at S = 1 both are taken over the largest among
+    dq, dk and dv instead."""
+    want = [w.float() for w in want]
+    one_key = want[0].shape[-2] == 1
+    top = max(float(w.abs().max()) for w in want)
+    top_fro = max(float(w.norm()) for w in want)
+    for g, w in zip(got, want):
+        e = g.float() - w
+        largest, fro = ((top, top_fro) if one_key
+                        else (float(w.abs().max()), float(w.norm())))
+        assert float(e.abs().max()) <= FLASH_TOL[dtype] * largest
+        assert float(e.norm()) <= FRO_TOL[dtype] * fro
+
+
+def _bwd_inputs(cuda, B, H, Hkv, S, D, dtype, causal, seed=0):
+    q, k, v = _qkv(cuda, B, H, Hkv, S, D, dtype, seed=seed)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(seed + 1), device=cuda).to(dtype)
+    lse = torch.empty((B, H, S), device=cuda)
+    o = fa.flash_attention_bhsd(q, k, v, causal=causal, lse=lse)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_matches_plain_version(cuda, shape, dtype, causal):
+    """Each of dq, dk, dv on its own (``_grads_close``); the forward's
+    log-sum-exp within 1e-4 of the plain one's."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, *shape, dtype, causal)
+    _, plain_lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                            return_lse=True)
+    torch.testing.assert_close(lse, plain_lse, rtol=0, atol=1e-4)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    want = fa.flash_attention_plain_bwd(q, k, v, o, lse, do, causal=causal)
+    for g, x in zip(got, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+    _grads_close(got, want, dtype)
+
+
+def test_flash_backward_on_model_layout_views(cuda):
+    """``ops.flash_attention``'s autograd on the training path's bf16
+    model-layout tensors, read and written through strides, against the
+    plain forward and backward on the same inputs."""
+    B, H, S, D = 8, 20, 256, 128
+    bhsd = _qkv(cuda, B, H, H, S, D, torch.bfloat16, seed=5)
+    bhsd.append(torch.randn((B, H, S, D), device=cuda).to(torch.bfloat16))
+    q, k, v, do = (x.transpose(1, 2).contiguous() for x in bhsd)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    ops.flash_attention(qg, kg, vg).backward(do)
+    bq, bk, bv, bdo = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(bq, bk, bv, return_lse=True)
+    want = fa.flash_attention_plain_bwd(bq, bk, bv, o, lse, bdo)
+    _grads_close([x.grad.transpose(1, 2) for x in (qg, kg, vg)], want,
+                 torch.bfloat16)
+
+
+def test_flash_backward_is_deterministic(cuda):
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 2, 14, 2, 300, 128,
+                                      torch.bfloat16, True, seed=3)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    b = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_autograd_on_the_card_launches_both_kernels(cuda):
+    """``ops.flash_attention`` on model-layout views: one forward and one
+    backward launch, gradients as the plain path's on the CPU."""
+    q, k, v = (x.transpose(1, 2).contiguous().requires_grad_()
+               for x in _qkv(cuda, 2, 14, 2, 70, 64, torch.float32, seed=4))
+    do = torch.randn(q.shape, device=cuda)
+    before = (fa.flash_attention_bhsd.launches,
+              fa.flash_attention_bwd.launches)
+    ops.flash_attention(q, k, v).backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bhsd.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    cq, ck, cv = (x.detach().cpu().requires_grad_() for x in (q, k, v))
+    ops.flash_attention(cq, ck, cv).backward(do.cpu())
+    for x, c in zip((q, k, v), (cq, ck, cv)):
+        torch.testing.assert_close(x.grad.cpu(), c.grad, rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_flash_backward_refuses_what_it_cannot_take(cuda):
+    q, k, v, o, lse, do = _bwd_inputs(cuda, 1, 4, 2, 16, 64, torch.float32,
+                                      True)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_attention_bwd(*(x.double() for x in (q, k, v, o)),
+                               lse.double(), do.double())
+    strided = torch.randn((1, 4, 16, 128), device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        fa.flash_attention_bwd(q, k, v, o, lse, strided)
+    with pytest.raises(ValueError, match="contiguous lse"):
+        fa.flash_attention_bwd(q, k, v, o,
+                               lse.transpose(1, 2).contiguous()
+                               .transpose(1, 2), do)
+
+
+@pytest.mark.parametrize("engine", ["recompute", "exact_tp"])
+def test_train_step_on_card_matches_cpu(cuda, engine):
+    """One step of a reduced float32 qwen1.5-4b from the same weights and
+    batch on the card and on the CPU, within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core import pod
+    from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+    from repro_torch.data.synthetic import learnable_sequence_batch
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(),
+                              dtype="float32")
+    fl = FLConfig(kappa_max=1, local_lr=0.1, num_clients=2)
+    host = init_model(torch.Generator().manual_seed(0), cfg)
+    batch = learnable_sequence_batch(torch.Generator().manual_seed(1), cfg,
+                                     4, 64)
+    if engine == "recompute":
+        batch = {k: x.reshape(2, 2, -1) for k, x in batch.items()}
+        make = lambda: pod.make_recompute_train_step(cfg, fl, None, 2)  # noqa: E731
+    else:
+        make = lambda: pod.make_tp_train_step(cfg, fl)  # noqa: E731
+    before = fa.flash_attention_bwd.launches
+    got, gm = make()(tree_map(lambda t: t.to(cuda), host),
+                     {k: x.to(cuda) for k, x in batch.items()})
+    assert fa.flash_attention_bwd.launches > before
+    want, wm = make()(host, batch)
+    for k in wm:
+        assert abs(float(gm[k]) - float(wm[k])) <= 1e-4 * abs(float(wm[k]))
+    for path in tree_paths(want):
+        w = tree_get(want, path)
+        torch.testing.assert_close(tree_get(got, path).cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))

@@ -41,6 +41,7 @@ _REFERENCE_MODULES = (
     "repro.core.cohort", "repro.core.hierarchy",
     "repro.scenarios", "repro.scenarios.base", "repro.scenarios.library",
     "repro.core.round_fused", "repro.launch.serve",
+    "repro.optim", "repro.data.synthetic",
 )
 
 
