@@ -103,7 +103,10 @@ Phases, each fatal on failure:
      reset just before and read just after each run and held to layers x
      passes a step; exact_tp against fedavg on one step; recompute's first
      step twice, bit for bit; small float32 runs of every engine card
-     against CPU.
+     against CPU; a profiled fedavg step, whose flash backward must be the
+     Hopper route's kernels, each once a layer. The Hopper backward's
+     ptxas report (from the build, or kept beside a library built before)
+     must show no spill.
 Convolutions run in full f32 and deterministic inside every harness run
 (cuDNN's TF32 and benchmarking are held off and restored after). The line
 before the last is one JSON object with every kernel's numbers
@@ -193,9 +196,12 @@ FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
 # the kernels of csrc/flash_attention.cu, by symbol (prefill_breakdown)
 FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
                  "flash_f32_kernel")
-# and of csrc/flash_attention_bwd.cu
-FLASH_BWD_SYMBOLS = ("delta_kernel", "dkdv_bf16_kernel", "dq_bf16_kernel",
-                     "dkdv_f32_kernel", "dq_f32_kernel")
+# and of csrc/flash_attention_bwd.cu: the Hopper route (bf16, D <= 128)
+# first, then the mma.sync (bf16, D > 128) and f32 routes
+FLASH_BWD_HOPPER = ("stats_kernel", "bwd_bf16_wgmma_kernel",
+                    "dq_convert_kernel")
+FLASH_BWD_SYMBOLS = (*FLASH_BWD_HOPPER, "delta_kernel", "dkdv_bf16_kernel",
+                     "dq_bf16_kernel", "dkdv_f32_kernel", "dq_f32_kernel")
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the paper presets as configured (benchmarks/table2_dataset1.py:31-36 and
 # table4_dataset2.py:30-36: U=256, stacked requests), depth cut to 3 rounds
@@ -326,17 +332,21 @@ TRAIN_SMALL_RUN = dict(batch=4, seq=64, lr=0.1, steps=2, num_clients=2)
 TRAIN_TOL = 1e-4
 # the backward kernels against their plain version (B, H, Hkv, S, D): the
 # training shape, S of one key, S ending mid-tile, D = 40 (filled to the
-# 64 bucket), 64 and 256 (two column blocks); the serving prefill shape is
-# timed. Each gradient is held on its own (grad_errors): its largest error
-# to FLASH_TOL of its own largest magnitude, its error's Frobenius norm to
-# FRO_TOL of its own; the log-sum-exp to LSE_TOL (absolute)
+# 64 bucket), 64 and 256 (two column blocks); for the Hopper route's
+# ordered dq, eight key tiles of an 8:1 group at a ragged S, and
+# h2o-danube's D = 120; the serving prefill shape is timed, each of its
+# kernels also alone. Each gradient is held on its own (grad_errors): its
+# largest error to FLASH_TOL of its own largest magnitude, its error's
+# Frobenius norm to FRO_TOL of its own; the log-sum-exp to LSE_TOL
+# (absolute)
 BWD_TRAIN = (2, 20, 20, 1024, 128)
 # ops.flash_attention's autograd on bf16 model-layout (B, S, H, D) tensors,
 # as the full-width fedavg and exact_tp steps give them (B, H, Hkv, S, D)
 BWD_MODEL_LAYOUT = (8, 20, 20, 1024, 128)
 FRO_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 BWD_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 130, 128), (2, 14, 2, 130, 40),
-              (1, 4, 4, 130, 64), (1, 8, 2, 130, 256))
+              (1, 4, 4, 130, 64), (1, 8, 2, 130, 256), (1, 16, 2, 1000, 128),
+              (2, 8, 8, 777, 120))
 LSE_TOL = 1e-4
 
 
@@ -360,14 +370,18 @@ def card() -> tuple:
     return name, smi
 
 
-def build() -> None:
+def build() -> dict:
+    """Build every kernel library (one nvcc each, in parallel) and print
+    ptxas's report; returns ptxas's lines for each instantiation of the
+    backward's Hopper kernel, by its D bucket."""
     from repro_torch.kernels.build import KERNELS
     from repro_torch.kernels.build import build as build_kernels
     t0 = time.perf_counter()
     out = build_kernels(KERNELS)
     say(f"build: {len(out)} kernel(s) in {time.perf_counter() - t0:.3f} s")
     for name, info in out.items():
-        say(f"  {name}: {info['seconds']:.3f} s -> {info['path'].name}")
+        say(f"  {name}: {info['seconds']:.3f} s -> {info['path'].name}"
+            + ("" if info["seconds"] else " (built before; its report:)"))
         # ptxas per kernel: registers and shared memory, the stack and
         # spill line under "Function properties", and any warning (a
         # serialised wgmma among them)
@@ -375,6 +389,19 @@ def build() -> None:
             if any(w in line for w in ("registers", "Compiling", "spill",
                                        "Function properties", "arning")):
                 say(f"    {line.strip()}")
+    return hopper_bwd_report(out["flash_attention_bwd"]["log"])
+
+
+def hopper_bwd_report(log: str) -> dict:
+    """ptxas's stack-and-spill and register lines for each instantiation
+    of the backward's Hopper kernel in a build log, by its D bucket."""
+    lines = log.splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        if "Function properties" in line and "bwd_bf16_wgmma_kernel" in line:
+            bucket = "128" if "ILi128E" in line else "64"
+            report[bucket] = [x.strip() for x in lines[i + 1:i + 3]]
+    return report
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1639,6 +1666,13 @@ def device_breakdown(fn) -> dict:
             groups["matmul"] += ms
         else:
             groups["other"] += ms
+    bwd_kernels = {}
+    for name, ms, c in kernels:
+        for sym in FLASH_BWD_SYMBOLS:
+            if sym in name.lower():
+                got = bwd_kernels.setdefault(sym, {"ms": 0.0, "count": 0})
+                got["ms"] += ms
+                got["count"] += c
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     # zero fills: a training step's count shows whether gradients of the
     # stacked layers scatter into whole-stack zeros
@@ -1647,6 +1681,7 @@ def device_breakdown(fn) -> dict:
             "launches": sum(c for _, _, c in kernels),
             "fills": {"ms": sum(ms for ms, _ in fills),
                       "count": sum(c for _, c in fills)},
+            "flash_bwd_kernels": bwd_kernels,
             "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
                             for n, ms, c in top]}
 
@@ -1811,6 +1846,7 @@ def check_flash_bwd(shape, dtype, causal: bool, timed: bool) -> dict:
            "lse_max_abs_err": lse_err, "ok": ok, "bitwise_repeat": same}
     if timed:
         row["ms"] = time_ms(kernel, 10)
+        row["split_ms"] = bwd_split_ms(q, k, v, o, lse, do, causal)
         row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain_bwd(
             q, k, v, o, lse, do, causal=causal), 1, warmup=1)
         torch.cuda.empty_cache()
@@ -1841,6 +1877,36 @@ def check_flash_bwd(shape, dtype, causal: bool, timed: bool) -> dict:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain "
                              f"version or is not repeatable: {row}")
     return row
+
+
+def bwd_split_ms(q, k, v, o, lse, do, causal: bool) -> dict:
+    """Each kernel of the backward alone: CUDA events around separate
+    launches of the C entry point, one phase each (the preprocess, the
+    main kernel, dq). On the Hopper route the main kernel's turn counters
+    are zeroed before each of its runs; that fill is timed apart and taken
+    off the main kernel's time."""
+    from repro_torch.kernels import flash_attention as fa
+    scale = q.shape[-1] ** -0.5
+    out = [torch.empty_like(x) for x in (q, k, v)]
+    scratch = fa._bwd_scratch(q)
+    turns = scratch["turns"]
+
+    def zero():
+        if turns is not None:
+            turns.zero_()
+    zero()
+    fa._launch_bwd(q, k, v, o, lse, do, *out, scratch, causal, scale, 7)
+    split = {}
+    for name, phase in fa.BWD_PHASES.items():
+        def run(phase=phase):
+            if phase == fa.BWD_PHASES["main"]:
+                zero()
+            fa._launch_bwd(q, k, v, o, lse, do, *out, scratch, causal,
+                           scale, phase)
+        split[name] = time_ms(run, 10)
+    split["turns_fill"] = time_ms(zero, 10) if turns is not None else 0.0
+    split["main"] -= split["turns_fill"]
+    return split
 
 
 def check_flash_model_layout(shape) -> dict:
@@ -1877,10 +1943,24 @@ def check_flash_model_layout(shape) -> dict:
     return row
 
 
-def flash_bwd_phase() -> dict:
+def flash_bwd_phase(ptxas: dict) -> dict:
+    """The backward's checks and times; ``ptxas`` is ``build``'s report of
+    its Hopper kernel, which must show no spill (a spill serialises every
+    wgmma)."""
     t0 = _clock()
+    say("flash_attention_bwd ptxas " + json.dumps(ptxas))
+    if sorted(ptxas) != ["128", "64"]:
+        raise AssertionError(f"the build log holds no ptxas report of the "
+                             f"backward's Hopper kernel for both D buckets: "
+                             f"{ptxas}")
+    spilled = {b: lines for b, lines in ptxas.items()
+               if " 0 bytes spill stores, 0 bytes spill loads" not in
+               " " + lines[0]}
+    if spilled:
+        raise AssertionError(f"the backward's Hopper kernel spills: {spilled}")
     main = check_flash_bwd(FLASH_MAIN, torch.bfloat16, causal=True,
                            timed=True)
+    main["ptxas"] = ptxas
     torch.cuda.empty_cache()
     main["train_shape"] = check_flash_bwd(BWD_TRAIN, torch.bfloat16,
                                           causal=True, timed=True)
@@ -2083,13 +2163,21 @@ def fedavg_step_breakdown(cfg) -> dict:
     del params
     torch.cuda.empty_cache()
     say("fedavg step breakdown " + json.dumps(row))
+    # the step's backward (bf16, D = 128) takes the Hopper route: each of
+    # its kernels once a layer, and no kernel of another route
+    counts = {sym: got["count"] for sym, got in
+              row["flash_bwd_kernels"].items()}
+    if counts != {sym: cfg.n_layers for sym in FLASH_BWD_HOPPER}:
+        raise AssertionError(f"the fedavg step's flash backward ran "
+                             f"{counts}, not each of {FLASH_BWD_HOPPER} "
+                             f"{cfg.n_layers} times and nothing else")
     return row
 
 
 def main() -> int:
     name, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    build()
+    ptxas_bwd = build()
     kern = kernels_phase()
     flash = flash_phase()
     small_loop = small_run_phase()
@@ -2113,7 +2201,7 @@ def main() -> int:
     cohorts = cohort_phase()
     fused = fused_phase()
     serving = serving_phase()
-    bwd = flash_bwd_phase()
+    bwd = flash_bwd_phase(ptxas_bwd)
     training = train_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
@@ -2192,7 +2280,8 @@ def main() -> int:
                             for r in training["small"]]},
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
-        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"]}]}
+        "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
+        "split_ms": bwd["split_ms"], "ptxas": bwd["ptxas"]}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

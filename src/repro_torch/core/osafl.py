@@ -10,7 +10,7 @@ are computed on the buffer, and the global model takes the scored SGD step
 (eq. 17): w <- w - eta~ * eta * sum_u alpha_u lambda_u d[u]. With
 ``score_sketch_dim > 0`` the scores are computed on k-dim count-sketches
 of the contributions, whose signs come from the server's ``sketch_key``
-(``seed_key``, ``scores.sketch_signs``).
+(``seed_key``, ``scores.sketch_signs_int8``).
 ``repro/core/osafl.py`` is the reference. Both servers' ``state_dict``s
 are the reference's, key for key.
 """
@@ -37,7 +37,7 @@ def seed_key(seed: int) -> np.ndarray:
     """The (2,) uint32 words of ``seed``, high word first: what the
     reference's servers hold as ``sketch_key`` (its default ``PRNGKey(seed)``
     for a seed below 2**32). The sketched scores draw their signs from it
-    (``scores.sketch_signs``); it never advances, so every round flips the
+    (``scores.sketch_signs_int8``); it never advances, so every round flips the
     same signs, and a snapshot that restores it continues them."""
     s = int(seed) & 0xFFFFFFFFFFFFFFFF
     return np.array([s >> 32, s & 0xFFFFFFFF], np.uint32)

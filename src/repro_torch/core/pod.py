@@ -21,7 +21,7 @@ Each step returns new parameters and leaves its inputs alone; the
 accumulators of a step are summed in place (they are the step's own).
 Online mode (``batch_fn``/``grad_fn``, ``make_pod_batch_fn``) raises
 ``NotImplementedError`` until A10.6. The count-sketch signs are the port's
-(``core/scores.sketch_signs`` under ``SKETCH_KEY``), equal to the
+(``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to the
 reference's ``PRNGKey(17)`` signs only in distribution.
 """
 from __future__ import annotations

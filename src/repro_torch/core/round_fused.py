@@ -24,13 +24,14 @@ round body step by step:
 Draws. The reference keys every draw on ``fold_in(base_key, t)`` with the
 absolute round t. Its threefry bits cannot be had in torch, so the port's
 draws are Philox-4x32-10 (the counter-based generator of cuRAND and
-torch), written in int64 tensor ops with 32-bit masks: each 32-bit word is
-a pure function of (seed, absolute round, draw stream, lane), with no
-generator state. Graph replays, segment splits and resumes therefore
-consume the same numbers, and the CPU and the card compute the same bits.
-Uniforms take a word's top 24 bits; the Gumbel and normal transforms run
-in float64 and are rounded to float32, so that an ulp between the CPU's
-``log`` and the card's almost never survives. ``round_draws`` is the one
+torch, ``src/repro_torch/core/philox.py``), written in int64 tensor ops
+with 32-bit masks: each 32-bit word is a pure function of (seed, absolute
+round, draw stream, lane), with no generator state. Graph replays,
+segment splits and resumes therefore consume the same numbers, and the
+CPU and the card compute the same bits. Uniforms take a word's top 24
+bits; the Gumbel and normal transforms run in float64 and are rounded to
+float32, so that an ulp between the CPU's ``log`` and the card's almost
+never survives. ``round_draws`` is the one
 function that makes a round's draws; a test can replace it with the
 reference's own. The draws match the reference's in distribution, and fed
 the reference's draws the round matches its rounds.
@@ -69,6 +70,8 @@ from repro_torch.core.buffer_stacked import (BufState, commit_in_place,
                                              stage_in_place)
 from repro_torch.core.client import make_vmapped_local_train
 from repro_torch.core.osafl import make_stacked_round_body
+from repro_torch.core.philox import MASK32 as _MASK32
+from repro_torch.core.philox import philox4x32
 from repro_torch.core.resource import NetworkConfig, pathloss_linear
 from repro_torch.core.resource_stacked import (BACKEND_DTYPES,
                                                RESOURCE_BACKENDS,
@@ -87,10 +90,6 @@ from repro_torch.models.small import small_loss
 # seed (model init, the request stream's own 0x726571 lineage)
 ROUND_KEY_TAG = 0x0f5afe
 
-_MASK32 = 0xFFFFFFFF
-_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
-_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
-_PHILOX_ROUNDS = 10
 _U24 = 2.0 ** -24
 
 
@@ -99,32 +98,6 @@ def fused_base_key(seed: int) -> Tuple[int, int]:
     words = np.random.SeedSequence([int(seed), ROUND_KEY_TAG]).generate_state(
         2, np.uint32)
     return int(words[0]), int(words[1])
-
-
-def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) 32-bit words of the 64-bit product of 32-bit words ``a``
-    (int64 tensor) and ``m``: the product is taken in 16-bit halves of
-    ``m``, so no partial product leaves int64."""
-    p_lo = a * (m & 0xFFFF)                   # < 2**48
-    p_hi = a * (m >> 16)                      # < 2**48
-    s = p_lo + ((p_hi & 0xFFFF) << 16)        # < 2**49
-    return (p_hi >> 16) + (s >> 32), s & _MASK32
-
-
-def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
-    """Philox-4x32-10 (Salmon et al., SC'11) of four int64 tensors of
-    32-bit counter words under a key of two 32-bit ints: four int64
-    tensors of output words."""
-    c0, c1, c2, c3 = counter
-    k0, k1 = key
-    for r in range(_PHILOX_ROUNDS):
-        if r:
-            k0 = (k0 + _PHILOX_W[0]) & _MASK32
-            k1 = (k1 + _PHILOX_W[1]) & _MASK32
-        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
-        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
-    return c0, c1, c2, c3
 
 
 def counter_words(key, t: torch.Tensor, stream: int, n: int) -> torch.Tensor:

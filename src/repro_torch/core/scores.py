@@ -9,12 +9,17 @@ Sketched scores (``sketch_tree``, ``lambda_scores_sketched``,
 ``sketch_stacked``): the same formula on a k-dim count-sketch of each
 update (bucket ``j % k`` after a random sign flip), an unbiased
 inner-product estimator that cuts the score's memory from O(N) to O(k).
-The reference draws its signs with jax's threefry; the port draws them
-from a CPU ``torch.Generator`` seeded from the server's ``sketch_key``
-words and the leaf index (``sketch_signs``), once per key and leaf, so the
-card and the CPU see one stream and every round the same signs. The two
-packages' signs are equal in distribution, not bit for bit; fed the same
-signs, the sketches agree.
+The reference draws its signs with jax's threefry inside the jitted step;
+the port draws them on the leaf's device from Philox-4x32-10 counters
+(``src/repro_torch/core/philox.py``): sign j of leaf i under the server's
+``sketch_key`` words is bit j % 128 of the Philox block (j // 128, leaf
+i, a tag) under that key, so the card and the CPU compute the same bits,
+every round flips the same signs, and a resumed run (its ``sketch_key``
+in the snapshot) keeps them. They are drawn once per key and leaf and
+kept as int8 +-1 (``sketch_signs_int8``), which the sketches multiply into
+their f32 sums as they are; ``sketch_signs`` gives them in float32. The
+two packages' signs are equal in distribution, not bit for bit; fed the
+same signs, the sketches agree.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+from repro_torch.core.philox import MASK32, philox4x32
 
 
 def tree_dot(a, b) -> torch.Tensor:
@@ -73,32 +79,57 @@ def lambda_scores(updates: Sequence, chi: float = 1.0) -> np.ndarray:
 
 
 
-# salt of the sign streams (ASCII "skt"), so they share no seed with the
-# request noise or the host draws
+# salt of the sign streams (ASCII "skt"), a Philox counter word, so they
+# share no counter with any other draw
 _SKETCH_TAG = 0x736B74
 # column block of the sign-flipped sums: bounds the transient copy to
-# about 2**26 elements (256 MB of f32) whatever the buffer's size
+# about 2**26 elements (256 MB of f32) whatever the buffer's size; the
+# signs are drawn in blocks of as many
 _BLOCK_ELEMS = 1 << 26
+_SIGNS_PER_CALL = 128           # one Philox call: four 32-bit words
 
 
 @functools.lru_cache(maxsize=64)
 def _signs_cached(k0: int, k1: int, i: int, n: int,
                   device: str) -> torch.Tensor:
-    seed = np.random.SeedSequence([_SKETCH_TAG, k0, k1, i]).generate_state(
-        1, np.uint64)[0]
-    gen = torch.Generator().manual_seed(int(seed))
-    bits = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int8)
-    return (bits.float() * 2.0 - 1.0).to(device)
+    """The (n,) int8 +-1 signs of leaf ``i`` under key words (k0, k1),
+    drawn on ``device``: sign j is 1 - 2 * (bit j % 128 of the Philox
+    output of counter (j // 128 low word, high word, i, tag)), the output
+    taken as four little-endian 32-bit words."""
+    dev = torch.device(device)
+    out = torch.empty(n, dtype=torch.int8, device=dev)
+    byte_shift = torch.arange(0, 32, 8, dtype=torch.int64, device=dev)
+    bit_shift = torch.arange(8, dtype=torch.uint8, device=dev)
+    calls = -(-n // _SIGNS_PER_CALL)
+    step = _BLOCK_ELEMS // _SIGNS_PER_CALL
+    for c0 in range(0, calls, step):
+        c = torch.arange(c0, min(calls, c0 + step), dtype=torch.int64,
+                         device=dev)
+        words = torch.stack(philox4x32(
+            (c & MASK32, c >> 32, torch.full_like(c, i),
+             torch.full_like(c, _SKETCH_TAG)), (k0, k1)), dim=1)
+        octets = ((words[:, :, None] >> byte_shift) & 0xFF).to(torch.uint8)
+        bits = (octets[..., None] >> bit_shift) & 1        # (m, 4, 4, 8)
+        lo = c0 * _SIGNS_PER_CALL
+        hi = min(n, lo + bits.numel())
+        out[lo:hi] = (1 - 2 * bits.to(torch.int8)).view(-1)[:hi - lo]
+    return out
 
 
-def sketch_signs(key, i: int, n: int, device="cpu") -> torch.Tensor:
-    """The (n,) float32 +-1 signs of leaf ``i`` under ``key`` (the (2,)
-    uint32 ``sketch_key`` words), drawn on the CPU and kept on ``device``.
-    Fixed per (key, leaf, n): a server whose key never advances flips the
-    same signs every round."""
+def sketch_signs_int8(key, i: int, n: int, device="cpu") -> torch.Tensor:
+    """The (n,) int8 +-1 signs of leaf ``i`` under ``key`` (the (2,)
+    uint32 ``sketch_key`` words), drawn on ``device`` once and kept there:
+    what the sketches multiply by. Fixed per (key, leaf, n): a server whose
+    key never advances flips the same signs every round."""
     k = np.asarray(key, np.uint32).reshape(-1)
     return _signs_cached(int(k[0]), int(k[1]), int(i), int(n),
                          str(torch.device(device)))
+
+
+def sketch_signs(key, i: int, n: int, device="cpu") -> torch.Tensor:
+    """``sketch_signs_int8`` as (n,) float32 +-1 (a new tensor; the cache
+    holds the int8 signs)."""
+    return sketch_signs_int8(key, i, n, device).float()
 
 
 def _bucket_sums(mat: torch.Tensor, signs: torch.Tensor, k: int
@@ -107,7 +138,8 @@ def _bucket_sums(mat: torch.Tensor, signs: torch.Tensor, k: int
     in f32. The whole buckets are summed as a strided (R, N // k, k) view
     in row blocks, and the ragged tail (``N % k`` columns, buckets
     ``0 .. N % k - 1``) apart, so no padded or sign-flipped (R, N) copy is
-    made."""
+    made. ``signs`` (+-1, int8 or float) enter the elementwise product as
+    they are: an int8 sign is promoted inside it, exactly."""
     R, N = mat.shape
     full = N - N % k
     out = torch.zeros((R, k), dtype=torch.float32, device=mat.device)
@@ -127,11 +159,11 @@ def sketch_tree(tree, key, k: int, signs: Optional[Sequence] = None
     """k-dim count-sketch of a parameter tree: each leaf (in sorted-key
     order) flattened, its entries sign-flipped and summed into bucket
     ``j % k``. ``signs`` (one (n_i,) vector per leaf) replaces the drawn
-    signs (``sketch_signs(key, i, n_i)``)."""
+    signs (``sketch_signs_int8(key, i, n_i)``)."""
     out = None
     for i, p in enumerate(tree_paths(tree)):
         flat = tree_get(tree, p).reshape(1, -1)
-        sg = (sketch_signs(key, i, flat.shape[1], flat.device)
+        sg = (sketch_signs_int8(key, i, flat.shape[1], flat.device)
               if signs is None else torch.as_tensor(
                   signs[i], dtype=torch.float32, device=flat.device))
         part = _bucket_sums(flat, sg, k)[0]
@@ -157,7 +189,7 @@ def sketch_stacked(mat: torch.Tensor, key, k: int,
     ``sketch_tree``'s single-leaf case (leaf 0's signs), (U, k) in f32.
     ``signs`` ((N,) or longer) replaces the drawn signs."""
     N = mat.shape[1]
-    sg = (sketch_signs(key, 0, N, mat.device) if signs is None
+    sg = (sketch_signs_int8(key, 0, N, mat.device) if signs is None
           else torch.as_tensor(signs, dtype=torch.float32,
                                device=mat.device))
     return _bucket_sums(mat, sg, k)

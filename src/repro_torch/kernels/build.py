@@ -2,9 +2,12 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library under ``<checkout>/build/``
-(listed in ``.gitignore``), named by a hash of its source so an edit
-rebuilds it. The build happens at first use; ``build()`` starts one ``nvcc``
-per source, all at once. Libraries are loaded with ``ctypes``.
+(listed in ``.gitignore``), named by a hash of its source and of every
+header under ``csrc/`` (``*.cuh``, which the sources share), so an edit of
+either rebuilds it. The build happens at first use; ``build()`` starts
+one ``nvcc`` per source, all at once. ptxas's report (registers, spills)
+is kept beside each library as ``lib<name>-<hash>.log``, so a cached build
+returns it as a fresh one does. Libraries are loaded with ``ctypes``.
 """
 from __future__ import annotations
 
@@ -35,21 +38,26 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=KERNELS) -> dict:
     """Compile every named kernel that is not built yet, all in parallel.
     Returns ``{name: {"path", "seconds", "log"}}`` (``log`` holds ptxas's
-    register and shared-memory report); raises on a failed compile."""
+    register and shared-memory report, read back from beside the library
+    when it was built before; ``seconds`` is 0 then); raises on a failed
+    compile. A library without its report is built again."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
     for name in names:
         path = library_path(name)
-        if path.exists():
-            out[name] = {"path": path, "seconds": 0.0, "log": "cached"}
+        if path.exists() and path.with_suffix(".log").exists():
+            out[name] = {"path": path, "seconds": 0.0,
+                         "log": path.with_suffix(".log").read_text()}
             continue
         tmp = path.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -61,7 +69,10 @@ def build(names=KERNELS) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed to build {name} "
                                f"(exit {proc.returncode}):\n{log}")
+        tmp_log = tmp.with_suffix(f".log{os.getpid()}")
+        tmp_log.write_text(log)
         os.replace(tmp, path)       # atomic: concurrent builders are safe
+        os.replace(tmp_log, path.with_suffix(".log"))   # the report last
         out[name] = {"path": path, "seconds": time.perf_counter() - t0,
                      "log": log}
     return out

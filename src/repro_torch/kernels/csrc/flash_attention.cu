@@ -69,11 +69,9 @@
 // buffer for it; the backward (csrc/flash_attention_bwd.cu) recomputes the
 // probabilities from it. Serving passes none, and nothing more is written.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
 #include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -236,15 +234,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
@@ -486,25 +475,14 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
 // producer (one thread issues every TMA load), warpgroups 1 and 2 the
 // consumers, 64 rows each. Shared memory holds q, kStages k tiles and
 // kStages v tiles of 96 keys, each tile 128-byte swizzled as TMA writes it
-// and wgmma reads it: D/64 boxes of R rows x 64 columns (128 bytes a row),
-// row r of a box at r * 128 bytes and its 16-byte chunk c at chunk
-// c ^ (r % 8), every box 1024-byte aligned.
-//
-// wgmma fragments (PTX ISA; per thread of a warpgroup, warp w = 0..3,
-// g = lane / 4, t = lane % 4): the f32 accumulator of m64nN holds, for each
-// 8-column chunk j, d[4j], d[4j+1] at (row 16w+g, cols 8j+2t, 8j+2t+1) and
-// d[4j+2], d[4j+3] at row 16w+g+8. The bf16 A fragment of m64k16 from
-// registers is a0 (16w+g, 2t..2t+1), a1 (16w+g+8, 2t..), a2 (16w+g, 2t+8..),
-// a3 (16w+g+8, 2t+8..). So the scores' accumulator, packed pairwise into
-// bf16x2, is P's A fragment: register i of P is (d[2i], d[2i+1]).
+// and wgmma reads it (hopper.cuh gives the layout and the wgmma fragments:
+// the scores' accumulator, packed pairwise into bf16x2, is P's A fragment).
 // ---------------------------------------------------------------------------
 
 constexpr int kWsBM = 128;       // query rows per block, 64 per consumer
 constexpr int kWsBN = 96;        // keys per k/v tile
 constexpr int kWsStages = 2;     // depth of the k/v ring
 constexpr int kWsThreads = 384;  // producer warpgroup + two consumers
-constexpr int kBoxCols = 64;     // bf16 columns of one 128-byte box
-constexpr int kBoxRowBytes = 128;
 
 template <int DP>
 struct WsLayout {
@@ -524,132 +502,6 @@ struct WsParams {
   float sl2;  // scale * log2(e): scores go to the log2 domain
   float* lse;  // (B, H, S) or null
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// Wait until the phase of the given parity has completed. A wait of more
-// than 10 s means a phase was lost: trap, so the launch fails instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try(bar, parity)) {
-    if (global_ns() - t0 > 10000000000ull) __trap();
-  }
-}
-
-// One box of a 4-d tensor map into shared memory; completion (its bytes)
-// is reported to the mbarrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_store(const CUtensorMap& map, uint32_t src,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group"
-      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
-          reinterpret_cast<uint64_t>(&map)),
-      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t x) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A shared-memory matrix descriptor for a 128-byte swizzled operand
-// (addresses and offsets in bytes; the descriptor keeps them >> 4).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Tie registers that an asynchronous wgmma reads or writes to this point of
-// the program, so the compiler neither moves their uses across a wait nor
-// reuses them while the tensor cores hold them.
-template <int N>
-__device__ __forceinline__ void keep(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void keep(uint32_t (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(x[i])::"memory");
-}
-
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
 
 // The two consumer warpgroups take turns on the tensor cores: a warpgroup
 // issues its products only in its turn and hands the turn over once they
@@ -750,47 +602,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[64],
-                                             const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, shared, MN-major).
-__device__ __forceinline__ void wgmma_rs(float (&d)[32],
-                                             const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // S = q k^T of one tile into sc (64 rows of q at sq_w, kWsBN keys at kt),
@@ -1037,72 +848,20 @@ cudaError_t launch_bf16_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime so that the library
-// needs no -lcuda. A failed encode returns kEncodeError + its CUresult.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-constexpr int kEncodeError = 100000;
-
-int encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (found != cudaDriverEntryPointSuccess || ptr == nullptr) {
-      return static_cast<int>(cudaErrorSymbolNotFound);
-    }
-    cached = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  *fn = cached;
-  return 0;
-}
-
-// A 4-d map {D, S, heads, B} of bf16 with byte strides {s, h, b}, boxes of
-// 64 columns x rows, 128-byte swizzled; out-of-bounds elements read as zero.
-int encode_map(CUtensorMap* map, const void* ptr, const Params& p, int heads,
-               long long sb, long long sh, long long ss, int rows) {
-  EncodeTiled fn;
-  const int err = encoder(&fn);
-  if (err != 0) return err;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(p.D),
-                              static_cast<cuuint64_t>(p.S),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(p.B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {kBoxCols, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
-}
-
 template <int DP>
 int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
   using L = WsLayout<DP>;
   const int nq = (p.S + kWsBM - 1) / kWsBM;
   if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, to;
-  int err = encode_map(&tq, p.q, p, p.H, p.q_sb, p.q_sh, p.q_ss, kWsBM);
-  if (err == 0) err = encode_map(&tk, p.k, p, p.Hkv, p.k_sb, p.k_sh, p.k_ss, kWsBN);
-  if (err == 0) err = encode_map(&tv, p.v, p, p.Hkv, p.v_sb, p.v_sh, p.v_ss, kWsBN);
-  if (err == 0) err = encode_map(&to, p.o, p, p.H, p.o_sb, p.o_sh, p.o_ss, 64);
+  int err = encode_bf16_map(&tq, p.q, p.D, p.S, p.H, p.B, p.q_sb, p.q_sh,
+                            p.q_ss, kWsBM);
+  if (err == 0) err = encode_bf16_map(&tk, p.k, p.D, p.S, p.Hkv, p.B, p.k_sb,
+                                      p.k_sh, p.k_ss, kWsBN);
+  if (err == 0) err = encode_bf16_map(&tv, p.v, p.D, p.S, p.Hkv, p.B, p.v_sb,
+                                      p.v_sh, p.v_ss, kWsBN);
+  if (err == 0) err = encode_bf16_map(&to, p.o, p.D, p.S, p.H, p.B, p.o_sb,
+                                      p.o_sh, p.o_ss, 64);
   if (err != 0) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_bf16_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -14,38 +14,103 @@
 //     dk    = scale * sum over the group's heads of dS^T q
 //     dq    = scale * dS k
 //
-// FlashAttention-2's split, with no float atomics: one kernel owns a tile of
-// keys of one kv head and loops over the query heads of its group and the
-// query tiles at or below the diagonal (dk, dv); another owns a tile of
-// queries and loops over the key tiles (dq). Each output element has one
-// owner and sums in a fixed order, so two runs on the same inputs give the
-// same bits, and GQA's dk and dv need no second pass.
-//
 // Bound. At the serving path's prefill shape (B=4, S=4096, H=56, Hkv=8,
 // D=128, bf16, causal) the five products take 2.5 times the forward's
 // 962 GFLOP, 2,406 GFLOP: 2.43 ms at the H100's 989 TFLOP/s for bf16 tensor
 // cores; q, k, v, o, do, dq, dk, dv are 1.2 GB, 0.36 ms at 3.35 TB/s. The
 // backward is bound by operations.
 //
-// Design (simple and right first; wgmma and TMA are a later step):
-//   * bf16 (D padded to a bucket of 64, 128 or 256): mma.sync m16n8k16,
-//     four warps of 16 rows, operands staged by cp.async into padded shared
-//     rows and read by ldmatrix, the next tile loading under the products.
-//     The recomputed P and dS stay in registers, where the accumulator of
-//     one product is the A fragment of the next (rounded to bf16 pairs). At
-//     D = 256 a block owns 128 of the output columns (grid.z) and recomputes
-//     P and dS for each half, so the accumulators stay in registers.
-//   * f32: CUDA cores in exact f32, tiles of 32 keys and 32 queries staged
-//     in shared memory; right, not fast (the small float32 runs).
+// The entry point picks the kernels by (dtype, D) alone, as the forward's
+// does; no error is caught and retried another way.
+//
+// bf16, D <= 128 (every dense config of the zoo: D = 128, or 120 padded to
+// 128; D <= 64 pads to 64): FlashAttention-3's backward (Shah et al., 2024,
+// arXiv:2407.08608, section 3) in its deterministic form, three launches:
+//   1. stats_kernel: (lse * log2(e), delta) per query row, padded to whole
+//      64-row tiles (bytes-bound, 16-byte loads, a half-warp a row);
+//   2. bwd_bf16_wgmma_kernel: one pass for dK, dV and dQ, five products:
+//        - a block owns 128 keys of one (b, kv head) and walks the query
+//          heads of its group and, within each, the 64-query tiles at or
+//          below the diagonal, in order; dK and dV stay in registers over
+//          the whole walk, so GQA's group sum is one block's, in a fixed
+//          order, with no second pass;
+//        - 256 threads, two warpgroups of 64 keys each (wgmma's M). Thread
+//          0 also issues every TMA load: k and v once, then q, do and their
+//          stats rows two steps ahead, through a two-stage ring behind full
+//          mbarriers; thread 128 also writes dQ (below). No producer
+//          warpgroup: with more than 256 threads ptxas gives a thread at
+//          most 168 registers, and under setmaxnreg's split 200 (measured
+//          on this kernel), fewer than the products need;
+//        - per step, with wgmma: S^T = K Q^T and dP^T = V dO^T (both
+//          operands in shared memory, 128-byte swizzled as TMA writes
+//          them), both in flight; P^T and dS^T in registers, where the
+//          accumulators are the next products' A fragments: dV += P^T dO
+//          and dK += dS^T Q (q and do read MN-major); dS^T also staged in
+//          shared memory (bf16, two buffers), and dQ = dS K with both
+//          operands read MN-major, each warpgroup taking 64 of dQ's columns
+//          (D = 128; at D <= 64 each takes its own 64 keys, and the two
+//          partial sums are added in shared memory);
+//        - dQ without float atomics in an unordered way: the partial sums
+//          of a step go to shared memory, and thread 128 adds them into an
+//          f32 workspace tile of (b, h, query tile) by a bulk reduce-add,
+//          in turn: a per-tile counter (zero before the launch) says how
+//          many key tiles have added theirs, and a block waits until it is
+//          its turn. So every dQ element sums its key tiles in one fixed
+//          order and two runs give the same bits. The first contributor
+//          stores instead of adding, so the workspace needs no fill. The
+//          counter is read under the step's dV, dK and dQ products, and a
+//          step's turn is passed on at the end of the next step, when its
+//          add has long completed (waiting for the add within a step
+//          stalls: it takes more than half a step);
+//        - the turns run from the highest key tile down to key tile 0, and
+//          blockIdx.x walks the key tiles from the highest down: a block
+//          waits only on lower-numbered blocks of its (b, kv head), which
+//          were launched before it and so are running or done, and the
+//          wait always makes progress. In this order a block's predecessor
+//          (the next key tile up) has fewer query tiles and reaches each
+//          tile two steps earlier, so in the causal case a block rarely
+//          waits; the other order (key tile 0 first) would pace every
+//          block by key tile 0, idling about half of the card;
+//        - a lost turn traps after 10 s, as a lost mbarrier phase does, so
+//          a fault fails the launch instead of hanging the card;
+//        - the mask is one branch per warpgroup and step, taken only where
+//          the tile crosses the diagonal or S; rows past S and columns past
+//          D come back from TMA as zeros, and dK and dV are staged in
+//          shared memory and stored by TMA, which writes only rows below S
+//          and columns below D;
+//   3. dq_convert_kernel: dq = scale * workspace, in q's dtype and layout
+//      (bytes-bound). With key tile 0 the last of every turn, its block,
+//      the longest, would otherwise convert every tile on the critical
+//      path.
+// Registers: a thread holds dV and dK (D/2 f32 each), the S^T and dP^T
+// accumulators (32 f32 each), then P^T and dS^T (16 bf16x2 each) and its
+// dQ partial (32 f32): ptxas uses ~244 of the 255 a 256-thread block
+// allows, with no spill (build.py passes -Xptxas -v; a spill makes ptxas
+// serialise every wgmma). Shared memory: k and v (128 x 128 bf16 each),
+// the q/do ring (two stages of 64 x 128 bf16 each), dS^T (two of 128 x 64
+// bf16), the dQ partial (64 x 128 f32) and the stats: 194 KB at D = 128,
+// one block an SM. The workspace is (B, H, ceil(S / 64) tiles, 64 x DP)
+// f32, 470 MB at the prefill shape.
+//
+// bf16, 128 < D <= 256 (no config reaches it): FlashAttention-2's split
+// with mma.sync m16n8k16, four warps of 16 rows, cp.async into padded rows
+// and ldmatrix: one kernel for dK/dV (a key tile of one kv head, looping
+// over its group's heads and query tiles) and one for dQ (a query tile,
+// looping over key tiles), each output with one owner; a block owns 128 of
+// the output columns (grid.z) and recomputes P and dS for each half.
+// f32: the same split on CUDA cores in exact f32, tiles of 32 keys and 32
+// queries staged in shared memory; right, not fast (the small float32
+// runs).
 //
 // Inputs are read through (b, h, s) strides with a dense last dim, so the
 // model-layout (B, S, H, D) views go in as they are. The C entry point
-// launches on the caller's stream, allocates nothing (delta is the caller's
-// (B, H, S) f32 scratch) and returns a nonzero code when a launch fails.
+// launches on the caller's stream, allocates nothing (the statistics, the
+// dQ workspace and the turn counters are the caller's) and returns a
+// nonzero code when a tensor map cannot be encoded or a launch fails.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <stdio.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -298,15 +363,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&x);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
@@ -687,6 +743,532 @@ __global__ void __launch_bounds__(kThreads) dkdv_bf16_kernel(const BwdParams p) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16, D <= 128: TMA, an mbarrier ring, warp specialisation and wgmma (the
+// design is in the note at the top).
+// ---------------------------------------------------------------------------
+
+constexpr int kHBN = 128;         // keys per block, 64 per consumer
+constexpr int kHBM = 64;          // queries per step
+constexpr int kHStages = 2;       // depth of the q/do ring
+constexpr int kHThreads = 256;    // two warpgroups, 64 keys each
+constexpr int kStatRows = 16;     // rows per block of stats_kernel
+constexpr uint32_t kStatBytes = kHBM * 8;          // (lse2, delta) per query
+constexpr uint32_t kKBox = kHBN * kBoxRowBytes;    // one box of a k/v tile
+constexpr uint32_t kQBox = kHBM * kBoxRowBytes;    // one box of a q/do tile
+constexpr uint32_t kDsBytes = kHBN * kHBM * 2;     // dS^T: keys x queries
+
+template <int DP>
+struct HLayout {
+  static constexpr int boxes = DP / kBoxCols;
+  static constexpr uint32_t kv_bytes = kHBN * DP * 2;  // one k or v tile
+  static constexpr uint32_t qt_bytes = kHBM * DP * 2;  // one q or do tile
+  static constexpr uint32_t dq_bytes = kHBM * DP * 4;  // the dQ partial
+  static constexpr uint32_t k_off = 0;
+  static constexpr uint32_t v_off = kv_bytes;
+  static constexpr uint32_t q_off = 2 * kv_bytes;
+  static constexpr uint32_t do_off = q_off + kHStages * qt_bytes;
+  static constexpr uint32_t ds_off = do_off + kHStages * qt_bytes;
+  static constexpr uint32_t dq_off = ds_off + 2 * kDsBytes;
+  static constexpr uint32_t st_off = dq_off + dq_bytes;
+  static constexpr uint32_t bar_off = st_off + kHStages * kStatBytes;
+  // k/v full; per stage: full
+  static constexpr int n_bars = 1 + kHStages;
+  static constexpr size_t smem = bar_off + 8 * n_bars + 1024;  // + alignment
+};
+
+struct HParams {
+  int S, H, Hkv, group, nqt, nkt, causal;
+  float scale;
+  float sl2;            // scale * log2(e): scores go to the log2 domain
+  const float* stats;   // (B, H, nqt * 64) pairs (lse * log2(e), delta)
+  float* ws;            // (B, H, nqt) tiles of 64 x DP f32: dQ's sums
+  int* turns;           // (B, H, nqt): key tiles added so; zero at launch
+};
+
+// (lse * log2(e), delta = rowsum(do * o)) of every query row, zeros on the
+// rows that pad S to whole tiles: a half-warp a row, 8 columns a lane.
+__global__ void __launch_bounds__(32 * kStatRows / 2) stats_kernel(
+    const BwdParams p, float2* stats, int s_pad) {
+  const int row = blockIdx.x * kStatRows + threadIdx.x / 16;
+  const int l = threadIdx.x % 16;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  float acc = 0.f;
+  if (row < p.S && 8 * l < p.D) {
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        static_cast<const uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh +
+        row * p.o_ss + 8 * l);
+    const uint4 y = *reinterpret_cast<const uint4*>(
+        static_cast<const uint16_t*>(p.dout) + b * p.do_sb + h * p.do_sh +
+        row * p.do_ss + 8 * l);
+    const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      acc = fmaf(__uint_as_float(xs[i] << 16), __uint_as_float(ys[i] << 16), acc);
+      acc = fmaf(__uint_as_float(xs[i] & 0xFFFF0000u),
+                 __uint_as_float(ys[i] & 0xFFFF0000u), acc);
+    }
+  }
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (l == 0) {
+    stats[static_cast<size_t>(bh) * s_pad + row] =
+        row < p.S ? make_float2(p.lse[static_cast<size_t>(bh) * p.S + row] * kLog2e, acc)
+                  : make_float2(0.f, 0.f);
+  }
+}
+
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t addr) {
+  float4 x;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(x.x), "=f"(x.y), "=f"(x.z), "=f"(x.w)
+               : "r"(addr));
+  return x;
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a),
+               "f"(b)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 ld_shared_v2(uint32_t addr) {
+  float2 x;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(x.x), "=f"(x.y)
+               : "r"(addr));
+  return x;
+}
+
+// Byte offset of (row r, column c) in a dQ tile of 64 rows x DP f32 (the
+// consumers' partial in shared memory, and a workspace tile, which the
+// bulk add copies byte for byte): rows of DP floats, the 16-byte chunk of
+// columns c / 4 of row r at chunk (c / 4) ^ (r % 8), so the consumers'
+// stores (eight rows a warp) fall in distinct banks and the conversion
+// reads whole rows.
+template <int DP>
+__device__ __forceinline__ uint32_t dq_at(int r, int c) {
+  return r * DP * 4 + (((c >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// bytes from device memory into shared memory, reported to the mbarrier
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src,
+                                                uint32_t bytes) {
+  asm volatile(
+      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32"
+      " [%0], [%1], %2;\n" ::"l"(dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int x;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(x)
+               : "l"(p)
+               : "memory");
+  return x;
+}
+
+__device__ __forceinline__ void st_release(int* p, int x) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(p), "r"(x)
+               : "memory");
+}
+
+// Wait until the tile's counter reaches this block's turn (trap after 10 s:
+// a turn that never comes is a fault).
+__device__ __forceinline__ void wait_turn(const int* counter, int turn) {
+  if (ld_acquire(counter) == turn) return;
+  const uint64_t t0 = global_ns();
+  while (ld_acquire(counter) != turn) {
+    if (global_ns() - t0 > kLostNs) __trap();
+    __nanosleep(32);
+  }
+}
+
+// D (64 x 64, f32) (+)= A (64 x 16, shared) B (16 x 64, shared); TA, TB
+// say whether A and B are read MN-major (transposed) or K-major. The first
+// k-step of a product writes D without reading it ("=f"), so the compiler
+// keeps no earlier value of D alive; the rest accumulate ("+f").
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_first(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(da), "l"(db), "r"(0), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// S^T = K Q^T (or dP^T = V dO^T) of one step: the warpgroup's 64 rows of
+// the k (v) tile at kw against the 64 rows of the q (do) tile at qt, D/16
+// steps of k16: within a 64-column box a step advances 32 bytes, past it a
+// box. Issued and committed as one group.
+template <int DP>
+__device__ __forceinline__ void issue_rows(float (&d)[32], uint32_t kw,
+                                           uint32_t qt) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t da = wgmma_desc(kw + (kk / 4) * kKBox + col, 16, 1024);
+    const uint64_t db = wgmma_desc(qt + (kk / 4) * kQBox + col, 16, 1024);
+    if (kk == 0) {
+      wgmma_ss_first<0, 0>(d, da, db);
+    } else {
+      wgmma_ss<0, 0>(d, da, db);
+    }
+  }
+  wgmma_commit();
+}
+
+// dV += P^T dO (or dK += dS^T Q): A from registers (the 64 keys by 16
+// queries of each k-step), the q (do) tile at qt the transposed B operand,
+// 8 query rows 128 bytes apart, the next 8 at 1024 bytes, the next 64
+// columns one box further.
+template <int N>
+__device__ __forceinline__ void issue_acc(float (&d)[N],
+                                          const uint32_t (&a)[16],
+                                          uint32_t qt) {
+#pragma unroll
+  for (int kk = 0; kk < kHBM / 16; ++kk) {
+    wgmma_rs(d, a + 4 * kk,
+             wgmma_desc(qt + kk * 16 * kBoxRowBytes, kQBox, 1024));
+  }
+  wgmma_commit();
+}
+
+// dQ's partial sums = dS K over KS * 16 keys: dS^T at ds (keys x queries,
+// queries contiguous) is A read MN-major, 64 of the k tile's columns at kc
+// (keys x D, D contiguous) B read MN-major; both start at the same key row.
+template <int KS>
+__device__ __forceinline__ void issue_dq(float (&d)[32], uint32_t ds,
+                                         uint32_t kc) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const uint64_t da = wgmma_desc(ds + kk * 16 * kBoxRowBytes, kDsBytes, 1024);
+    const uint64_t db = wgmma_desc(kc + kk * 16 * kBoxRowBytes, kKBox, 1024);
+    if (kk == 0) {
+      wgmma_ss_first<1, 1>(d, da, db);
+    } else {
+      wgmma_ss<1, 1>(d, da, db);
+    }
+  }
+  wgmma_commit();
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kHThreads, 1) bwd_bf16_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq,
+    const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv,
+    const __grid_constant__ CUtensorMap tdo,
+    const __grid_constant__ CUtensorMap tdk,
+    const __grid_constant__ CUtensorMap tdv, const HParams p) {
+  using L = HLayout<DP>;
+  constexpr int NB = L::boxes;
+  extern __shared__ uint8_t h_smem[];
+  const uint32_t base = (smem_addr(h_smem) + 1023u) & ~1023u;
+  const uint32_t sk = base + L::k_off, sv = base + L::v_off;
+  const uint32_t sq = base + L::q_off, sdo = base + L::do_off;
+  const uint32_t sds = base + L::ds_off, sdq = base + L::dq_off;
+  const uint32_t sst = base + L::st_off;
+  const uint32_t kv_full = base + L::bar_off, full = kv_full + 8;
+
+  // blockIdx.x walks the key tiles from the last down (see the note at
+  // the top); the steps: the query tiles at or below the diagonal, for each
+  // query head of the group in turn
+  const int j = p.nkt - 1 - static_cast<int>(blockIdx.x);
+  const int k0 = j * kHBN;
+  const int b = blockIdx.y / p.Hkv, hk = blockIdx.y % p.Hkv;
+  const int first = p.causal ? 2 * j : 0;
+  const int per_head = p.nqt - first;
+  const int steps = p.group * per_head;
+  const bool loader = threadIdx.x == 0, writer = threadIdx.x == 128;
+
+  // step it's query head and tile, and its dq workspace tile
+  auto head = [&](int it) { return hk * p.group + it / per_head; };
+  auto qtile = [&](int it) { return first + it % per_head; };
+  // step it's workspace tile, and this block's turn there: the key tiles
+  // at or below the diagonal of query tile i add in turn from the highest
+  auto ws_tile = [&](int it) {
+    return static_cast<size_t>(b * p.H + head(it)) * p.nqt + qtile(it);
+  };
+  auto turn_of = [&](int it) {
+    return (p.causal ? qtile(it) / 2 : p.nkt - 1) - j;
+  };
+  // q, do and the stats rows of step it into stage it % kHStages
+  auto load_step = [&](int it) {
+    const int s = it % kHStages, h = head(it), i = qtile(it);
+    const uint32_t bar = full + 8 * s;
+    mbar_expect_tx(bar, 2 * L::qt_bytes + kStatBytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(sq + s * L::qt_bytes + c * kQBox, tq, bar, c * kBoxCols,
+               i * kHBM, h, b);
+      tma_load(sdo + s * L::qt_bytes + c * kQBox, tdo, bar, c * kBoxCols,
+               i * kHBM, h, b);
+    }
+    bulk_load(sst + s * kStatBytes,
+              p.stats + (static_cast<size_t>(b * p.H + h) * p.nqt + i) * 2 * kHBM,
+              kStatBytes, bar);
+  };
+
+  if (loader) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kHStages; ++s) mbar_init(full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(kv_full, 2 * L::kv_bytes);
+    for (int c = 0; c < NB; ++c) {
+      tma_load(sk + c * kKBox, tk, kv_full, c * kBoxCols, k0, hk, b);
+      tma_load(sv + c * kKBox, tv, kv_full, c * kBoxCols, k0, hk, b);
+    }
+    for (int it = 0; it < kHStages && it < steps; ++it) load_step(it);
+  }
+  __syncthreads();
+
+  // Warpgroup w: 64 keys, their dK and dV.
+  const int w = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int kr = 64 * w + 16 * warp + g;  // this thread's key rows: kr, kr + 8
+  const int key_lo = k0 + kr, key_hi = key_lo + 8;
+  const int kw0 = k0 + 64 * w;            // the warpgroup's first key
+  const uint32_t sk_w = sk + 64 * w * kBoxRowBytes;
+  const uint32_t sv_w = sv + 64 * w * kBoxRowBytes;
+  // dQ = dS K: at D = 128 warpgroup w takes dQ's columns 64 w.. over all
+  // 128 keys; at D <= 64 it takes all 64 columns over its own 64 keys, and
+  // the two partial sums are added in shared memory
+  constexpr bool kCols = DP > 64;
+  const uint32_t kc = kCols ? sk + w * kKBox : sk_w;
+  const int qr = 16 * warp + g;                // dQ's rows: qr, qr + 8
+  const int col = (kCols ? 64 * w : 0) + 2 * t;  // and first column
+
+  float dv[DP / 2], dk[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dv[i] = dk[i] = 0.f;
+  float sc[32], dp[32], dq[32];  // S^T then P^T; dP^T then dS^T; dQ
+  uint32_t pa[16], da[16];       // P^T and dS^T in bf16: A fragments
+
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % kHStages;
+    const int q0 = qtile(it) * kHBM;
+    const uint32_t qt = sq + s * L::qt_bytes, dot = sdo + s * L::qt_bytes;
+    const uint32_t stt = sst + s * kStatBytes;
+    const uint32_t ds = sds + (it & 1) * kDsBytes;
+    mbar_wait(full + 8 * s, (it / kHStages) & 1);
+    wgmma_fence();
+    issue_rows<DP>(sc, sk_w, qt);
+    issue_rows<DP>(dp, sv_w, dot);
+    wgmma_wait<1>();
+    keep(sc);
+
+    // P^T = exp(S^T scale - lse), zero where masked: the mask is a branch
+    // per step, taken only where the tile crosses the diagonal or S
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float4 st = ld_shared_v4(stt + (8 * jj + 2 * t) * 8);
+      sc[4 * jj] = ex2(fmaf(sc[4 * jj], p.sl2, -st.x));
+      sc[4 * jj + 1] = ex2(fmaf(sc[4 * jj + 1], p.sl2, -st.z));
+      sc[4 * jj + 2] = ex2(fmaf(sc[4 * jj + 2], p.sl2, -st.x));
+      sc[4 * jj + 3] = ex2(fmaf(sc[4 * jj + 3], p.sl2, -st.z));
+    }
+    if (kw0 + 64 > p.S || q0 + kHBM > p.S || (p.causal && kw0 + 63 > q0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = (i & 2) ? key_hi : key_lo;
+        const int query = q0 + 8 * (i / 4) + 2 * t + (i & 1);
+        if (key >= p.S || query >= p.S || (p.causal && key > query)) sc[i] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    keep(dp);
+
+    // dS^T = P^T (dP^T - delta); P^T and dS^T in bf16, the A fragments of
+    // dV and dK (the accumulators' layout), and dS^T into shared memory for
+    // dQ: rows = keys, 128-byte swizzled (the row's chunk index XORed with
+    // g = row % 8)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float4 st = ld_shared_v4(stt + (8 * jj + 2 * t) * 8);
+      const uint32_t lo = kr * kBoxRowBytes + ((jj ^ g) * 16) + 4 * t;
+      const uint32_t hi = lo + 8 * kBoxRowBytes;
+      pa[2 * jj] = pack_bf16(sc[4 * jj], sc[4 * jj + 1]);
+      pa[2 * jj + 1] = pack_bf16(sc[4 * jj + 2], sc[4 * jj + 3]);
+      da[2 * jj] = pack_bf16(sc[4 * jj] * (dp[4 * jj] - st.y),
+                             sc[4 * jj + 1] * (dp[4 * jj + 1] - st.w));
+      da[2 * jj + 1] = pack_bf16(sc[4 * jj + 2] * (dp[4 * jj + 2] - st.y),
+                                 sc[4 * jj + 3] * (dp[4 * jj + 3] - st.w));
+      st_shared(ds + lo, da[2 * jj]);
+      st_shared(ds + hi, da[2 * jj + 1]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    if (writer) {
+      // the last step's partial sums have left shared memory (their add
+      // completes later)
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    }
+    named_sync(1, 256);  // dS^T of both warpgroups is in shared memory, and
+                         // the dQ partial's buffer is free
+    wgmma_fence();
+    issue_acc(dv, pa, dot);
+    issue_acc(dk, da, qt);
+    issue_dq<kCols ? kHBN / 16 : 4>(dq, kCols ? ds : ds + 64 * w * kBoxRowBytes,
+                                    kc);
+    // the writer reads this step's turn counter under the products
+    const int seen = writer ? ld_acquire(p.turns + ws_tile(it)) : 0;
+    wgmma_wait<0>();
+    keep(dv);
+    keep(dk);
+    keep(dq);
+    keep(pa);
+    keep(da);
+
+    // the dQ partial to shared memory (dq_at's layout): rows qr, qr + 8,
+    // columns col.. of each 8-column chunk k
+    if (kCols || w == 1) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        st_shared_v2(sdq + dq_at<DP>(qr, col + 8 * k), dq[4 * k], dq[4 * k + 1]);
+        st_shared_v2(sdq + dq_at<DP>(qr + 8, col + 8 * k), dq[4 * k + 2],
+                     dq[4 * k + 3]);
+      }
+    }
+    if (!kCols) {  // the first warpgroup adds its keys' sums to the second's
+      named_sync(1, 256);
+      if (w == 0) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const uint32_t lo = sdq + dq_at<DP>(qr, col + 8 * k);
+          const uint32_t hi = sdq + dq_at<DP>(qr + 8, col + 8 * k);
+          const float2 x = ld_shared_v2(lo), y = ld_shared_v2(hi);
+          st_shared_v2(lo, x.x + dq[4 * k], x.y + dq[4 * k + 1]);
+          st_shared_v2(hi, y.x + dq[4 * k + 2], y.y + dq[4 * k + 3]);
+        }
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(1, 256);  // the dQ partial is written; q, do, stats are free
+    if (loader && it + kHStages < steps) load_step(it + kHStages);
+    if (writer) {
+      // the last step's add is complete: its turn passes to the next key
+      // tile down. Then this step's partial into its workspace tile, in
+      // turn: stored by the first contributor, added by the rest
+      if (it > 0) {
+        asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        asm volatile("fence.proxy.async.global;\n" ::: "memory");
+        st_release(p.turns + ws_tile(it - 1), turn_of(it - 1) + 1);
+      }
+      const int turn = turn_of(it);
+      if (seen != turn) wait_turn(p.turns + ws_tile(it), turn);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      float* dst = p.ws + ws_tile(it) * (kHBM * DP);
+      if (turn == 0) {
+        bulk_store(dst, sdq, L::dq_bytes);
+      } else {
+        bulk_reduce_add(dst, sdq, L::dq_bytes);
+      }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    }
+  }
+  if (writer && steps > 0) {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    st_release(p.turns + ws_tile(steps - 1), turn_of(steps - 1) + 1);
+  }
+
+  // dK (scaled) and dV in bf16 into the warpgroup's rows of the k and v
+  // tiles (free: every product of both warpgroups is done), swizzled as the
+  // dk and dv maps' boxes; then one thread stores them by TMA (rows past S,
+  // columns past D are not written)
+#pragma unroll
+  for (int jj = 0; jj < DP / 8; ++jj) {
+    const uint32_t at = (jj / 8) * kKBox + kr * kBoxRowBytes +
+                        (((jj % 8) ^ g) * 16) + 4 * t;
+    const uint32_t at8 = at + 8 * kBoxRowBytes;
+    st_shared(sk + at, pack_bf16(dk[4 * jj] * p.scale, dk[4 * jj + 1] * p.scale));
+    st_shared(sk + at8, pack_bf16(dk[4 * jj + 2] * p.scale, dk[4 * jj + 3] * p.scale));
+    st_shared(sv + at, pack_bf16(dv[4 * jj], dv[4 * jj + 1]));
+    st_shared(sv + at8, pack_bf16(dv[4 * jj + 2], dv[4 * jj + 3]));
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(2 + w, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int c = 0; c < NB; ++c) {
+      tma_store(tdk, sk + c * kKBox + 64 * w * kBoxRowBytes, c * kBoxCols,
+                kw0, hk, b);
+      tma_store(tdv, sv + c * kKBox + 64 * w * kBoxRowBytes, c * kBoxCols,
+                kw0, hk, b);
+    }
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// dq = scale * the workspace's sums, in q's dtype and layout: a block per
+// (b, h, query tile), a thread per 16-byte chunk of a row (dq_at's layout)
+// at a time, its four columns written as four bf16.
+template <int DP>
+__global__ void __launch_bounds__(256) dq_convert_kernel(const BwdParams p,
+                                                         const float* ws,
+                                                         int nqt) {
+  constexpr int kChunks = DP / 4;  // 16-byte chunks a row
+  const int i = blockIdx.x, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const float4* tile = reinterpret_cast<const float4*>(
+      ws + (static_cast<size_t>(bh) * nqt + i) * (kHBM * DP));
+  uint16_t* dq = static_cast<uint16_t*>(p.dq) + b * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+  for (int x = threadIdx.x; x < kHBM * kChunks; x += 256) {
+    const int r = x / kChunks, c = 4 * ((x % kChunks) ^ (r & 7));
+    const int row = i * kHBM + r;
+    if (row >= p.S || c >= p.D) continue;
+    const float4 v = tile[x];
+    const uint2 out = make_uint2(pack_bf16(v.x * p.scale, v.y * p.scale),
+                                 pack_bf16(v.z * p.scale, v.w * p.scale));
+    *reinterpret_cast<uint2*>(dq + row * p.dq_ss + c) = out;
+  }
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
                    const BwdParams& p) {
@@ -697,24 +1279,102 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return cudaGetLastError();
 }
 
+// Phases: 1 the preprocess, 2 the main kernel (dK/dV; and dQ's partial sums
+// on the Hopper route), 4 dQ (its kernel, or the Hopper route's conversion).
 template <int DP>
-cudaError_t launch_f32(const BwdParams& p, cudaStream_t s) {
+cudaError_t launch_f32(const BwdParams& p, int phases, cudaStream_t s) {
   constexpr size_t smem = f32_smem_bytes<DP>();
   const int n = (p.S + kF - 1) / kF;
-  cudaError_t err = launch(dkdv_f32_kernel<DP>, dim3(n, p.B * p.Hkv), smem, s, p);
-  if (err != cudaSuccess) return err;
-  return launch(dq_f32_kernel<DP>, dim3(n, p.B * p.H), smem, s, p);
+  cudaError_t err = cudaSuccess;
+  if (phases & 2) err = launch(dkdv_f32_kernel<DP>, dim3(n, p.B * p.Hkv), smem, s, p);
+  if (err == cudaSuccess && (phases & 4)) {
+    err = launch(dq_f32_kernel<DP>, dim3(n, p.B * p.H), smem, s, p);
+  }
+  return err;
+}
+
+cudaError_t launch_bf16_mma(const BwdParams& p, int phases, cudaStream_t s) {
+  constexpr int DP = 256, DC = 128;
+  cudaError_t err = cudaSuccess;
+  if (phases & 2) {
+    const dim3 kv_grid((p.S + kKBN - 1) / kKBN, p.B * p.Hkv, DP / DC);
+    err = launch(dkdv_bf16_kernel<DP, DC>, kv_grid, dkdv_smem_bytes<DP>(), s, p);
+  }
+  if (err == cudaSuccess && (phases & 4)) {
+    const dim3 q_grid((p.S + kQBM - 1) / kQBM, p.B * p.H, DP / DC);
+    err = launch(dq_bf16_kernel<DP, DC>, q_grid, dq_smem_bytes<DP>(), s, p);
+  }
+  return err;
 }
 
 template <int DP>
-cudaError_t launch_bf16(const BwdParams& p, cudaStream_t s) {
-  constexpr int DC = DP < 128 ? DP : 128;
-  const dim3 kv_grid((p.S + kKBN - 1) / kKBN, p.B * p.Hkv, DP / DC);
-  cudaError_t err = launch(dkdv_bf16_kernel<DP, DC>, kv_grid,
-                           dkdv_smem_bytes<DP>(), s, p);
-  if (err != cudaSuccess) return err;
-  const dim3 q_grid((p.S + kQBM - 1) / kQBM, p.B * p.H, DP / DC);
-  return launch(dq_bf16_kernel<DP, DC>, q_grid, dq_smem_bytes<DP>(), s, p);
+int launch_bf16_wgmma(const BwdParams& p, float* stats, float* ws, int* turns,
+                      int phases, cudaStream_t s) {
+  using L = HLayout<DP>;
+  const int nqt = (p.S + kHBM - 1) / kHBM, nkt = (p.S + kHBN - 1) / kHBN;
+  if (phases & 1) {
+    stats_kernel<<<dim3(nqt * kHBM / kStatRows, p.B * p.H), 32 * kStatRows / 2,
+                   0, s>>>(p, reinterpret_cast<float2*>(stats), nqt * kHBM);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (phases & 2) {
+    CUtensorMap tq, tk, tv, tdo, tdk, tdv;
+    int err = encode_bf16_map(&tq, p.q, p.D, p.S, p.H, p.B, p.q_sb, p.q_sh,
+                              p.q_ss, kHBM);
+    if (err == 0) err = encode_bf16_map(&tk, p.k, p.D, p.S, p.Hkv, p.B, p.k_sb,
+                                        p.k_sh, p.k_ss, kHBN);
+    if (err == 0) err = encode_bf16_map(&tv, p.v, p.D, p.S, p.Hkv, p.B, p.v_sb,
+                                        p.v_sh, p.v_ss, kHBN);
+    if (err == 0) err = encode_bf16_map(&tdo, p.dout, p.D, p.S, p.H, p.B,
+                                        p.do_sb, p.do_sh, p.do_ss, kHBM);
+    if (err == 0) err = encode_bf16_map(&tdk, p.dk, p.D, p.S, p.Hkv, p.B,
+                                        p.dk_sb, p.dk_sh, p.dk_ss, 64);
+    if (err == 0) err = encode_bf16_map(&tdv, p.dv, p.D, p.S, p.Hkv, p.B,
+                                        p.dv_sb, p.dv_sh, p.dv_ss, 64);
+    if (err != 0) return err;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        bwd_bf16_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    HParams hp;
+    hp.S = p.S;
+    hp.H = p.H;
+    hp.Hkv = p.Hkv;
+    hp.group = p.H / p.Hkv;
+    hp.nqt = nqt;
+    hp.nkt = nkt;
+    hp.causal = p.causal;
+    hp.scale = p.scale;
+    hp.sl2 = p.scale * kLog2e;
+    hp.stats = stats;
+    hp.ws = ws;
+    hp.turns = turns;
+    bwd_bf16_wgmma_kernel<DP><<<dim3(nkt, p.B * p.Hkv), kHThreads, L::smem, s>>>(
+        tq, tk, tv, tdo, tdk, tdv, hp);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return static_cast<int>(launched);
+  }
+  if (phases & 4) {
+    dq_convert_kernel<DP><<<dim3(nqt, p.B * p.H), 256, 0, s>>>(p, ws, nqt);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return 0;
+}
+
+// the caller gave less scratch than the route reads and writes
+constexpr int kScratchError = 90000;
+
+// Whether the caller's scratch (element counts of delta, dq_accum and
+// turns) holds what the route reads and writes; the layout is documented
+// at flash_attention_bwd_launch.
+bool scratch_fits(const long long* len, int dtype, int B, int H, int S,
+                  int D) {
+  const long long bh = static_cast<long long>(B) * H;
+  if (dtype != 1 || D > 128) return len[0] >= bh * S;
+  const long long rows = bh * ((S + kHBM - 1) / kHBM) * kHBM;
+  return len[0] >= rows * 2 && len[1] >= rows * (D <= 64 ? 64 : 128) &&
+         len[2] >= rows / kHBM;
 }
 
 }  // namespace
@@ -724,19 +1384,31 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv alike).
 // strides holds the (batch, head, sequence) strides in elements of q, k, v,
 // o, do, dq, dk and dv, in that order; each last dim is dense. lse is the
-// forward's (B, H, S) f32 log-sum-exp, delta a (B, H, S) f32 scratch. The
+// forward's (B, H, S) f32 log-sum-exp. The caller's scratch: on the bf16
+// D <= 128 route, delta is (B, H, nqt * 64, 2) f32 (nqt = ceil(S / 64)),
+// dq_accum (B, H, nqt, 64, 64 or 128 for D <= 64 or above) f32 and turns
+// (B, H, nqt) int32, zero; elsewhere delta is (B, H, S) f32 and dq_accum and
+// turns are not read. scratch_len holds the element counts of delta,
+// dq_accum and turns as allocated (0 for one not given); a count below the
+// route's returns kScratchError and launches nothing. phases: 1 the preprocess, 2 the main kernel, 4 dQ's
+// kernel or conversion; 7 runs the whole backward, and the others time its
+// kernels apart (phase 2 needs the turns zeroed again before each run). The
 // caller guarantees 1 <= S, H % Hkv == 0, B * H <= 65535, D % 8 == 0 with
-// 8 <= D <= 256, and (for bf16) 16-byte aligned rows.
+// 8 <= D <= 256, and (for bf16) 16-byte aligned rows and strides below
+// 2^40 bytes (the tensor maps' limits).
 int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* dout,
                                void* dq, void* dk, void* dv, const float* lse,
-                               float* delta, const long long* strides, int B,
-                               int H, int Hkv, int S, int D, float scale,
-                               int causal, void* stream) {
+                               float* delta, float* dq_accum, int* turns,
+                               const long long* strides,
+                               const long long* scratch_len, int B, int H,
+                               int Hkv, int S, int D, float scale, int causal,
+                               int phases, void* stream) {
   if ((dtype != 0 && dtype != 1) || D < 8 || D > 256 || D % 8 != 0 || S < 1 ||
-      Hkv < 1 || H % Hkv != 0 || B * H > 65535) {
+      Hkv < 1 || H % Hkv != 0 || B * H > 65535 || phases < 0 || phases > 7) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!scratch_fits(scratch_len, dtype, B, H, S, D)) return kScratchError;
   BwdParams p;
   p.q = q;
   p.k = k;
@@ -761,27 +1433,41 @@ int flash_attention_bwd_launch(int dtype, const void* q, const void* k,
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 rows((S + kThreads / 32 - 1) / (kThreads / 32), B * H);
-  cudaError_t err = dtype == 1 ? launch(delta_kernel<uint16_t>, rows, 0, s, p)
-                               : launch(delta_kernel<float>, rows, 0, s, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dtype == 1) {  // bf16: the kernels are chosen by D alone
-    if (D <= 64) err = launch_bf16<64>(p, s);
-    else if (D <= 128) err = launch_bf16<128>(p, s);
-    else err = launch_bf16<256>(p, s);
+  if (dtype == 1 && D <= 128) {  // bf16: the kernels are chosen by D alone
+    return D <= 64 ? launch_bf16_wgmma<64>(p, delta, dq_accum, turns, phases, s)
+                   : launch_bf16_wgmma<128>(p, delta, dq_accum, turns, phases, s);
+  }
+  cudaError_t err = cudaSuccess;
+  if (phases & 1) {
+    const dim3 rows((S + kThreads / 32 - 1) / (kThreads / 32), B * H);
+    err = dtype == 1 ? launch(delta_kernel<uint16_t>, rows, 0, s, p)
+                     : launch(delta_kernel<float>, rows, 0, s, p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (dtype == 1) {
+    err = launch_bf16_mma(p, phases, s);
   } else if (D <= 32) {
-    err = launch_f32<32>(p, s);
+    err = launch_f32<32>(p, phases, s);
   } else if (D <= 64) {
-    err = launch_f32<64>(p, s);
+    err = launch_f32<64>(p, phases, s);
   } else if (D <= 128) {
-    err = launch_f32<128>(p, s);
+    err = launch_f32<128>(p, phases, s);
   } else {
-    err = launch_f32<256>(p, s);
+    err = launch_f32<256>(p, phases, s);
   }
   return static_cast<int>(err);
 }
 
 const char* flash_attention_bwd_error_string(int code) {
+  static char buf[96];
+  if (code == kScratchError) {
+    return "the scratch given is smaller than the route reads and writes";
+  }
+  if (code >= kEncodeError) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
+             code - kEncodeError);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -19,7 +19,13 @@ The backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
 takes the forward's output and its per-row log-sum-exp, which the forward
 writes when it is given an ``lse`` buffer, and gives dq, dk, dv in the
 inputs' dtype and layout; ``flash_attention_plain_bwd`` is its plain
-version. ``flash_attention_bwd.launches`` counts its calls on the card.
+version. Its entry point also picks by (dtype, D) alone: bf16 with
+D <= 128 takes the Hopper route (a preprocess, one TMA/``wgmma`` pass for
+dk, dv and dq's partial sums, added into an f32 workspace in a fixed
+order of turns, and a conversion of that workspace into dq), bf16 with
+D > 128 ``mma.sync`` kernels, f32 CUDA-core ones; ``_bwd_scratch`` makes
+each route's scratch. ``flash_attention_bwd.launches`` counts its calls on
+the card.
 ``kernels.ops.flash_attention`` ties the two into one autograd function.
 The plain versions also take float64 (the gradient checks); the kernels
 do not.
@@ -248,8 +254,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
     """The gradients (dq, dk, dv) of ``flash_attention_bhsd`` at q, k, v,
     given its output o, its log-sum-exp lse and the output's gradient do
     ((B, H, S, D) like q). Launches the backward kernels (a preprocess for
-    rowsum(do o), then dk/dv and dq) for CUDA tensors and raises if it
-    cannot; CPU tensors take ``flash_attention_plain_bwd``. dq, dk, dv, if
+    rowsum(do o), then dk/dv and dq: three launches on every route) for
+    CUDA tensors and raises if it cannot; CPU tensors take
+    ``flash_attention_plain_bwd``. dq, dk, dv, if
     given, are tensors (any strides the kernels can write) that receive the
     results."""
     _check(q, k, v)
@@ -264,31 +271,79 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
     _check_card(q)
     dq, dk, dv = (_out(x, like, name) for x, like, name in
                   ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")))
-    tensors = (q, k, v, o, do, dq, dk, dv)
     for name, x in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"),
-                       tensors):
+                       (q, k, v, o, do, dq, dk, dv)):
         _check_layout(name, x)
     if not lse.is_contiguous():
         raise ValueError("the backward needs a contiguous lse")
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(
-        *(st for x in tensors for st in x.stride()[:3]))
-    lib = _bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_bwd_launch(
-            _DTYPE_CODE[q.dtype], *(x.data_ptr() for x in tensors),
-            lse.data_ptr(), delta.data_ptr(), strides, B, H, k.shape[1], S,
-            D, scale, int(bool(causal)), stream)
-    if err != 0:
-        raise RuntimeError("flash attention backward launch failed: "
-                           + lib.flash_attention_bwd_error_string(err)
-                           .decode())
+    _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, _bwd_scratch(q), causal,
+                scale, _ALL_PHASES)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0    # backward calls on the card so far
+
+# the backward's kernels, by the C entry point's phase bits
+BWD_PHASES = {"preprocess": 1, "main": 2, "dq": 4}
+_ALL_PHASES = 7
+_BWD_TILE = 64                  # query rows of a dq workspace tile
+
+
+def _hopper_bwd(q) -> bool:
+    """Whether the backward takes the Hopper route: bf16 with D <= 128."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] <= 128
+
+
+def _bwd_scratch(q) -> dict:
+    """The backward's scratch, made with ``torch.empty`` (only the turn
+    counters are zeroed). Hopper route: ``delta`` (B, H, S padded to whole
+    64-row tiles, 2) f32 pairs (lse * log2 e, delta); ``dq_accum``, the f32
+    workspace of dq's sums, (B, H, tiles, 64, DP) with DP = 64 or 128;
+    ``turns`` (B, H, tiles) int32. Other routes: ``delta`` (B, H, S)
+    f32. The C entry point holds the same layout and refuses a launch
+    whose scratch is smaller."""
+    B, H, S, D = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if not _hopper_bwd(q):
+        return {"delta": torch.empty((B, H, S), **f32), "dq_accum": None,
+                "turns": None}
+    tiles = -(-S // _BWD_TILE)
+    width = 64 if D <= 64 else 128
+    return {"delta": torch.empty((B, H, tiles * _BWD_TILE, 2), **f32),
+            "dq_accum": torch.empty((B, H, tiles, _BWD_TILE, width), **f32),
+            "turns": torch.zeros((B, H, tiles), dtype=torch.int32,
+                                 device=q.device)}
+
+
+def _launch_bwd(q, k, v, o, lse, do, dq, dk, dv, scratch: dict, causal,
+                scale, phases: int) -> None:
+    """One call of the backward's C entry point on checked tensors:
+    ``phases`` picks its kernels (``BWD_PHASES``; all of them for the
+    backward, one at a time to time them apart, the main kernel's turns
+    zeroed again before each of its runs)."""
+    B, H, S, D = q.shape
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 24)(
+        *(st for x in tensors for st in x.stride()[:3]))
+    ptr = {n: None if x is None else x.data_ptr() for n, x in scratch.items()}
+    # the C entry point refuses scratch smaller than its route's layout
+    scratch_len = (ctypes.c_longlong * 3)(
+        *(0 if scratch[n] is None else scratch[n].numel()
+          for n in ("delta", "dq_accum", "turns")))
+    lib = _bwd_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_launch(
+            _DTYPE_CODE[q.dtype], *(x.data_ptr() for x in tensors),
+            lse.data_ptr(), ptr["delta"], ptr["dq_accum"], ptr["turns"],
+            strides, scratch_len, B, H, k.shape[1], S, D, scale,
+            int(bool(causal)),
+            phases, stream)
+    if err != 0:
+        raise RuntimeError("flash attention backward launch failed: "
+                           + lib.flash_attention_bwd_error_string(err)
+                           .decode())
 
 
 def _library() -> ctypes.CDLL:
@@ -296,12 +351,17 @@ def _library() -> ctypes.CDLL:
 
 
 def _bwd_library() -> ctypes.CDLL:
-    lib = load_library("flash_attention_bwd")
+    return bind_bwd(load_library("flash_attention_bwd"))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points' types on a loaded build of
+    ``csrc/flash_attention_bwd.cu``."""
     if lib.flash_attention_bwd_launch.argtypes is None:
         lib.flash_attention_bwd_launch.argtypes = [
-            ctypes.c_int, *[ctypes.c_void_p] * 10,
-            ctypes.POINTER(ctypes.c_longlong), *[ctypes.c_int] * 5,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, *[ctypes.c_void_p] * 12,
+            *[ctypes.POINTER(ctypes.c_longlong)] * 2, *[ctypes.c_int] * 5,
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         lib.flash_attention_bwd_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_bwd_error_string.restype = ctypes.c_char_p

@@ -17,6 +17,8 @@ to the plain version on the card (``tests/test_torch_gpu.py``,
 ``chip_smoke.py``).
 """
 import dataclasses
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -209,6 +211,115 @@ def test_bound_of_the_backward_at_the_prefill_shape():
     assert round(fa.bound_flops_bwd(q, k) / 989e12 * 1e3, 2) == 2.43
     assert fa.bound_bytes_bwd(q, k, k) == (
         2 * (4 * 4 * 56 + 4 * 4 * 8) * 4096 * 128 + 4 * 4 * 56 * 4096)
+
+
+@pytest.mark.parametrize("dtype,D,S,route", [
+    (torch.bfloat16, 128, 4096, "hopper"),
+    (torch.bfloat16, 120, 777, "hopper"),
+    (torch.bfloat16, 40, 1, "hopper"), (torch.bfloat16, 256, 130, "mma"),
+    (torch.float32, 128, 130, "f32")])
+def test_backward_scratch_follows_the_route(dtype, D, S, route):
+    """The Hopper route (bf16, D <= 128) takes the (lse * log2 e, delta)
+    pairs padded to whole 64-row tiles, an f32 dq workspace of 64 x 64 or
+    64 x 128 tiles and zeroed int32 turn counters; the other routes a
+    (B, H, S) delta alone. At the prefill shape the workspace is 470
+    MB."""
+    q = torch.empty((4, 56, S, D), dtype=dtype, device="meta")
+    got = fa._bwd_scratch(q)
+    assert fa._hopper_bwd(q) == (route == "hopper")
+    if route != "hopper":
+        assert got["delta"].shape == (4, 56, S)
+        assert got["dq_accum"] is None and got["turns"] is None
+        return
+    tiles, width = -(-S // 64), 64 if D <= 64 else 128
+    assert got["delta"].shape == (4, 56, tiles * 64, 2)
+    assert got["dq_accum"].shape == (4, 56, tiles, 64, width)
+    assert got["dq_accum"].dtype == torch.float32
+    assert got["turns"].shape == (4, 56, tiles)
+    assert got["turns"].dtype == torch.int32
+    if S == 4096:
+        assert got["dq_accum"].numel() * 4 == 4 * 56 * 4096 * 128 * 4
+
+
+def test_library_path_follows_every_shared_header(tmp_path, monkeypatch):
+    """A build is named by its source and every ``csrc/*.cuh`` header, so
+    an edit of a shared header rebuilds both flash libraries; an edit
+    elsewhere in ``csrc/`` does not."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    assert (csrc / "hopper.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", csrc)
+    names = ("flash_attention", "flash_attention_bwd", "scored_reduce")
+    before = {n: build.library_path(n) for n in names}
+    (csrc / "notes.txt").write_text("not a header")
+    assert {n: build.library_path(n) for n in names} == before
+    (csrc / "hopper.cuh").write_text((csrc / "hopper.cuh").read_text()
+                                     + "// edited\n")
+    after = {n: build.library_path(n) for n in names}
+    assert all(after[n] != before[n] for n in names)
+    assert all(after[n].parent == build.BUILD_DIR
+               and after[n].name.startswith(f"lib{n}-") for n in names)
+    (csrc / "flash_attention_bwd.cu").write_text(
+        (csrc / "flash_attention_bwd.cu").read_text() + "// edited\n")
+    assert build.library_path("flash_attention_bwd") != after[
+        "flash_attention_bwd"]
+    assert build.library_path("flash_attention") == after["flash_attention"]
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_build_returns_ptxas_report_for_a_cached_library(tmp_path, monkeypatch,
+                                                         cached):
+    """A library built before comes back with the ptxas report that its
+    build wrote beside it, so ``chip_smoke.py`` finds the backward's Hopper
+    kernel in both D buckets whether or not ``nvcc`` ran in this process;
+    a library without its report is built again."""
+    from repro_torch.kernels import build
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    name = "flash_attention_bwd"
+    report = "".join(
+        f"ptxas info    : Function properties for _ZN12_GLOBAL__N_121"
+        f"bwd_bf16_wgmma_kernelILi{d}EEEv14CUtensorMap_st\n"
+        f"    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {r} registers, used 1 barriers\n"
+        for d, r in ((128, 247), (64, 184)))
+    nvcc_runs = []
+
+    class FakeNvcc:
+        def __init__(self, cmd, **_):
+            nvcc_runs.append(cmd)
+            Path(cmd[cmd.index("-o") + 1]).write_bytes(b"\x7fELF")
+            self.returncode = 0
+
+        def communicate(self):
+            return report, None
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(build.subprocess, "Popen", FakeNvcc)
+    path = build.library_path(name)
+    if cached:
+        path.write_bytes(b"\x7fELF")     # a library without its report
+        build.build((name,))
+        assert len(nvcc_runs) == 1
+    first = build.build((name,))[name]
+    assert first["log"] == report and first["path"] == path
+    assert path.with_suffix(".log").read_text() == report
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        path.with_suffix(".log").name, path.name]
+    again = build.build((name,))[name]
+    assert len(nvcc_runs) == 1
+    assert again == {"path": path, "seconds": 0.0, "log": report}
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    got = chip_smoke.hopper_bwd_report(again["log"])
+    assert sorted(got) == ["128", "64"]
+    assert got["128"] == [
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 247 registers, used 1 barriers"]
 
 
 # -- the training loss -------------------------------------------------------

@@ -659,9 +659,12 @@ def test_f32_solve_decisions_on_card_are_the_cpu_decisions(cuda, n_params):
 # -- the flash backward and the training path --------------------------------
 
 # (B, H, Hkv, S, D): the training shape, S of one key, ragged S over the
-# f32 and the three bf16 buckets, a 7:1 group
+# f32 and the three bf16 buckets, a 7:1 group; for the ordered dq of the
+# Hopper route, eight key tiles of an 8:1 group at a ragged S, and
+# h2o-danube's D = 120 (a ragged bucket of 128)
 BWD_SHAPES = [(2, 20, 20, 1024, 128), (1, 7, 1, 1, 128), (2, 14, 2, 130, 40),
-              (1, 4, 4, 77, 64), (2, 4, 2, 300, 128), (1, 8, 2, 130, 256)]
+              (1, 4, 4, 77, 64), (2, 4, 2, 300, 128), (1, 8, 2, 130, 256),
+              (1, 16, 2, 1000, 128), (2, 8, 8, 777, 120)]
 
 
 # the error's Frobenius norm over the gradient's own
@@ -732,12 +735,58 @@ def test_flash_backward_on_model_layout_views(cuda):
                  torch.bfloat16)
 
 
-def test_flash_backward_is_deterministic(cuda):
-    q, k, v, o, lse, do = _bwd_inputs(cuda, 2, 14, 2, 300, 128,
-                                      torch.bfloat16, True, seed=3)
-    a = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    b = fa.flash_attention_bwd(q, k, v, o, lse, do)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((2, 14, 2, 300, 128), torch.bfloat16, True),
+    ((1, 16, 2, 1000, 128), torch.bfloat16, True),    # 8 key tiles in turn
+    ((1, 16, 2, 1000, 128), torch.bfloat16, False),
+    ((2, 8, 8, 777, 120), torch.bfloat16, True),
+    ((1, 8, 2, 130, 256), torch.bfloat16, True),      # the mma.sync route
+    ((2, 14, 2, 300, 128), torch.float32, True)])     # the f32 route
+def test_flash_backward_is_deterministic(cuda, shape, dtype, causal):
+    """Three runs give the same bits: the Hopper route adds dq's partial
+    sums in a fixed order of turns, the others own each output."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, *shape, dtype, causal, seed=3)
+    a = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for _ in range(2):
+        b = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("shape", [(1, 16, 2, 1000, 128), (1, 4, 4, 77, 64),
+                                   (1, 8, 2, 130, 256)])
+def test_flash_backward_phases_run_apart(cuda, shape):
+    """The C entry point's phases (preprocess, main kernel, dq) launched
+    one at a time, as chip_smoke.py times them, give the whole backward's
+    bits, with the turns zeroed before the main kernel."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, *shape, torch.bfloat16, True)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    got = [torch.empty_like(x) for x in (q, k, v)]
+    scratch = fa._bwd_scratch(q)
+    for phase in fa.BWD_PHASES.values():
+        if scratch["turns"] is not None:
+            scratch["turns"].zero_()
+        fa._launch_bwd(q, k, v, o, lse, do, *got, scratch, True,
+                       shape[-1] ** -0.5, phase)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("shape,dtype,short", [
+    ((1, 16, 2, 1000, 128), torch.bfloat16, "delta"),
+    ((1, 16, 2, 1000, 128), torch.bfloat16, "dq_accum"),
+    ((2, 8, 8, 777, 120), torch.bfloat16, "turns"),
+    ((1, 4, 4, 77, 64), torch.bfloat16, "dq_accum"),
+    ((1, 8, 2, 130, 256), torch.bfloat16, "delta"),
+    ((2, 14, 2, 300, 128), torch.float32, "delta")])
+def test_flash_backward_refuses_short_scratch(cuda, shape, dtype, short):
+    """The C entry point holds the scratch layout too: one element short
+    of any buffer its route uses, it launches nothing and says why."""
+    q, k, v, o, lse, do = _bwd_inputs(cuda, *shape, dtype, True)
+    scratch = fa._bwd_scratch(q)
+    scratch[short] = scratch[short].flatten()[:-1]
+    got = [torch.empty_like(x) for x in (q, k, v)]
+    with pytest.raises(RuntimeError, match="scratch given is smaller"):
+        fa._launch_bwd(q, k, v, o, lse, do, *got, scratch, True,
+                       shape[-1] ** -0.5, 7)
 
 
 def test_flash_autograd_on_the_card_launches_both_kernels(cuda):

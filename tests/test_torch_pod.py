@@ -12,7 +12,7 @@ exception: its gradient is zero in exact arithmetic (one vector added to
 every key moves no softmax), so from its zero start it holds only the
 remainders of that cancellation, and it takes the floor of its sibling
 ``bq``. The stale engine's count-sketch signs are the reference's
-``PRNGKey(17)`` ones (``core.scores.sketch_signs`` replaced).
+``PRNGKey(17)`` ones (``core.scores.sketch_signs_int8`` replaced).
 """
 import dataclasses
 
@@ -183,7 +183,7 @@ def test_stale_steps_match_reference(reference, mesh, monkeypatch):
     jstep = jax.jit(reference.pod.make_stale_score_train_step(
         jc, jfl, mesh, U))
     signs = _reference_signs(w, 1024)
-    monkeypatch.setattr(scores, "sketch_signs",
+    monkeypatch.setattr(scores, "sketch_signs_int8",
                         lambda key, i, n, device="cpu":
                         torch.from_numpy(signs[i]).to(device))
     tstep = pod.make_stale_score_train_step(tc, fl, None, U)

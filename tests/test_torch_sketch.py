@@ -1,7 +1,8 @@
 """Sketched scores (``core/scores.py``): the count-sketch fed the
 reference's own threefry signs against the reference, the port's own signs
-(drawn from a torch generator seeded from ``sketch_key``, so equal to the
-reference's only in distribution) checked for what they must be, sketched
+(Philox counters under ``sketch_key``, drawn on the leaf's device and kept
+as int8, so equal to the reference's only in distribution) checked for
+what they must be, sketched
 scores against exact ones, and the sketched rounds and harness runs
 against the reference on shared signs."""
 import dataclasses
@@ -43,7 +44,7 @@ def reference_signs(monkeypatch):
     def signs(key, i, n, device="cpu"):
         return torch.as_tensor(_ref_signs(key, i, n, k["k"])).to(device)
 
-    monkeypatch.setattr(tsc, "sketch_signs", signs)
+    monkeypatch.setattr(tsc, "sketch_signs_int8", signs)
     return k
 
 
@@ -94,13 +95,16 @@ def test_lambda_scores_sketched_matches_reference(reference):
 
 
 def test_signs_are_fixed_per_key_and_leaf_and_balanced():
-    """+-1 only; the same (key, leaf, n) gives the same signs; another leaf
-    or key gives other signs; a two-sided binomial test of balance passes
-    at 1e-3 for each of several streams."""
+    """+-1 only, float32 from ``sketch_signs`` over the int8 cache; the
+    same (key, leaf, n) gives the same signs, twice and after the cache is
+    cleared; another leaf or key gives other signs; a two-sided binomial
+    test of balance passes at 1e-3 for each of several streams."""
     n = 200_003
     a = tsc.sketch_signs(KEY, 0, n)
     assert a.dtype == torch.float32 and a.shape == (n,)
     assert set(torch.unique(a).tolist()) == {-1.0, 1.0}
+    assert torch.equal(a, tsc.sketch_signs(KEY, 0, n))
+    assert torch.equal(a, tsc.sketch_signs_int8(KEY, 0, n).float())
     tsc._signs_cached.cache_clear()
     assert torch.equal(a, tsc.sketch_signs(KEY, 0, n))
     assert torch.equal(a, tsc.sketch_signs(np.array(KEY), 0, n))
@@ -114,6 +118,43 @@ def test_signs_are_fixed_per_key_and_leaf_and_balanced():
             assert binomtest(agree, n, 0.5).pvalue > 1e-3
         plus = int((s > 0).sum())
         assert binomtest(plus, n, 0.5).pvalue > 1e-3
+
+
+def test_sign_cache_holds_int8_drawn_without_a_host_generator(monkeypatch):
+    """The cache holds the signs as int8 +-1, one byte a sign, and no
+    ``torch.Generator`` takes part in drawing them (Philox counters);
+    a shorter n is the longer stream's prefix."""
+    monkeypatch.setattr(torch, "Generator", None)
+    tsc._signs_cached.cache_clear()
+    s = tsc.sketch_signs_int8(KEY, 2, 1_000)
+    assert s.dtype == torch.int8 and s.shape == (1_000,)
+    assert set(torch.unique(s).tolist()) == {-1, 1}
+    k = np.asarray(KEY, np.uint32)
+    assert tsc._signs_cached(int(k[0]), int(k[1]), 2, 1_000, "cpu") is s
+    assert torch.equal(tsc.sketch_signs_int8(KEY, 2, 700), s[:700])
+
+
+def test_signs_do_not_depend_on_the_draw_block(monkeypatch):
+    """Drawn in blocks of ``_BLOCK_ELEMS`` signs: a small block (several
+    blocks and a ragged last one) gives the same bits."""
+    n = 5_000
+    tsc._signs_cached.cache_clear()
+    want = tsc.sketch_signs_int8(KEY, 1, n).clone()
+    monkeypatch.setattr(tsc, "_BLOCK_ELEMS", 384)
+    tsc._signs_cached.cache_clear()
+    assert torch.equal(tsc.sketch_signs_int8(KEY, 1, n), want)
+    tsc._signs_cached.cache_clear()
+
+
+@pytest.mark.parametrize("N,k", [(1000, 16), (4099, 64), (7, 3)])
+def test_bucket_sums_on_int8_signs_equal_the_f32_product(N, k):
+    """The int8 signs enter the f32 sums exactly: the same sketch, bit for
+    bit, as the same signs in float32."""
+    x = torch.as_tensor(np.random.default_rng(N).normal(size=(3, N))
+                        .astype(np.float32))
+    s8 = tsc.sketch_signs_int8(KEY, 0, N)
+    assert torch.equal(tsc._bucket_sums(x, s8, k),
+                       tsc._bucket_sums(x, s8.float(), k))
 
 
 def _tree(i, scale=1.0):

@@ -67,7 +67,7 @@ def build_all(out_dir: Path) -> dict:
         cu.write_text(text)
         so = out_dir / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), so)
     libs = {}
     for name, (proc, so) in procs.items():
