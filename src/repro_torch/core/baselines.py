@@ -360,7 +360,10 @@ def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
     ``"stacked"`` the two-tier servers of ``core/hierarchy.py`` when
     ``num_clusters >= 1``, else ``StackedOSAFLServer`` or one of
     ``STACKED_SERVERS``; on ``"loop"``, ``OSAFLServer`` or one of
-    ``SERVERS``. The pod engine raises until it is ported."""
+    ``SERVERS``. Any other engine raises: the pod harness's servers are
+    the stacked ones (its ``FLConfig`` says ``engine="stacked"``), and the
+    reference's ``make_server`` hands an ``engine="pod"`` config the loop
+    servers, which no harness asks for."""
     if fl.engine not in ("stacked", "loop"):
         raise NotImplementedError(
             f"not ported to repro_torch yet: engine={fl.engine!r} (ported: "

@@ -8,8 +8,7 @@ The stationary-batch engines are ported as the reference computes them:
 
 exact_tp    one client row: its gradient d, cos(d, d_mean) with d_mean =
             d, lambda = (chi + cos) / (chi + 1) and the update lambda d (a
-            count-sketch cosine with ``sketch_dim``). A mesh of more than
-            one client row raises (ROADMAP A10.6, ``torch.distributed``).
+            count-sketch cosine with ``sketch_dim``).
 recompute   clients in sequence, two backwards: pass 1 sums d_u, pass 2
             recomputes each d_u, scores it against d_mean and sums lambda_u
             d_u; f32 accumulators (bf16 with ``REPRO_ACCUM_BF16=1``).
@@ -19,10 +18,25 @@ fedavg      the unscored data-parallel step.
 
 Each step returns new parameters and leaves its inputs alone; the
 accumulators of a step are summed in place (they are the step's own).
-Online mode (``batch_fn``/``grad_fn``, ``make_pod_batch_fn``) raises
-``NotImplementedError`` until A10.6. The count-sketch signs are the port's
-(``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to the
-reference's ``PRNGKey(17)`` signs only in distribution.
+
+Online mode: every factory also takes ``batch_fn``/``grad_fn``. With
+``batch_fn`` set, the step takes the storage of a ``StackedOnlineBuffer``
+and sampled slots instead of a batch, gathers each client's local-SGD
+minibatches from the client's own storage row (``make_pod_batch_fn``) and
+runs the paper's masked kappa_u-step local SGD
+(``client.make_local_train_body``) for each client:
+``step(params, bx, by, slots, kappas) -> (d, w)``, stacked over the
+clients. exact_tp, stale and fedavg run every client under one
+``torch.func.vmap``; recompute runs them one at a time and writes each
+client's ``d_u``/``w_u`` into preallocated (U, ...) trees, so no U-wide
+SGD state is live. Aggregation stays with the stacked servers
+(``repro_torch.harness.run`` on the pod engine; stale's one-round score lag
+is the server's ``FLConfig.stale_scores``).
+
+A layout of more than one client row raises: client rows across cards come
+with ``torch.distributed`` (ROADMAP.md A6). The count-sketch signs are the
+port's (``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to
+the reference's ``PRNGKey(17)`` signs only in distribution.
 """
 from __future__ import annotations
 
@@ -32,9 +46,11 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import FLConfig, ModelConfig
+from repro_torch.core.client import make_local_train_body
 from repro_torch.core.flatten import (tree_from_leaves, tree_get, tree_map,
                                       tree_paths)
 from repro_torch.core.scores import sketch_tree, tree_dot, tree_norm
+from repro_torch.core.shmap import client_rows
 from repro_torch.models.transformer import decode_step, forward, loss_fn
 
 # the (2,) uint32 words of the reference's PRNGKey(17)
@@ -48,24 +64,85 @@ def num_pod_clients(mesh=None) -> int:
 
 
 def _one_row(mesh) -> None:
-    if mesh not in (None, 1):
-        raise NotImplementedError(
-            f"repro_torch runs the pod engines on one card, one client row; "
-            f"got the layout {mesh!r}. Client rows across cards come with "
-            f"torch.distributed (ROADMAP.md A10.6)")
+    """Accept one client row: ``None``, ``1`` or a mesh whose client axes
+    hold one device (``launch/mesh.make_host_mesh``)."""
+    if mesh is None or mesh == 1 or (hasattr(mesh, "axis_names")
+                                     and client_rows(mesh) == 1):
+        return
+    raise NotImplementedError(
+        f"repro_torch runs the pod engines on one card, one client row; "
+        f"got the layout {mesh!r}. Client rows across cards come with "
+        f"torch.distributed (ROADMAP.md A6)")
 
 
-def _offline(batch_fn, grad_fn) -> None:
-    if batch_fn is not None or grad_fn is not None:
-        raise NotImplementedError(
-            "online mode (batch_fn/grad_fn: rows sampling their own buffer "
-            "shard) is not ported yet (ROADMAP.md A10.6)")
-
+# ---------------------------------------------------------------------------
+# online mode: each client samples its minibatches from its own storage row
+# of a StackedOnlineBuffer (the paper's FIFO arrivals on the pod engines)
+# ---------------------------------------------------------------------------
 
 def make_pod_batch_fn() -> Callable:
-    raise NotImplementedError(
-        "make_pod_batch_fn belongs to online mode, which is not ported yet "
-        "(ROADMAP.md A10.6)")
+    """``batch_fn(bx, by, slots)``: each client row's local-SGD minibatches
+    gathered from that client's own storage rows. ``bx``/``by`` are the
+    buffer's storage (U, D, *feat) / (U, D) and ``slots`` the
+    (U, kappa_max, B) live-window slots of
+    ``StackedOnlineBuffer.sample_slots``; returns the ``{"x", "y"}`` batch
+    with leaves (U, kappa_max, B, ...) that ``client.make_local_train_body``
+    consumes (the indexing of ``StackedOnlineBuffer.gather``)."""
+    def batch_fn(bx, by, slots):
+        U = bx.shape[0]
+        idx = torch.as_tensor(slots, dtype=torch.long, device=bx.device)
+        uu = torch.arange(U, device=bx.device).reshape(
+            (U,) + (1,) * (idx.ndim - 1))
+        return {"x": bx[uu, idx], "y": by[uu, idx]}
+    return batch_fn
+
+
+def _online_grad_fn(grad_fn, cfg):
+    """The caller's ``grad_fn``, else the gradient of the zoo's
+    ``loss_fn`` (which reads ``batch["tokens"]`` and ``["labels"]``, so a
+    caller pairs it with a batch function that gives them)."""
+    if grad_fn is not None:
+        return grad_fn
+    return torch.func.grad(lambda p, b: loss_fn(p, b, cfg)[0])
+
+
+def _make_online_step(fl: FLConfig, mesh, batch_fn: Callable,
+                      grad_fn: Callable, *, scan: bool = False,
+                      prox_mu: float = 0.0) -> Callable:
+    """The online step of the four factories: ``step(params, bx, by, slots,
+    kappas) -> (d, w)``, ``d``/``w`` trees with a leading client axis.
+    ``scan=False`` (exact_tp, stale, fedavg) runs every client under one
+    ``torch.func.vmap``; ``scan=True`` (recompute) runs one client at a
+    time and writes its outputs into preallocated (U, ...) trees. Both run
+    ``client.make_local_train_body``'s masked local SGD, so kappa_u = 0
+    stragglers give d_u = 0 and the forms agree to rounding."""
+    _one_row(mesh)
+    one_client = make_local_train_body(grad_fn, fl.local_lr, fl.kappa_max,
+                                       prox_mu=prox_mu)
+
+    if scan:
+        def step(params, bx, by, slots, kappas):
+            batch = batch_fn(bx, by, slots)
+            U = int(kappas.shape[0])
+            d = w = None
+            for u in range(U):
+                d_u, w_u = one_client(params,
+                                      tree_map(lambda b: b[u], batch),
+                                      kappas[u])
+                if d is None:
+                    d, w = (tree_map(lambda x: x.new_empty(
+                        (U,) + tuple(x.shape)), t) for t in (d_u, w_u))
+                for out, one in ((d, d_u), (w, w_u)):
+                    for p in tree_paths(out):
+                        tree_get(out, p)[u].copy_(tree_get(one, p))
+            return d, w
+        return step
+
+    many = torch.func.vmap(one_client, in_dims=(None, 0, 0))
+
+    def step(params, bx, by, slots, kappas):
+        return many(params, batch_fn(bx, by, slots), kappas)
+    return step
 
 
 def _lambda(chi, cos):
@@ -113,8 +190,12 @@ def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
                        prox_mu: float = 0.0) -> Callable:
     """``step(params, batch) -> (new params, metrics)`` on one client row:
     the whole batch is the row's; ``kappa_max`` > 1 splits it into that
-    many microbatches whose gradients are averaged."""
-    _offline(batch_fn, grad_fn)
+    many microbatches whose gradients are averaged. With ``batch_fn``, the
+    online step (module docstring)."""
+    if batch_fn is not None:
+        return _make_online_step(fl, mesh, batch_fn,
+                                 _online_grad_fn(grad_fn, cfg),
+                                 prox_mu=prox_mu)
     _one_row(mesh)
     U = 1
     lr_eff = fl.global_lr * fl.local_lr
@@ -165,8 +246,12 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
                               prox_mu: float = 0.0) -> Callable:
     """``step(params, batch) -> (new params, metrics)``, batch leaves
     (U, b, ...). ``grad_specs`` (the reference's sharding pins) is taken
-    and has nothing to pin on one card."""
-    _offline(batch_fn, grad_fn)
+    and has nothing to pin on one card. With ``batch_fn``, the online step
+    in its one-client-at-a-time form (module docstring)."""
+    if batch_fn is not None:
+        return _make_online_step(fl, mesh, batch_fn,
+                                 _online_grad_fn(grad_fn, cfg),
+                                 scan=True, prox_mu=prox_mu)
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
@@ -218,8 +303,13 @@ def make_stale_score_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
                                 grad_fn: Callable = None,
                                 prox_mu: float = 0.0) -> Callable:
     """``step(params, lam_prev (U,), batch) -> (new params, lam_next,
-    metrics)``, batch leaves (U, b, ...)."""
-    _offline(batch_fn, grad_fn)
+    metrics)``, batch leaves (U, b, ...). With ``batch_fn``, exact_tp's
+    online step: the one-round score lag is the server's
+    (``FLConfig.stale_scores``)."""
+    if batch_fn is not None:
+        return _make_online_step(fl, mesh, batch_fn,
+                                 _online_grad_fn(grad_fn, cfg),
+                                 prox_mu=prox_mu)
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
@@ -259,8 +349,12 @@ def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
                            grad_fn: Callable = None,
                            prox_mu: float = 0.0) -> Callable:
     """``step(params, batch) -> (new params, {"loss"})``: the unscored
-    baseline."""
-    _offline(batch_fn, grad_fn)
+    baseline. With ``batch_fn``, exact_tp's online step: unscored
+    averaging is the stacked FedAvg server's."""
+    if batch_fn is not None:
+        return _make_online_step(fl, mesh, batch_fn,
+                                 _online_grad_fn(grad_fn, cfg),
+                                 prox_mu=prox_mu)
     lr_eff = fl.global_lr * fl.local_lr
 
     def step(params, batch):

@@ -3,9 +3,9 @@
 ``RULES`` is the reference's matrix (``repro/harness/compat.py``), copied
 rule for rule in its order; its ``fused-*`` and ``scenario-fused`` rules
 alone decide which fused rounds run. ``PORT_RULES`` then rejects, in the
-same uniform form, what the port does not run yet: the pod engine and a
-mesh. ``resolve()`` evaluates both lists in order and raises on the first
-match:
+same uniform form, what the port does not run yet: a mesh of more than one
+client row. ``resolve()`` evaluates both lists in order and raises on the
+first match:
 
     invalid experiment configuration [rule-key]: why
 """
@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple, Optional
+
+from repro_torch.core.shmap import client_rows
 
 ENGINES = ("auto", "loop", "stacked", "pod", "centralized")
 POD_ENGINES = ("exact_tp", "recompute", "stale", "fedavg")
@@ -47,7 +49,7 @@ class ResolvedPlan:
     num_clusters: int
     num_clients: int
     scenario: str
-    mesh: bool = False          # a mesh was passed
+    mesh_rows: int = 0          # the passed mesh's client rows; 0: none
     scn: object = dataclasses.field(repr=False, compare=False, default=None)
 
     def describe(self) -> str:
@@ -209,23 +211,32 @@ RULES = (
 
 def _not_ported(what: str) -> str:
     return (f"{what} is not ported to repro_torch yet (the port runs every "
-            "algorithm on the stacked dispatch round, engine 'stacked' or "
-            "'auto', with the sparse cohort, the cluster tier, scenarios and "
-            "sketched scores, OSAFL on the fused round "
-            "(round_backend='fused'), the per-client loop oracle, engine "
-            "'loop', and the centralized genie: either request and resource "
-            "backend, checkpoints, no mesh)")
+            "engine of the reference on one card: the stacked dispatch "
+            "round, the fused round, the per-client loop oracle, the genie "
+            "and the pod engine on one client row, the mesh of "
+            "repro_torch.launch.mesh.make_host_mesh(); client rows across "
+            "cards come with torch.distributed, ROADMAP.md A6)")
 
 
 #: What the port does not run yet, checked after ``RULES``.
 PORT_RULES = (
-    Rule("port-engine",
-         lambda p: p.engine not in ("stacked", "loop", "centralized"),
-         lambda p: _not_ported(f"engine={p.engine!r}")),
     Rule("port-mesh",
-         lambda p: p.mesh,
-         lambda p: _not_ported("a mesh")),
+         lambda p: p.mesh_rows > 1,
+         lambda p: _not_ported(f"a mesh of {p.mesh_rows} client rows")),
 )
+
+
+def mesh_rows(mesh) -> int:
+    """The client rows of ``mesh`` (``core/shmap.client_rows``), 0 for no
+    mesh. A mesh is an object with ``axis_names`` and a ``shape`` mapping
+    each axis to its size."""
+    if mesh is None:
+        return 0
+    if not hasattr(mesh, "axis_names") or not hasattr(mesh, "shape"):
+        raise TypeError(
+            f"mesh {mesh!r} has no axis_names and shape; pass "
+            "repro_torch.launch.mesh.make_host_mesh()")
+    return client_rows(mesh)
 
 
 def resolve(alg: str, xc, mesh=None,
@@ -256,7 +267,7 @@ def resolve(alg: str, xc, mesh=None,
         participation=float(xc.participation),
         num_clusters=int(getattr(xc, "num_clusters", 0)),
         num_clients=int(xc.num_clients),
-        scenario=xc.scenario, mesh=mesh is not None, scn=scn)
+        scenario=xc.scenario, mesh_rows=mesh_rows(mesh), scn=scn)
     for rule in RULES + PORT_RULES:
         if rule.key == "rounds-per-dispatch":
             # placeholder in the reference's order: rpd is checked here

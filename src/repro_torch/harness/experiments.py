@@ -1,8 +1,9 @@
 """The experiment harness of the port: ``run(alg, xc)`` over the dense
-stacked dispatch round or the per-client loop oracle for OSAFL and the five
-baselines, and the centralized genie; the port of
-``repro/harness/experiments.py``'s ``_run_stacked``, ``_run_loop`` and
-``_run_centralized`` with their RunState checkpoints.
+stacked dispatch round, the pod engine or the per-client loop oracle for
+OSAFL and the five baselines, and the centralized genie; the port of
+``repro/harness/experiments.py``'s ``_run_stacked``, ``_run_pod``,
+``_run_loop`` and ``_run_centralized`` with their RunState checkpoints,
+and of its four deprecated ``run_*`` shims.
 
 Each stacked round: Binomial arrivals whose samples come from the per-user
 request streams (``request_backend="python"``) or the batched Gumbel-max
@@ -22,7 +23,17 @@ server (``OSAFLServer``, which scores without the kernel, or one of
 (``full_f32_convolutions``) and to deterministic algorithms
 (``deterministic_convolutions``).
 
-The stacked engine also runs the sparse cohort (``cohort_size``,
+The pod engine (``engine="pod"``, or a mesh under ``"auto"``) runs the
+stacked round with the local SGD of ``core/pod.py``'s online steps, which
+gather each client's minibatches from its own storage row: ``exact_tp``,
+``stale`` and ``fedavg`` vmapped over the clients, ``recompute`` one
+client at a time; ``stale`` weights round t with round t-1's scores
+(``FLConfig.stale_scores``). Its mesh is one client row on one card
+(``launch/mesh.make_host_mesh``), where it matches the stacked engine
+metric for metric; its snapshots are tagged ``"pod"`` and record the
+engine flavour and the mesh's axes and shape.
+
+The stacked and pod engines also run the sparse cohort (``cohort_size``,
 ``participation``: only C slots of round state exist, a sample of the
 registered users is seated each round, ``core/cohort.py``), the edge
 cluster tier (``num_clusters``, ``core/hierarchy.py``), the scenario layer
@@ -59,10 +70,15 @@ from repro_torch.core.cohort import sample_participants
 from repro_torch.core.flatten import tree_map
 from repro_torch.core.hierarchy import sample_participants_clustered
 from repro_torch.core.osafl import ClientUpdate
+from repro_torch.core.pod import (make_fedavg_train_step, make_pod_batch_fn,
+                                  make_recompute_train_step,
+                                  make_stale_score_train_step,
+                                  make_tp_train_step)
 from repro_torch.core.resource import (NetworkConfig, make_clients,
                                        optimize_round)
 from repro_torch.core.resource_stacked import (optimize_round_batched,
                                                stack_clients)
+from repro_torch.core.shmap import client_rows
 from repro_torch.core.round_fused import FusedEngine
 from repro_torch.data.online import (binomial_arrivals_batched,
                                      dataset_layout, draw_arrival_batch,
@@ -72,7 +88,8 @@ from repro_torch.data.video_caching import make_population
 from repro_torch.data.video_caching_stacked import StackedRequestStream
 from repro_torch.device import (deterministic_convolutions,
                                 full_f32_convolutions, resolve_device)
-from repro_torch.harness.compat import resolve
+from repro_torch.harness.compat import ExperimentConfigError, resolve
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models.small import init_small, small_loss
 from repro_torch.scenarios import parse_scenario
 
@@ -184,12 +201,17 @@ def _draw(stream, n, dataset):
 
 
 def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
-                   device: torch.device) -> SimpleNamespace:
-    """Deterministic run setup: the scenario (bound to the population),
-    population and request streams, capacities, the server (with the
-    sparse cohort's initial residents seated), the FIFO buffers' initial
-    fill (residents only), the eval set and the client system parameters,
-    drawing the host RNG in the reference's order."""
+                   device: torch.device,
+                   stale_scores: bool = False) -> SimpleNamespace:
+    """Deterministic run setup of the stacked and pod engines: the scenario
+    (bound to the population), population and request streams,
+    capacities, the server (with the sparse cohort's initial residents
+    seated), the FIFO buffers' initial fill (residents only), the eval set
+    and the client system parameters, drawing the host RNG in the
+    reference's order. ``stale_scores`` (the pod stale engine's one-round
+    score lag) goes to the server's ``FLConfig`` and touches no RNG. The
+    reference's ``mesh`` argument shards the buffer over client rows; on
+    one row it changes no draw and no layout, so it is not taken here."""
     stacked_req = xc.request_backend == "stacked"
     model, U = xc.model, xc.num_clients
     sparse = xc.cohort_size > 0
@@ -221,7 +243,8 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
                   cohort_size=xc.cohort_size,
                   participation=xc.participation,
                   num_clusters=K, scenario=xc.scenario,
-                  score_sketch_dim=xc.score_sketch_dim)
+                  score_sketch_dim=xc.score_sketch_dim,
+                  stale_scores=stale_scores)
     server = make_server(init_small(xc.seed, model, device), fl, U,
                          seed=xc.seed, device=device)
     if sparse:
@@ -435,28 +458,30 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
-                 device: torch.device, save_every_k=None, checkpoint_dir=None,
-                 resume_from=None, checkpoint_async: bool = True,
-                 keep_last=None) -> list:
-    """The dispatch-round stacked engine; one history row per round, and a
-    snapshot after every ``save_every_k``-th round."""
-    s = _stacked_setup(alg, xc, eval_samples, device)
-    local_step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
-                                          s.fl.kappa_max, prox_mu=s.prox_mu)
+def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
+                device: torch.device, s: SimpleNamespace, local_sgd,
+                engine: str, shape: dict, save_every_k, checkpoint_dir,
+                resume_from, checkpoint_async: bool, keep_last) -> list:
+    """The dispatch round of the stacked and pod engines over the setup
+    ``s``; ``local_sgd(slots, kappas) -> (d, w)`` is the engine's local
+    SGD. One history row per round, and a snapshot tagged ``engine`` after
+    every ``save_every_k``-th round. ``shape`` holds the engine's run-shape
+    keys outside ``ExperimentConfig`` (the pod engine's flavour and mesh):
+    they go into the snapshot's config, its metadata takes the flavour,
+    and a resume compares them."""
     writer = _make_ckpt_writer(save_every_k, checkpoint_async, keep_last)
     history, start_round = [], 0
     if resume_from is not None:
         snap = checkpoint.load_run_state(resume_from)
-        _check_snapshot(snap, "stacked", alg, xc, eval_samples)
+        _check_snapshot(snap, engine, alg, xc, eval_samples, extra=shape)
         history, start_round = _resume_stacked(s, snap)
         del snap
+    meta = {"pod_engine": shape["pod_engine"]} if shape else {}
     try:
         for t in range(start_round, xc.rounds):
             t_start = time.perf_counter()
             req_s, kappas, active, slots = _draw_round_inputs(s, xc, t)
-            d, w = local_step(s.server.params, s.sbuf.gather(slots),
-                              torch.as_tensor(kappas, device=device))
+            d, w = local_sgd(slots, torch.as_tensor(kappas, device=device))
             upd = s.codec.flatten_stacked(w if s.weights_alg else d)
             del d, w
             _server_round(s, alg, upd, active, kappas)
@@ -472,8 +497,8 @@ def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
             if save_every_k and (t + 1) % save_every_k == 0:
                 writer.submit(
                     checkpoint_path(checkpoint_dir, t + 1),
-                    {"engine": "stacked", "alg": alg,
-                     "config": _run_shape(xc, eval_samples),
+                    {"engine": engine, "alg": alg,
+                     "config": dict(_run_shape(xc, eval_samples), **shape),
                      "next_round": t + 1,
                      "rng": checkpoint.generator_state(s.rng),
                      "server": s.server.state_dict(),
@@ -481,14 +506,93 @@ def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
                      "streams": (s.rstream.state_dict() if s.stacked_req
                                  else streams_state_dict(s.streams)),
                      "history": history},
-                    metadata={"engine": "stacked", "alg": alg,
-                              "round": t + 1})
+                    metadata={"engine": engine, "alg": alg, "round": t + 1,
+                              **meta})
         if writer is not None:
             writer.close()          # drain barrier: all snapshots committed
     finally:
         if writer is not None:
             writer.shutdown()
     return history
+
+
+def _run_stacked(alg: str, xc: ExperimentConfig, eval_samples: int,
+                 device: torch.device, save_every_k=None, checkpoint_dir=None,
+                 resume_from=None, checkpoint_async: bool = True,
+                 keep_last=None) -> list:
+    """The dispatch-round stacked engine: the whole cohort's local SGD
+    under one ``torch.func.vmap`` on the gathered batches."""
+    s = _stacked_setup(alg, xc, eval_samples, device)
+    local_step = make_vmapped_local_train(s.grad_fn, s.fl.local_lr,
+                                          s.fl.kappa_max, prox_mu=s.prox_mu)
+
+    def local_sgd(slots, kappas):
+        return local_step(s.server.params, s.sbuf.gather(slots), kappas)
+    return _run_rounds(alg, xc, eval_samples, device, s, local_sgd,
+                       "stacked", {}, save_every_k, checkpoint_dir,
+                       resume_from, checkpoint_async, keep_last)
+
+
+def _make_pod_step(pod_engine: str, s: SimpleNamespace, mesh):
+    """The online pod local-train step of one engine flavour; all four
+    sample their minibatches from the buffer's storage rows through
+    ``make_pod_batch_fn`` (``core/pod.py`` online mode)."""
+    kw = dict(batch_fn=make_pod_batch_fn(), grad_fn=s.grad_fn,
+              prox_mu=s.prox_mu)
+    if pod_engine == "exact_tp":
+        return make_tp_train_step(None, s.fl, mesh, **kw)
+    if pod_engine == "recompute":
+        return make_recompute_train_step(None, s.fl, mesh, s.U, **kw)
+    if pod_engine == "stale":
+        return make_stale_score_train_step(None, s.fl, mesh, s.U, **kw)
+    if pod_engine == "fedavg":
+        return make_fedavg_train_step(None, s.fl, mesh, **kw)
+    raise ValueError(pod_engine)   # run() validates the flavour up front
+
+
+def _run_pod(alg: str, xc: ExperimentConfig, pod_engine: str,
+             eval_samples: int, mesh, device: torch.device,
+             save_every_k=None, checkpoint_dir=None, resume_from=None,
+             checkpoint_async: bool = True, keep_last=None) -> list:
+    """The pod engine: the stacked round (FIFO arrivals, the batched
+    resource solve, straggler masking, the stacked server) with each
+    client's minibatches gathered from its own storage row inside the
+    ``pod_engine`` flavour's online step. ``mesh=None`` is
+    ``make_host_mesh()`` on ``device``. ``xc.num_clients``, and
+    ``xc.cohort_size`` and ``xc.num_clusters`` (K > 1) where set, must be
+    multiples of the mesh's client rows, as in the reference."""
+    if mesh is None:
+        mesh = make_host_mesh(device=device)
+    rows = client_rows(mesh)
+    if xc.num_clients % rows:
+        raise ValueError(
+            f"num_clients {xc.num_clients} is not divisible by the mesh's "
+            f"{rows} client rows {mesh.shape}")
+    if xc.cohort_size and xc.cohort_size % rows:
+        raise ValueError(
+            f"cohort_size {xc.cohort_size} is not divisible by the mesh's "
+            f"{rows} client rows (the slot-indexed buffer shards over the "
+            "client axes; each shard must own whole slots)")
+    if xc.num_clusters > 1 and xc.num_clusters % rows:
+        raise ExperimentConfigError(
+            "hier-mesh",
+            f"num_clusters {xc.num_clusters} is not a multiple of the "
+            f"mesh's {rows} client rows: with K>1 each mesh shard must own "
+            "whole cluster slot blocks (K=1 spans shards exactly like the "
+            "flat buffer and is exempt)")
+    s = _stacked_setup(alg, xc, eval_samples, device,
+                       stale_scores=pod_engine == "stale")
+    pod_step = _make_pod_step(pod_engine, s, mesh)
+
+    def local_sgd(slots, kappas):
+        return pod_step(s.server.params, s.sbuf.state.x, s.sbuf.state.y,
+                        torch.as_tensor(slots, device=device), kappas)
+    shape = {"pod_engine": pod_engine,
+             "mesh_axes": list(mesh.axis_names),
+             "mesh_shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
+    return _run_rounds(alg, xc, eval_samples, device, s, local_sgd, "pod",
+                       shape, save_every_k, checkpoint_dir, resume_from,
+                       checkpoint_async, keep_last)
 
 
 def build_fused_engine(alg: str, xc: ExperimentConfig,
@@ -726,25 +830,30 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
         save_every_k: int = None, checkpoint_dir=None, resume_from=None,
         checkpoint_async: bool = True, keep_last: int = None) -> list:
     """Run one FL experiment on ``device`` (``None``: the CUDA device, which
-    must exist; ``"cpu"`` runs on the CPU) and return per-round metrics:
-    ``round``, ``test_loss``, ``test_acc``, ``participants``,
-    ``request_gen_s`` and ``round_s`` (the genie's rows have no
-    ``participants``).
+    must exist, or the device of a ``make_host_mesh(device=...)`` mesh;
+    ``"cpu"`` runs on the CPU) and return per-round metrics: ``round``,
+    ``test_loss``, ``test_acc``, ``participants``, ``request_gen_s`` and
+    ``round_s`` (the genie's rows have no ``participants``).
 
     ``alg`` is one of ``ALL_ALGS`` on the stacked engine (``xc.engine``
-    ``"stacked"`` or ``"auto"``) or on the per-client loop oracle
-    (``xc.engine="loop"``), or ``"centralized"`` (or
-    ``xc.engine="centralized"``) for the pooled-data genie. The whole
-    configuration is validated up front (``repro_torch.harness.compat``);
-    the knobs the port does not run yet raise ``ExperimentConfigError``.
+    ``"stacked"``, or ``"auto"`` with no mesh), on the pod engine
+    (``xc.engine="pod"``, or ``"auto"`` with a mesh; ``pod_engine`` or
+    ``xc.pod_engine`` picks the local-train flavour of ``POD_ENGINES``, and
+    ``mesh`` defaults to ``make_host_mesh()``, one client row on the run's
+    card) or on the per-client loop oracle (``xc.engine="loop"``), or
+    ``"centralized"`` (or ``xc.engine="centralized"``) for the pooled-data
+    genie. The whole configuration is validated up front
+    (``repro_torch.harness.compat``); a mesh of more than one client row
+    raises ``ExperimentConfigError``.
 
     ``save_every_k``/``checkpoint_dir`` write a RunState snapshot
     (``checkpoint_path(checkpoint_dir, t)``) after every k-th round;
     ``resume_from`` restores one and continues the trajectory bit for bit;
     ``keep_last`` prunes all but the newest N committed snapshots. The
-    stacked engine writes v2 snapshots on a background thread
+    stacked and pod engines write v2 snapshots on a background thread
     (``checkpoint_async=False``: blocking v1); the loop engine always
-    writes blocking v1. The genie does not checkpoint."""
+    writes blocking v1. A ``"pod"`` snapshot resumes only into the same
+    ``pod_engine`` and mesh shape. The genie does not checkpoint."""
     plan = resolve(alg, xc, mesh=mesh, pod_engine=pod_engine)
     _LOG.info("resolved experiment plan: %s", plan.describe())
     if plan.engine == "centralized":
@@ -756,6 +865,11 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
                 "save_every_k/checkpoint_dir/resume_from/keep_last args")
     else:
         _validate_ckpt_args(save_every_k, checkpoint_dir, keep_last)
+    if isinstance(mesh, HostMesh) and mesh.device is not None:
+        if device is not None and torch.device(device) != mesh.device:
+            raise ValueError(f"device={device!r} and the mesh's device "
+                             f"{mesh.device} disagree")
+        device = mesh.device
     device = resolve_device(device)
     with full_f32_convolutions(), deterministic_convolutions():
         if plan.engine == "centralized":
@@ -763,6 +877,62 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
         if plan.engine == "loop":
             return _run_loop(alg, xc, eval_samples, device, save_every_k,
                              checkpoint_dir, resume_from, keep_last)
+        if plan.engine == "pod":
+            return _run_pod(alg, xc, plan.pod_engine, eval_samples, mesh,
+                            device, save_every_k, checkpoint_dir,
+                            resume_from, checkpoint_async, keep_last)
         body = _run_fused if plan.round_backend == "fused" else _run_stacked
         return body(alg, xc, eval_samples, device, save_every_k,
                     checkpoint_dir, resume_from, checkpoint_async, keep_last)
+
+
+# ---------------------------------------------------------------------------
+# deprecated entry points (thin shims over run())
+# ---------------------------------------------------------------------------
+
+def run_experiment(alg: str, xc: ExperimentConfig, eval_samples: int = 400,
+                   save_every_k: int = None, checkpoint_dir=None,
+                   resume_from=None, keep_last: int = None, device=None):
+    """Deprecated: use ``run(alg, xc)`` with ``xc.engine="loop"``, the
+    per-client loop oracle (blocking v1 snapshots)."""
+    return run(alg, dataclasses.replace(xc, engine="loop"),
+               eval_samples=eval_samples, device=device,
+               save_every_k=save_every_k, checkpoint_dir=checkpoint_dir,
+               resume_from=resume_from, keep_last=keep_last)
+
+
+def run_vectorized_experiment(alg: str, xc: ExperimentConfig,
+                              eval_samples: int = 400,
+                              save_every_k: int = None, checkpoint_dir=None,
+                              resume_from=None, checkpoint_async: bool = True,
+                              keep_last: int = None, device=None):
+    """Deprecated: use ``run(alg, xc)`` with ``xc.engine="stacked"`` (or
+    ``"auto"``), the stacked engine."""
+    return run(alg, dataclasses.replace(xc, engine="stacked"),
+               eval_samples=eval_samples, device=device,
+               save_every_k=save_every_k, checkpoint_dir=checkpoint_dir,
+               resume_from=resume_from, checkpoint_async=checkpoint_async,
+               keep_last=keep_last)
+
+
+def run_pod_online_experiment(alg: str, xc: ExperimentConfig,
+                              eval_samples: int = 400, mesh=None,
+                              pod_engine: str = "exact_tp",
+                              save_every_k: int = None, checkpoint_dir=None,
+                              resume_from=None, checkpoint_async: bool = True,
+                              keep_last: int = None, device=None):
+    """Deprecated: use ``run(alg, xc, mesh=...)`` with ``xc.engine="pod"``
+    and ``xc.pod_engine`` (or a mesh under ``engine="auto"``), the pod
+    engine on one client row."""
+    return run(alg, dataclasses.replace(xc, engine="pod"),
+               eval_samples=eval_samples, device=device, mesh=mesh,
+               pod_engine=pod_engine, save_every_k=save_every_k,
+               checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+               checkpoint_async=checkpoint_async, keep_last=keep_last)
+
+
+def run_centralized_sgd(xc: ExperimentConfig, eval_samples: int = 400,
+                        device=None):
+    """Deprecated: use ``run("centralized", xc)``, the pooled-data genie."""
+    return run("centralized", dataclasses.replace(xc, engine="centralized"),
+               eval_samples=eval_samples, device=device)

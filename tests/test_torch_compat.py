@@ -2,15 +2,19 @@
 over a grid of engine x request and round backend x ``cohort_size`` x
 ``participation`` x ``num_clusters`` x scenario: wherever the reference
 raises, the port raises the same rule key; where it does not, the port
-resolves the same plan or rejects it with a ``port-*`` rule, and only for
-the pod engine or a mesh."""
+resolves the same plan. The reference's side takes a stand-in mesh object
+(its ``resolve`` only asks whether one was passed), the port's its own
+one-row mesh (``make_host_mesh()``); a mesh of more than one client row is
+the port's one remaining ``port-*`` rule."""
 import dataclasses
 import itertools
 
+import numpy as np
 import pytest
 
 from repro_torch.harness import ExperimentConfig, ExperimentConfigError
 from repro_torch.harness.compat import PORT_RULES, resolve
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from test_torch_oracle import reference  # noqa: F401
 
 GRID = dict(
@@ -26,7 +30,19 @@ ROUNDS = ("dispatch", "fused")
 
 
 def test_port_rules_are_pod_and_mesh():
-    assert [r.key for r in PORT_RULES] == ["port-engine", "port-mesh"]
+    """One rule is left: a mesh of more than one client row (ROADMAP A6);
+    the pod engine and a one-row mesh resolve."""
+    assert [r.key for r in PORT_RULES] == ["port-mesh"]
+    xc = ExperimentConfig(num_clients=8)
+    assert resolve("osafl", xc, mesh=make_host_mesh()).engine == "pod"
+    assert resolve("osafl", dataclasses.replace(xc, engine="pod")
+                   ).pod_engine == "exact_tp"
+    two = HostMesh(np.full((2, 1), None, dtype=object))
+    with pytest.raises(ExperimentConfigError, match="A6") as err:
+        resolve("osafl", xc, mesh=two)
+    assert err.value.key == "port-mesh"
+    with pytest.raises(TypeError, match="make_host_mesh"):
+        resolve("osafl", xc, mesh=object())
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -42,28 +58,23 @@ def test_matrix_matches_the_reference(reference, engine, round_backend,
         xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
         rxc = dataclasses.replace(
             reference.harness.ExperimentConfig(num_clients=8), **change)
-        kw = dict(mesh=object()) if mesh else {}
         try:
-            want = reference.harness.resolve("osafl", rxc, **kw)
+            want = reference.harness.resolve(
+                "osafl", rxc, **(dict(mesh=object()) if mesh else {}))
             want_key = None
         except reference.harness.ExperimentConfigError as err:
             want, want_key = None, err.key
         try:
-            got = resolve("osafl", xc, **kw)
+            got = resolve("osafl", xc,
+                          **(dict(mesh=make_host_mesh()) if mesh else {}))
             got_key = None
         except ExperimentConfigError as err:
             got, got_key = None, err.key
         what = (change, mesh)
-        if want_key is not None:
-            assert got_key == want_key, what
-        elif got_key is not None:
-            assert got_key.startswith("port-"), what
-            plan_engine = ("pod" if engine == "pod" or (
-                engine == "auto" and mesh) else engine)
-            assert plan_engine == "pod" or mesh, what
-        else:
+        assert got_key == want_key, what
+        if want_key is None:
             assert got.describe() == want.describe(), what
-            assert not mesh and engine != "pod"
+            assert got.mesh_rows == (1 if mesh else 0), what
         seen.add(got_key or "ok")
     assert seen - {"ok"}                        # the grid reaches the rules
 

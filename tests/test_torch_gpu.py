@@ -856,3 +856,47 @@ def test_train_step_on_card_matches_cpu(cuda, engine):
         w = tree_get(want, path)
         torch.testing.assert_close(tree_get(got, path).cpu(), w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+# -- the FL harness's pod engine ----------------------------------------------
+
+POD_SMALL = dict(model="mlp", dataset=2, num_clients=8, rounds=3,
+                 capacity=(12, 24), arrivals=4, batch=8, seed=5)
+
+
+@pytest.mark.parametrize("alg", ["osafl", "fedavg"])
+@pytest.mark.parametrize("engine", ["exact_tp", "recompute", "stale",
+                                    "fedavg"])
+@pytest.mark.parametrize("backend", ["python", "stacked"])
+def test_pod_run_on_card_matches_cpu(cuda, alg, engine, backend):
+    """The pod engine on the card against the CPU within the 1e-4 rule,
+    ``scored_reduce`` launched once an OSAFL round (also on the
+    unscored-step flavours: the stacked server scores) and never for
+    FedAvg."""
+    from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.launch.mesh import make_host_mesh
+    xc = ExperimentConfig(**POD_SMALL, request_backend=backend)
+    before = sr.scored_reduce.launches
+    gpu = run(alg, xc, eval_samples=64, mesh=make_host_mesh(),
+              pod_engine=engine)
+    want = xc.rounds if alg == "osafl" else 0
+    assert sr.scored_reduce.launches == before + want
+    cpu = run(alg, xc, eval_samples=64, device="cpu", mesh=make_host_mesh(),
+              pod_engine=engine)
+    for g, c in zip(gpu, cpu):
+        assert g["participants"] == c["participants"]
+        assert abs(g["test_loss"] - c["test_loss"]) <= 1e-4 * abs(
+            c["test_loss"])
+
+
+def test_pod_resume_on_card_is_bit_exact(cuda, tmp_path):
+    from repro_torch.harness import ExperimentConfig, checkpoint_path, run
+    from repro_torch.launch.mesh import make_host_mesh
+    xc = ExperimentConfig(**dict(POD_SMALL, rounds=4))
+    straight = run("osafl", xc, eval_samples=64, mesh=make_host_mesh(),
+                   save_every_k=2, checkpoint_dir=tmp_path)
+    resumed = run("osafl", xc, eval_samples=64, mesh=make_host_mesh(),
+                  resume_from=checkpoint_path(tmp_path, 2))
+    keys = ("round", "test_loss", "test_acc", "participants")
+    assert ([{k: h[k] for k in keys} for h in resumed]
+            == [{k: h[k] for k in keys} for h in straight])

@@ -11,6 +11,7 @@ import torch
 import repro_torch.harness.experiments as tex
 from repro_torch.harness import ExperimentConfig, ExperimentConfigError, run
 from repro_torch.harness.compat import ALL_ALGS, PORT_RULES, resolve
+from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models.small import params_from_numpy
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
 
@@ -89,29 +90,34 @@ def test_reference_rules_name_the_same_failure(reference, change):
     assert str(got.value).startswith("invalid experiment configuration [")
 
 
-@pytest.mark.parametrize("change,kwargs,key", [
-    (dict(engine="loop"), dict(mesh=object()), "port-mesh"),
-    (dict(engine="pod"), {}, "port-engine"),
+@pytest.mark.parametrize("change,mesh", [
+    (dict(engine="loop"), True),
+    (dict(engine="pod"), False),
     (dict(engine="stacked", round_backend="fused",
-          request_backend="stacked"), dict(mesh=object()), "port-mesh"),
-    (dict(engine="pod", request_backend="stacked", cohort_size=4), {},
-     "port-engine"),
-    (dict(engine="stacked", resource_backend="f32", num_clusters=2),
-     dict(mesh=object()), "port-mesh"),
-    (dict(engine="stacked", cohort_size=4), dict(mesh=object()),
-     "port-mesh"),
-    (dict(engine="pod", num_clusters=2), {}, "port-engine"),
-    (dict(engine="stacked"), dict(mesh=object()), "port-mesh"),
-    (dict(engine="pod", scenario="churn(p_away=0.3)"), {}, "port-engine"),
-    (dict(engine="pod", resource_backend="f32"), {}, "port-engine"),
+          request_backend="stacked"), True),
+    (dict(engine="pod", request_backend="stacked", cohort_size=4), False),
+    (dict(engine="stacked", resource_backend="f32", num_clusters=2), True),
+    (dict(engine="stacked", cohort_size=4), True),
+    (dict(engine="pod", num_clusters=2), False),
+    (dict(engine="stacked"), True),
+    (dict(engine="pod", scenario="churn(p_away=0.3)"), False),
+    (dict(engine="pod", resource_backend="f32"), True),
 ])
-def test_port_rules_reject_what_is_not_ported(change, kwargs, key):
+def test_port_rules_reject_what_is_not_ported(change, mesh):
+    """What the port does not run is a mesh of more than one client row
+    (``port-mesh``, naming ROADMAP A6); the same configuration resolves on
+    the one-row mesh or with none, the pod engine among them."""
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
-    alg = kwargs.pop("alg", "osafl")
+    two = HostMesh(np.full((2, 1), None, dtype=object))
     with pytest.raises(ExperimentConfigError, match="not ported") as err:
-        resolve(alg, xc, **kwargs)
-    assert err.value.key == key
-    assert key in {r.key for r in PORT_RULES}
+        resolve("osafl", xc, mesh=two)
+    assert err.value.key == "port-mesh"
+    assert "A6" in str(err.value)
+    assert [r.key for r in PORT_RULES] == ["port-mesh"]
+    plan = resolve("osafl", xc, **(dict(mesh=make_host_mesh()) if mesh
+                                   else {}))
+    assert plan.engine == change["engine"]
+    assert plan.mesh_rows == int(mesh)
 
 
 @pytest.mark.parametrize("alg,kwargs", [

@@ -42,6 +42,7 @@ _REFERENCE_MODULES = (
     "repro.scenarios", "repro.scenarios.base", "repro.scenarios.library",
     "repro.core.round_fused", "repro.launch.serve",
     "repro.optim", "repro.data.synthetic",
+    "repro.core.convergence", "repro.core.shmap", "repro.launch.mesh",
 )
 
 

@@ -1,8 +1,10 @@
 """The transformer zoo's training path of the port against the JAX package
 on the CPU: the pod engines' steps (``repro_torch.core.pod``) against the
 reference's on a one-device mesh ``jax.make_mesh((1, 1), ("data",
-"model"))``, the optimizers, the synthetic batches, the trainer
-``repro_torch.launch.train`` and the h2o-danube-3-4b config.
+"model"))``, online mode's one-client-at-a-time step on a zoo model with
+the caller's batch function, the layouts one card refuses, the
+optimizers, the synthetic batches, the trainer ``repro_torch.launch.train``
+and the h2o-danube-3-4b config.
 
 Both packages start from the reference's weights (``params_from_numpy``)
 and take the same numpy batches; new parameters and metrics agree to rtol
@@ -30,6 +32,8 @@ from repro_torch.core.flatten import tree_get, tree_map, tree_paths
 from repro_torch.data import synthetic
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import train
+from repro_torch.launch.mesh import (HostMesh, make_host_mesh,
+                                     make_production_mesh)
 from repro_torch.models import transformer
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
 
@@ -236,21 +240,61 @@ def test_tp_microbatches_average_their_gradients(reference, mesh):
 
 
 def test_what_one_card_does_not_run_raises():
+    """One client row runs, stationary and online; more rows, a 'model'
+    axis or the production mesh raise naming ROADMAP A6."""
     cfg = get_config("qwen1.5-4b").reduced()
     fl = FLConfig(kappa_max=1)
+    one = make_host_mesh()
     assert pod.num_pod_clients() == 1
-    with pytest.raises(NotImplementedError, match="A10.6"):
+    assert pod.num_pod_clients(one) == 1
+    with pytest.raises(NotImplementedError, match="A6"):
         pod.make_tp_train_step(cfg, fl, mesh=4)
-    for make in (lambda **kw: pod.make_tp_train_step(cfg, fl, **kw),
-                 lambda **kw: pod.make_fedavg_train_step(cfg, fl, **kw),
-                 lambda **kw: pod.make_recompute_train_step(cfg, fl, None, 2,
-                                                            **kw),
-                 lambda **kw: pod.make_stale_score_train_step(cfg, fl, None,
-                                                              2, **kw)):
-        with pytest.raises(NotImplementedError, match="online mode"):
-            make(batch_fn=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="A10.6"):
-        pod.make_pod_batch_fn()
+    two = HostMesh(np.full((2, 1), None, dtype=object))
+    for make in (lambda m, **kw: pod.make_tp_train_step(cfg, fl, m, **kw),
+                 lambda m, **kw: pod.make_fedavg_train_step(cfg, fl, m, **kw),
+                 lambda m, **kw: pod.make_recompute_train_step(cfg, fl, m, 2,
+                                                               **kw),
+                 lambda m, **kw: pod.make_stale_score_train_step(cfg, fl, m,
+                                                                 2, **kw)):
+        with pytest.raises(NotImplementedError, match="A6"):
+            make(two, batch_fn=pod.make_pod_batch_fn())
+        assert callable(make(one, batch_fn=pod.make_pod_batch_fn()))
+    for refused in (lambda: make_host_mesh(model_parallel=2),
+                    make_production_mesh):
+        with pytest.raises(NotImplementedError, match="A6"):
+            refused()
+
+
+def test_online_scan_form_trains_a_zoo_model_with_the_default_gradient(
+        reference, mesh):
+    """The recompute factory's online step on a reduced qwen1.5-4b with the
+    caller's batch function (rows of tokens and labels gathered from each
+    client's own storage) and no ``grad_fn``: the gradient of the zoo's
+    ``loss_fn``, one client at a time, against the reference's scan."""
+    jc, tc, w, tp = _model(reference, seed=5)
+    fl = FLConfig(kappa_max=2, local_lr=0.1, num_clients=2)
+    jfl = reference.base.FLConfig(**dataclasses.asdict(fl))
+    rng = np.random.default_rng(6)
+    tok = rng.integers(0, tc.vocab_size, size=(2, 6, 17)).astype(np.int32)
+    slots = rng.integers(0, 6, size=(2, 2, 2))
+    kappas = np.array([2, 1])
+
+    def rows(xp):
+        def batch_fn(bx, by, sl):
+            uu = xp.arange(bx.shape[0]).reshape(-1, 1, 1)
+            return {"tokens": bx[uu, sl], "labels": by[uu, sl]}
+        return batch_fn
+    jd, jw = jax.jit(reference.pod.make_recompute_train_step(
+        jc, jfl, mesh, 2, batch_fn=rows(jnp)))(
+            w, jnp.asarray(tok[..., :-1]), jnp.asarray(tok[..., 1:]),
+            jnp.asarray(slots), jnp.asarray(kappas))
+    td, tw = pod.make_recompute_train_step(
+        tc, fl, make_host_mesh(), 2, batch_fn=rows(torch))(
+            tp, torch.from_numpy(tok[..., :-1]),
+            torch.from_numpy(tok[..., 1:]), torch.from_numpy(slots),
+            torch.from_numpy(kappas))
+    _params_close(tw, jw)
+    _params_close(td, jd)
 
 
 # -- optimizers --------------------------------------------------------------
