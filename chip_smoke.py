@@ -106,6 +106,18 @@ Phases, each fatal on failure:
      4096-position cache), launch counts reset just before and read just
      after; a profile of one prefill call by kernel; then the flash
      prefill against the KV-cache decode path on one prompt;
+  7b. the MoE serving path: the flash kernel at deepseek-v3's MLA prefill
+     shape (q/k head dim 192, v zero-padded to 192) against its plain
+     version, timed beside its unpadded bound and
+     ``scaled_dot_product_attention`` on the unpadded shapes; then
+     arctic-480b (2 of 35 layers) and deepseek-v3-671b (5 of 61: 3 dense,
+     2 MoE, the MTP block) at full width with seeded random bf16 weights,
+     one config at a time: two timed ``make_prefill_step`` calls on 4 x
+     4096 prompts (flash once a layer, the same tokens bit for bit), a
+     third that counts each MoE layer's capacity and dropped assignments,
+     a profiled one, forward against decode at ``capacity_factor`` 50 (f32
+     compute and cache; the bf16 row beside it), then
+     ``serve_decode.run`` (batch 8, 4096-position cache);
   8. the training path: the flash backward kernels against their plain
      version (log-sum-exp of the forward included) at the training shape,
      ragged and small shapes, f32 and bf16, causal and not, and timed at
@@ -348,6 +360,20 @@ SERVE_PREFILL = dict(batch=4, seq=4096)
 SERVE_DECODE = dict(batch=8, prompt_len=32, decode_steps=32, cache_len=4096,
                     seed=1)
 LOGIT_TOL = 2e-2                 # bf16 (tests/test_kernels.py:26)
+# the MoE serving path (phase 7b): both MoE decoders at full width (bf16
+# weights, their own param_dtype), depth cut so that one fits beside its
+# prefill: arctic-480b 35 -> 2 MoE layers (~55.4 GB; one layer's 128
+# experts are 26.8 GB), deepseek-v3-671b 61 -> its 3 dense layers and 2
+# MoE layers (~54.6 GB with the MTP block); the prefill and decode shapes
+# of the serving path
+MOE_SERVE = (("arctic-480b", 2), ("deepseek-v3-671b", 5))
+# deepseek-v3's MLA prefill attention through the flash kernel (B, H, Hkv,
+# S, D): q/k head dim 192, v (128) zero-padded to 192
+MLA_FLASH = (4, 128, 128, 4096, 192)
+MLA_V_DIM = 128
+# forward against decode routes alike only when nothing is dropped
+# (tests/test_models.py:66-70)
+MOE_GATE_CAPACITY = 50.0
 # the transformer zoo's training path (phase 8): qwen1.5-4b at full width
 # (d_model 2560, 20 heads x 128, d_ff 6912, vocab 151,936, qkv bias; bf16
 # compute, f32 params), depth cut 40 -> 8: recompute holds five
@@ -1832,18 +1858,16 @@ def fused_phase() -> dict:
 
 def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
     """Last-position logits of ``forward`` (the flash path) against those
-    of sequential ``decode_step``s over a cache (``_sdpa``), same prompt.
-    ``exact``, the f32 run's forward logits, measures how far each path
-    is from it; the run's own forward logits are returned under
-    ``"logits"``."""
+    of sequential ``decode_step``s over a cache (``_sdpa``, or MLA's
+    absorbed form), same prompt. ``exact``, the f32 run's forward logits,
+    measures how far each path is from it; the run's own forward logits
+    are returned beside the row."""
     from repro_torch.models import transformer as T
-    from repro_torch.models.attention import init_gqa_cache
     B, S = prompt.shape
     with torch.inference_mode():
         lf, _ = T.forward(params, {"tokens": prompt}, cfg)
-        cache = {"dense": init_gqa_cache(cfg, B, S, dtype=cache_dtype,
-                                         device=prompt.device,
-                                         lead=(cfg.n_layers,))}
+        cache = T.init_cache(cfg, B, S, device=prompt.device,
+                             dtype=cache_dtype)
         for i in range(S):
             ld, cache = T.decode_step(params, cache, prompt[:, i:i + 1], i,
                                       cfg)
@@ -2004,6 +2028,171 @@ def serving_phase() -> dict:
         raise AssertionError(f"forward (flash) and decode (cache) disagree: "
                              f"{checks}")
     return out
+
+
+def mla_flash_phase() -> dict:
+    """The flash kernel at deepseek-v3's MLA prefill shape, as the model
+    calls it (q/k head dim 192, v zero-padded to 192), against its plain
+    version and timed; beside it ``scaled_dot_product_attention`` on the
+    unpadded shapes (v 128) and the bound of the unpadded function."""
+    import torch.nn.functional as F
+    row = check_flash(MLA_FLASH, torch.bfloat16, causal=True, timed=True)
+    B, H, _, S, D = MLA_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k = (torch.randn((B, H, S, D), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((B, H, S, MLA_V_DIM), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    row["sdpa_unpadded_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                               scale=D ** -0.5), 5)
+    # the function computed: two products over the S(S+1)/2 causal pairs,
+    # of depth 192 (q k^T) and 128 (p v); q, k, v read, o written once
+    flops = 2 * B * H * S * (S + 1) // 2 * (D + MLA_V_DIM)
+    nbytes = 2 * B * H * S * (2 * D + 2 * MLA_V_DIM)
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    row["unpadded_gflop"] = flops / 1e9
+    row["unpadded_bound_ms"] = max(t_ops, t_bytes)
+    row["unpadded_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    row["unpadded_share_of_bound"] = row["unpadded_bound_ms"] / row["ms"]
+    del q, k, v
+    torch.cuda.empty_cache()
+    say("flash_attention at the MLA prefill shape " + json.dumps(row))
+    return row
+
+
+def moe_serving_phase() -> dict:
+    """The MoE decoders at full width, depth cut (``MOE_SERVE``), seeded
+    random bf16 weights drawn on the card and freed before the next
+    config: ``make_prefill_step`` on 4 x 4096-token prompts (two timed
+    calls, then one more that counts each MoE layer's capacity and drops,
+    then a profiled one), the f32 forward-against-decode gate at
+    ``capacity_factor`` 50 with the bf16 row beside it, then
+    ``serve_decode.run`` (batch 8, 4096-position cache); launch counts
+    reset just before each leg and read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    mla = mla_flash_phase()
+    rows = {}
+    for arch, layers in MOE_SERVE:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = _clock()
+        params = T.init_model(gen, cfg)
+        init_s = _clock() - t0
+        weights = torch.cuda.memory_allocated()
+        B, S = SERVE_PREFILL["batch"], SERVE_PREFILL["seq"]
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        prefill = make_prefill_step(cfg)
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        prefill_s, per_call, nxt = [], [], []
+        with torch.inference_mode():
+            for _ in range(2):             # the first call warms up cuBLAS
+                before = fa.flash_attention_bhsd.launches
+                t0 = _clock()
+                nxt.append(prefill(params, {"tokens": tokens}))
+                prefill_s.append(_clock() - t0)
+                per_call.append(fa.flash_attention_bhsd.launches - before)
+        launches = {"flash_attention": fa.flash_attention_bhsd.launches,
+                    "scored_reduce": sr.scored_reduce.launches}
+        prefill_peak = torch.cuda.max_memory_allocated()
+        # each MoE layer's routing of the same prompts, on a third call
+        stats = []
+        real = T.moe_fwd
+
+        def counting(p, x, c):
+            stats.append(moe.dispatch_stats(p, x, c))
+            return real(p, x, c)
+        T.moe_fwd = counting
+        try:
+            with torch.inference_mode():
+                nxt.append(prefill(params, {"tokens": tokens}))
+        finally:
+            T.moe_fwd = real
+        dispatch = [{k: int(v) for k, v in st.items()} for st in stats]
+        breakdown = prefill_breakdown(prefill, params, tokens)
+        breakdown["busy_share_of_timed_call"] = (breakdown["device_ms"]
+                                                 / 1e3 / prefill_s[-1])
+        prompt = tokens[:2, :SERVE_DECODE["prompt_len"]]
+        del tokens
+        torch.cuda.empty_cache()
+        # the gate in f32 over all layers: an f32 product casts one expert
+        # stack at a time (17.8 GB for arctic, 15.0 for deepseek-v3), which
+        # fits beside the bf16 weights
+        wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=MOE_GATE_CAPACITY))
+        gate, exact = forward_vs_decode(
+            params, dataclasses.replace(wide, dtype="float32"), prompt,
+            torch.float32)
+        torch.cuda.empty_cache()
+        checks = [gate, forward_vs_decode(params, wide, prompt,
+                                          torch.bfloat16, exact)[0]]
+        del params
+        torch.cuda.empty_cache()
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        dec = serve_decode.run(cfg, **SERVE_DECODE)
+        launches["flash_attention"] += fa.flash_attention_bhsd.launches
+        launches["scored_reduce"] += sr.scored_reduce.launches
+        peak = torch.cuda.max_memory_allocated()
+        nb, npl, nd = (SERVE_DECODE["batch"], SERVE_DECODE["prompt_len"],
+                       SERVE_DECODE["decode_steps"])
+        m = cfg.moe
+        row = {"config": f"{cfg.name} n_layers={cfg.n_layers} (dense "
+                         f"{m.first_dense_layers}) d_model={cfg.d_model} "
+                         f"heads={cfg.n_heads}/{cfg.n_kv_heads} attention="
+                         f"{cfg.attention} experts={m.num_experts} top_k="
+                         f"{m.top_k} d_ff_expert={m.d_ff_expert} shared="
+                         f"{m.num_shared_experts} dense_residual="
+                         f"{m.dense_residual_d_ff} mtp={cfg.mtp_depth} "
+                         f"vocab={cfg.vocab_size} params={cfg.param_dtype}",
+               "weights_bytes": weights, "init_s": init_s,
+               "prefill": {"batch": B, "seq": S, "seconds": prefill_s,
+                           "tokens_per_s": [B * S / t for t in prefill_s],
+                           "flash_launches_per_call": per_call,
+                           "max_memory_allocated": prefill_peak,
+                           "bitwise_repeat": all(torch.equal(nxt[0], t)
+                                                 for t in nxt[1:]),
+                           "dispatch": dispatch},
+               "decode": {**SERVE_DECODE, "prefill_s": dec["prefill_s"],
+                          "decode_s": dec["decode_s"],
+                          "prefill_tokens_per_s": nb * npl / dec["prefill_s"],
+                          "decode_tokens_per_s": nb * nd / dec["decode_s"],
+                          "ms_per_step": dec["decode_s"] / nd * 1e3},
+               "max_memory_allocated": peak, "launches": launches,
+               "prefill_breakdown": breakdown,
+               "forward_vs_decode": checks}
+        say("moe serving path " + json.dumps(row))
+        toks = dec["tokens"]
+        if per_call != [cfg.n_layers] * len(per_call):
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{per_call} times per prefill call, not "
+                                 f"{cfg.n_layers}")
+        if not row["prefill"]["bitwise_repeat"]:
+            raise AssertionError(f"{arch}: prefill calls on the same weights "
+                                 f"gave other tokens: {nxt}")
+        if not (all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
+                    for t in nxt) and toks.shape == (nb, nd)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+            raise AssertionError(f"{arch}: the serving path gave tokens "
+                                 f"outside the vocabulary")
+        if not (gate["finite"] and gate["allclose"] and gate["tokens_agree"]
+                and checks[1]["finite"]):
+            raise AssertionError(f"{arch}: forward (flash) and decode "
+                                 f"(cache) disagree: {checks}")
+        rows[arch] = row
+        torch.cuda.empty_cache()
+    return {"mla_flash": mla, "runs": rows}
 
 
 def grad_errors(got, want, dtype) -> tuple:
@@ -2424,6 +2613,7 @@ def main() -> int:
     pods = pod_phase(main, grid)
     fused = fused_phase()
     serving = serving_phase()
+    moe_serving = moe_serving_phase()
     bwd = flash_bwd_phase(ptxas_bwd)
     training = train_phase()
     m = kern["main"]
@@ -2468,6 +2658,8 @@ def main() -> int:
         by_path[k]["fused_fig1"] = fused["fig1"]["launches"][k]
         by_path[k]["serve"] = fused["serve"]["trainer"]["launches"][k]
     for k in by_path:
+        for arch, row in moe_serving["runs"].items():
+            by_path[k][f"moe_serving {arch}"] = row["launches"][k]
         for engine, row in training["runs"].items():
             by_path[k][f"train_{engine}"] = row["launches"][k]
     for k in by_path:
@@ -2497,7 +2689,12 @@ def main() -> int:
         "launches_by_path": by_path["flash_attention"],
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
-        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"]}, {
+        "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "mla_prefill_shape": {
+            key: moe_serving["mla_flash"][key] for key in (
+                "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "bound_ms", "sdpa_unpadded_ms", "unpadded_bound_ms",
+                "unpadded_share_of_bound")}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

@@ -2,11 +2,11 @@
 
 ``get_config(name)`` knows every architecture id of the reference. It
 returns the configs of the dense GQA decoders (full or sliding-window
-attention), which
-``repro_torch.models.transformer`` runs, and the paper's four models'
-pseudo-configs (``paper-*``, run by ``repro_torch.models.small``); any
-other architecture raises ``NotImplementedError`` (ROADMAP.md queue A
-lists it).
+attention) and of the MoE decoders (arctic-480b; deepseek-v3-671b with MLA
+and MTP), which ``repro_torch.models.transformer`` runs, and the paper's
+four models' pseudo-configs (``paper-*``, run by
+``repro_torch.models.small``); any other architecture raises
+``NotImplementedError`` (ROADMAP.md queue A lists it).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ ARCH_IDS = (
 )
 
 _MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "arctic-480b": "arctic_480b",
     "deepseek-coder-33b": "deepseek_coder_33b",
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "nemotron-4-15b": "nemotron_4_15b",

@@ -68,9 +68,10 @@ class VisionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture of the transformer zoo. The port runs the dense
-    full-attention GQA decoders so far (``repro_torch.models.transformer``);
-    the nested configs of the other families exist so that every field
-    means what it means in the reference."""
+    GQA decoders and the MoE decoders (MoE, MLA, MTP) so far
+    (``repro_torch.models.transformer``); the nested configs of the other
+    families exist so that every field means what it means in the
+    reference."""
     name: str
     arch_type: str                    # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int

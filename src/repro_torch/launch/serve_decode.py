@@ -1,5 +1,6 @@
-"""Serve a dense decoder with batched requests: prefill, then KV-cache
-decode (``examples/serve_decode.py``'s ``run``, dense decoders only).
+"""Serve a decoder of the zoo with batched requests: prefill, then KV-cache
+decode (``examples/serve_decode.py``'s ``run``, for the dense and MoE
+decoders; whisper's encoder path is not ported).
 
 As in the reference, the prompt is prefilled by sequential decode steps
 (cache-exact), then ``decode_steps`` tokens are decoded greedily. The
@@ -9,6 +10,7 @@ config is passed in, so a caller can cut depth with
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_decode import run
     res = run(get_config("deepseek-coder-33b").reduced(), device="cpu")
+    res = run(get_config("deepseek-v3-671b").reduced(), device="cpu")
 """
 from __future__ import annotations
 

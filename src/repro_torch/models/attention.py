@@ -1,6 +1,7 @@
-"""Grouped-query attention (``repro/models/attention.py``, the GQA part):
-optional qkv bias and sliding window, prefill and single-step decode over an
-explicit KV cache.
+"""Grouped-query attention and multi-head latent attention
+(``repro/models/attention.py``, the GQA and MLA parts): optional qkv bias
+and sliding window, prefill and single-step decode over an explicit KV
+cache; MLA's naive prefill and absorbed decode over a latent cache.
 
 Cache layout (full attention): {"k": (B, L, n_kv, hd), "v": (B, L, n_kv, hd)}
 with the write position passed separately. Sliding-window caches are ring
@@ -15,14 +16,24 @@ flash_attention``: the CUDA kernel on the card, its plain version on the
 CPU. That is the reference with ``REPRO_USE_FLASH=1``; the port has no such
 switch. Decode over the cache, windowed and non-causal attention take
 ``_sdpa``, plain torch ops at the reference's rounding points.
+
+MLA's prefill attention has a q/k head dim of ``qk_nope + qk_rope`` (192)
+and a v head dim of ``v_head_dim`` (128). The kernel takes one head dim,
+so v is padded with zeros to q's and the output's first ``v_head_dim``
+columns are kept: the same function (the zero columns add nothing), at
+(192 + 192) / (192 + 128) = 1.2x the work. The latent cache holds
+``c`` (B, L, kv_lora_rank) and the shared rope key (B, L, qk_rope); decode
+writes both in place.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import apply_rope, dense_init
+from repro_torch.models.layers import (apply_rope, dense_init,
+                                       init_rmsnorm, rmsnorm)
 
 
 def _sdpa(q, k, v, mask, scale):
@@ -138,3 +149,102 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, length: int,
     shape = (*lead, batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": dense_init(gen, (*lead, d, m.q_lora_rank), dtype=dtype),
+        "q_norm": init_rmsnorm(gen, m.q_lora_rank, dtype, lead),
+        "wq_b": dense_init(gen, (*lead, m.q_lora_rank, H * qk), dtype=dtype),
+        "wkv_a": dense_init(gen, (*lead, d, m.kv_lora_rank
+                                  + m.qk_rope_head_dim), dtype=dtype),
+        "kv_norm": init_rmsnorm(gen, m.kv_lora_rank, dtype, lead),
+        "wkv_b": dense_init(gen, (*lead, m.kv_lora_rank,
+                                  H * (m.qk_nope_head_dim + m.v_head_dim)),
+                            dtype=dtype),
+        "wo": dense_init(gen, (*lead, H * m.v_head_dim, d), dtype=dtype),
+    }
+
+
+def _mla_qkv(params, x, cfg: ModelConfig, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = rmsnorm(params["q_norm"], x @ params["wq_a"].to(dt), cfg.norm_eps)
+    q = (q @ params["wq_b"].to(dt)).reshape(
+        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    kv = x @ params["wkv_a"].to(dt)
+    c_kv, k_rope = kv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    c_kv = rmsnorm(params["kv_norm"], c_kv, cfg.norm_eps)        # (B,S,rank)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)                          # (B,S,1,r)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
+            cache_pos=None):
+    """MLA attention. Prefill/train: naive expansion through the flash
+    kernel (v zero-padded to q's head dim). Decode (S == 1, ``cache_pos``
+    an int): absorbed form over the latent cache {"c": (B, L, rank),
+    "k_rope": (B, L, r)}, written in place. Returns (y, cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dt = x.dtype
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    wkv_b = params["wkv_b"].to(dt).reshape(
+        m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
+    w_k = wkv_b[:, :, :m.qk_nope_head_dim]                       # (rank,H,dk)
+    w_v = wkv_b[:, :, m.qk_nope_head_dim:]                       # (rank,H,dv)
+
+    if cache is None:
+        k_nope = torch.einsum("bsr,rhd->bshd", c_kv, w_k)
+        v = torch.einsum("bsr,rhd->bshd", c_kv, w_v)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+        o = ops.flash_attention(q, k, v, causal=True, scale=scale)
+        o = o[..., :m.v_head_dim]
+    else:
+        if S != 1:
+            raise ValueError(f"decode takes one token per step, got S={S}")
+        pos = int(cache_pos)
+        L = cache["c"].shape[1]
+        if not 0 <= pos < L:
+            raise IndexError(f"cache position {pos} is outside the cache "
+                             f"of length {L}")
+        cache["c"][:, pos] = c_kv[:, 0].to(cache["c"].dtype)
+        cache["k_rope"][:, pos] = k_rope[:, 0, 0].to(cache["k_rope"].dtype)
+        c, r = cache["c"].to(dt), cache["k_rope"].to(dt)
+        # absorbed: scores = (q_nope W_k^T) c^T + q_rope k_rope^T
+        q_abs = torch.einsum("bshd,rhd->bshr", q_nope, w_k)     # (B,1,H,rank)
+        logits = (torch.einsum("bshr,btr->bhst", q_abs, c)
+                  + torch.einsum("bshd,btd->bhst", q_rope, r)) * scale
+        valid = torch.arange(L, device=x.device) <= pos
+        logits = torch.where(valid[None, None, None, :], logits,
+                             torch.finfo(logits.dtype).min)
+        probs = torch.softmax(logits.float(), dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, c)
+        o = torch.einsum("bshr,rhd->bshd", o_lat, w_v)          # (B,1,H,dv)
+    y = o.reshape(B, S, H * m.v_head_dim) @ params["wo"].to(dt)
+    return y, cache
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, length: int,
+                   dtype=torch.bfloat16, device=None, lead: tuple = ()):
+    m = cfg.mla
+    return {"c": torch.zeros((*lead, batch, length, m.kv_lora_rank),
+                             dtype=dtype, device=device),
+            "k_rope": torch.zeros((*lead, batch, length, m.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}

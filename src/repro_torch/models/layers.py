@@ -12,18 +12,45 @@ checks an imported tree against.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 
 
+# the largest f32 draw behind a narrower leaf (bytes): a larger leaf is
+# drawn a block of leading indices at a time into its own storage. A bf16
+# expert stack of arctic-480b at two layers, (2, 128, 7168, 4864), is 17.8
+# GB; drawn whole, its f32 draw would add 35.7 GB beside it
+DRAW_LIMIT = 1 << 30
+
+
 def dense_init(gen, shape, scale: float = 0.02, dtype=torch.float32):
-    """``scale`` * N(0, 1) of ``shape`` on ``gen``'s device."""
+    """``scale`` * N(0, 1) of ``shape`` on ``gen``'s device. A float32
+    leaf, or one whose f32 draw is at most ``DRAW_LIMIT`` bytes, is one
+    draw (so the numbers of every f32 config stay as they were); a larger
+    leaf of a narrower dtype is drawn in blocks straight into the result."""
     if gen is None:
         return torch.empty(shape, dtype=dtype, device="meta")
-    x = torch.randn(shape, generator=gen, device=gen.device)
-    return x.mul_(scale).to(dtype)
+    if dtype == torch.float32 or math.prod(shape) * 4 <= DRAW_LIMIT:
+        x = torch.randn(shape, generator=gen, device=gen.device)
+        return x.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    _draw_into(out, gen, scale)
+    return out
+
+
+def _draw_into(out, gen, scale: float) -> None:
+    if out.numel() * 4 <= DRAW_LIMIT:
+        x = torch.randn(out.shape, generator=gen, device=gen.device)
+        out.copy_(x.mul_(scale))
+    elif out.shape[0] == 1:
+        _draw_into(out[0], gen, scale)
+    else:
+        for part in out.split(max(1, DRAW_LIMIT // (4 * out[0].numel()))):
+            _draw_into(part, gen, scale)
 
 
 def _full(gen, shape, value: float, dtype):

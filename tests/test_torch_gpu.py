@@ -900,3 +900,80 @@ def test_pod_resume_on_card_is_bit_exact(cuda, tmp_path):
     keys = ("round", "test_loss", "test_acc", "participants")
     assert ([{k: h[k] for k in keys} for h in resumed]
             == [{k: h[k] for k in keys} for h in straight])
+
+
+# -- the MoE decoders -------------------------------------------------------
+
+def _moe_cfg(arch, dtype, capacity_factor=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if dtype == "float32":
+        cfg = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    return cfg
+
+
+def test_moe_dispatch_on_card_is_the_cpu_dispatch(cuda):
+    """Tables, counts and slots of the sort dispatch, with experts over
+    their capacity, equal the CPU's exactly."""
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    for T, k, E, C in ((16, 1, 2, 11), (300, 2, 8, 40), (257, 8, 16, 64)):
+        ids = torch.stack([torch.randperm(E, generator=gen)[:k]
+                           for _ in range(T)])
+        gates = torch.rand((T, k), generator=gen)
+        got = moe.dispatch(ids.to(cuda), gates.to(cuda), E, C)
+        want = moe.dispatch(ids, gates, E, C)
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_forward_on_card_matches_cpu(cuda, arch, dtype):
+    """The reduced MoE decoders' prefill on the card against the CPU from
+    the same weights (logits within 1e-4 in f32, 2e-2 in bf16), the flash
+    kernel once a layer, and a second card call equal bit for bit."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import transformer as T
+    cfg = _moe_cfg(arch, dtype, capacity_factor=50.0)
+    host = T.init_model(torch.Generator().manual_seed(1), cfg)
+    card = tree_map(lambda t: t.to(cuda), host)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(2))
+    before = fa.flash_attention_bhsd.launches
+    with torch.inference_mode():
+        got, aux = T.forward(card, {"tokens": tokens.to(cuda)}, cfg)
+        again, _ = T.forward(card, {"tokens": tokens.to(cuda)}, cfg)
+        want, waux = T.forward(host, {"tokens": tokens}, cfg)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 2 * cfg.n_layers
+    assert torch.equal(got, again)
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(aux.cpu(), waux, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "deepseek-v3-671b"])
+def test_moe_decode_on_card_matches_cpu(cuda, arch):
+    """Eight f32 decode steps (GQA or MLA latent cache, f32) on the card
+    against the CPU, teacher-forced."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import transformer as T
+    cfg = _moe_cfg(arch, "float32")
+    host = T.init_model(torch.Generator().manual_seed(3), cfg)
+    card = tree_map(lambda t: t.to(cuda), host)
+    tok = torch.randint(0, cfg.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(4))
+    caches = {dev: T.init_cache(cfg, 2, 8, device=dev, dtype=torch.float32)
+              for dev in ("cpu", cuda)}
+    with torch.inference_mode():
+        for i in range(8):
+            got, caches[cuda] = T.decode_step(
+                card, caches[cuda], tok[:, i:i + 1].to(cuda), i, cfg)
+            want, caches["cpu"] = T.decode_step(
+                host, caches["cpu"], tok[:, i:i + 1], i, cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

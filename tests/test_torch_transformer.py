@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SSMConfig, get_config
 from repro_torch.core.pod import make_prefill_step
 from repro_torch.kernels import ops
 from repro_torch.launch import serve_decode
@@ -86,7 +86,8 @@ def _close(got, expect, tol):
 # -- configs -----------------------------------------------------------------
 
 @pytest.mark.parametrize("arch", ["deepseek-coder-33b", "qwen1.5-4b",
-                                  "nemotron-4-15b"])
+                                  "nemotron-4-15b", "arctic-480b",
+                                  "deepseek-v3-671b"])
 def test_configs_match_reference(reference, arch):
     j, t = reference.configs.get_config(arch), get_config(arch)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)
@@ -99,10 +100,10 @@ def test_unported_architectures_raise():
         get_config("zamba2-2.7b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
-    moe = dataclasses.replace(get_config("deepseek-coder-33b").reduced(),
-                              mtp_depth=1)
+    ssm = dataclasses.replace(get_config("deepseek-coder-33b").reduced(),
+                              ssm=SSMConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_model(None, moe)
+        transformer.init_model(None, ssm)
 
 
 # -- layers ------------------------------------------------------------------
