@@ -10,8 +10,10 @@ Phases, each fatal on failure:
      beside the least time the card could take and one PyTorch library
      call that computes the same function; flash attention is timed twice
      at the prefill shape, on contiguous inputs and on the model's strided
-     (B, S, H, D) views; ``scored_reduce`` also at the FCN's cluster-block
-     (32, N) and tier-2 (8, N) shapes of 6g;
+     (B, S, H, D) views, and checked with v narrower than q and k (MLA's
+     192/128 and other pairs); ptxas must report no spill in any
+     instantiation of the Hopper flash kernel; ``scored_reduce`` also at
+     the FCN's cluster-block (32, N) and tier-2 (8, N) shapes of 6g;
   4. small runs on the card against the same runs on the CPU (whose plain
      paths the CPU tests tie to the JAX reference): the harness with each
      of the six algorithms and the genie on the MLP, OSAFL on the CNN,
@@ -107,15 +109,19 @@ Phases, each fatal on failure:
      after; a profile of one prefill call by kernel; then the flash
      prefill against the KV-cache decode path on one prompt;
   7b. the MoE serving path: the flash kernel at deepseek-v3's MLA prefill
-     shape (q/k head dim 192, v zero-padded to 192) against its plain
-     version, timed beside its unpadded bound and
-     ``scaled_dot_product_attention`` on the unpadded shapes; then
+     shape (q/k head dim 192, v head dim 128, nothing padded: the Hopper
+     kernel's <192, 128>) against
+     its plain version, repeated bit for bit, timed beside its bound,
+     ``scaled_dot_product_attention`` on the same tensors and, in turns,
+     the padded problem (v zero-padded to 192) on the kept ``mma.sync``
+     route; then
      arctic-480b (2 of 35 layers) and deepseek-v3-671b (5 of 61: 3 dense,
      2 MoE, the MTP block) at full width with seeded random bf16 weights,
      one config at a time: two timed ``make_prefill_step`` calls on 4 x
      4096 prompts (flash once a layer, the same tokens bit for bit), a
      third that counts each MoE layer's capacity and dropped assignments,
-     a profiled one, forward against decode at ``capacity_factor`` 50 (f32
+     a profiled one (whose flash kernels must all be the Hopper kernel,
+     once a layer), forward against decode at ``capacity_factor`` 50 (f32
      compute and cache; the bf16 row beside it), then
      ``serve_decode.run`` (batch 8, 4096-position cache);
   8. the training path: the flash backward kernels against their plain
@@ -148,6 +154,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -218,6 +225,13 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # mid-tile above one tile, D = 40 (filled to the 64 bucket), D = 256 (the
 # mma.sync kernel); tests/test_kernels.py:26's tolerances
 FLASH_MAIN = (4, 56, 8, 4096, 128)
+# v narrower than q and k (B, H, Hkv, S, D, Dv): MLA's 192/128 at a ragged
+# S of one tile and past one, 256/128 (the Hopper kernel's <256, 128>), a
+# ragged pair, and Dv = 40 in the <128, 128> bucket (v's second box lies
+# wholly past Dv: TMA fills it with zeros)
+FLASH_DV_SHAPES = ((1, 4, 4, 77, 192, 128), (2, 8, 2, 130, 192, 128),
+                   (1, 4, 2, 130, 256, 128), (2, 8, 2, 130, 136, 72),
+                   (1, 4, 2, 77, 128, 40))
 FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
                 (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
                 (2, 14, 2, 130, 40), (1, 8, 2, 130, 256))
@@ -368,9 +382,13 @@ LOGIT_TOL = 2e-2                 # bf16 (tests/test_kernels.py:26)
 # of the serving path
 MOE_SERVE = (("arctic-480b", 2), ("deepseek-v3-671b", 5))
 # deepseek-v3's MLA prefill attention through the flash kernel (B, H, Hkv,
-# S, D): q/k head dim 192, v (128) zero-padded to 192
+# S, D): q/k head dim 192, v head dim 128, passed as they are
 MLA_FLASH = (4, 128, 128, 4096, 192)
 MLA_V_DIM = 128
+# the Hopper kernel's instantiation it must run: deepseek-v3's profiled
+# prefill call must show it once a layer (a profile of this kernel alone,
+# late in the script, came back empty)
+MLA_SYMBOL = "flash_bf16_wgmma_kernel<192, 128>"
 # forward against decode routes alike only when nothing is dropped
 # (tests/test_models.py:66-70)
 MOE_GATE_CAPACITY = 50.0
@@ -438,7 +456,8 @@ def card() -> tuple:
 def build() -> dict:
     """Build every kernel library (one nvcc each, in parallel) and print
     ptxas's report; returns ptxas's lines for each instantiation of the
-    backward's Hopper kernel, by its D bucket."""
+    backward's Hopper kernel, by its D bucket ("bwd"), and of the
+    forward's, by its (DQK, DV) buckets ("fwd")."""
     from repro_torch.kernels.build import KERNELS
     from repro_torch.kernels.build import build as build_kernels
     t0 = time.perf_counter()
@@ -454,7 +473,8 @@ def build() -> dict:
             if any(w in line for w in ("registers", "Compiling", "spill",
                                        "Function properties", "arning")):
                 say(f"    {line.strip()}")
-    return hopper_bwd_report(out["flash_attention_bwd"]["log"])
+    return {"bwd": hopper_bwd_report(out["flash_attention_bwd"]["log"]),
+            "fwd": hopper_fwd_report(out["flash_attention"]["log"])}
 
 
 def hopper_bwd_report(log: str) -> dict:
@@ -467,6 +487,26 @@ def hopper_bwd_report(log: str) -> dict:
             bucket = "128" if "ILi128E" in line else "64"
             report[bucket] = [x.strip() for x in lines[i + 1:i + 3]]
     return report
+
+
+def hopper_fwd_report(log: str) -> dict:
+    """ptxas's stack-and-spill and register lines for each instantiation
+    of the forward's Hopper kernel in a build log, by "DQK/DV"."""
+    lines = log.splitlines()
+    report = {}
+    for i, line in enumerate(lines):
+        got = re.search(r"flash_bf16_wgmma_kernelILi(\d+)ELi(\d+)E", line)
+        if got and "Function properties" in line:
+            report[f"{got[1]}/{got[2]}"] = [x.strip()
+                                            for x in lines[i + 1:i + 3]]
+    return report
+
+
+def no_spill(report: dict) -> bool:
+    """Every instantiation's stack line reads 0 bytes spilled both ways."""
+    return bool(report) and all(
+        "0 bytes spill stores, 0 bytes spill loads" in lines[0]
+        for lines in report.values())
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -563,21 +603,23 @@ def kernels_phase() -> dict:
 
 
 def check_flash(shape, dtype, causal: bool, timed: bool,
-                model_layout: bool = False) -> dict:
-    """The kernel against its plain version on one draw. With
-    ``model_layout`` the inputs are (B, S, H, D) tensors that go through
-    ``ops.flash_attention`` as the model calls it (strided (B, H, S, D)
-    views, no copies); the plain version and the library call take the same
-    views."""
+                model_layout: bool = False, dv: int | None = None) -> dict:
+    """The kernel against its plain version on one draw, v of head dim
+    ``dv`` (D if not given). With ``model_layout`` the inputs are (B, S,
+    H, D) tensors that go through ``ops.flash_attention`` as the model
+    calls it (strided (B, H, S, D) views, no copies); the plain version and
+    the library call take the same views."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     B, H, Hkv, S, D = shape
+    Dv = D if dv is None else dv
     gen = torch.Generator(device="cuda").manual_seed(S * 131 + H * 7 + D)
     if model_layout:
         qm = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
         km = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
-        vm = torch.randn((B, S, Hkv, D), generator=gen, device="cuda").to(dtype)
+        vm = torch.randn((B, S, Hkv, Dv), generator=gen,
+                         device="cuda").to(dtype)
         q, k, v = (x.transpose(1, 2) for x in (qm, km, vm))
 
         def kernel():
@@ -585,7 +627,8 @@ def check_flash(shape, dtype, causal: bool, timed: bool,
     else:
         q = torch.randn((B, H, S, D), generator=gen, device="cuda").to(dtype)
         k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
-        v = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((B, Hkv, S, Dv), generator=gen,
+                        device="cuda").to(dtype)
 
         def kernel():
             return fa.flash_attention_bhsd(q, k, v, causal=causal)
@@ -597,12 +640,13 @@ def check_flash(shape, dtype, causal: bool, timed: bool,
     ok = torch.allclose(out.float(), plain.float(), atol=tol, rtol=tol)
     same = torch.equal(out, kernel())
     del plain
-    row = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+    row = {"shape": list(shape), "dv": Dv,
+           "dtype": str(dtype).replace("torch.", ""),
            "causal": causal, "layout": "BSHD views" if model_layout
            else "BHSD", "max_abs_err": err, "tol": tol, "ok": ok,
            "bitwise_repeat": same}
     if timed:
-        flops = fa.bound_flops(q, k, causal=causal)
+        flops = fa.bound_flops(q, k, v, causal=causal)
         nbytes = fa.bound_bytes(q, k, v)
         row["ms"] = time_ms(kernel, 20)
         row["plain_ms"] = time_ms(
@@ -610,8 +654,8 @@ def check_flash(shape, dtype, causal: bool, timed: bool,
             warmup=1)
         row["library_ms"] = time_ms(
             lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal, scale=D ** -0.5, enable_gqa=True),
-            5)
+                q, k, v, is_causal=causal, scale=D ** -0.5,
+                enable_gqa=H != Hkv), 5)
         peak = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
         t_ops = flops / peak * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -626,7 +670,15 @@ def check_flash(shape, dtype, causal: bool, timed: bool,
     return row
 
 
-def flash_phase() -> dict:
+def flash_phase(ptxas_fwd: dict) -> dict:
+    say("flash ptxas " + json.dumps(ptxas_fwd))
+    if sorted(ptxas_fwd) != ["128/128", "192/128", "256/128", "64/64"]:
+        raise AssertionError(f"the build's report lacks an instantiation of "
+                             f"the Hopper flash kernel: {sorted(ptxas_fwd)}")
+    if not no_spill(ptxas_fwd):
+        raise AssertionError(f"ptxas spilled in the Hopper flash kernel "
+                             f"(which then serialises its wgmma): "
+                             f"{ptxas_fwd}")
     main = check_flash(FLASH_MAIN, torch.bfloat16, causal=True, timed=True)
     torch.cuda.empty_cache()
     main["model_layout"] = check_flash(FLASH_MAIN, torch.bfloat16,
@@ -637,6 +689,11 @@ def flash_phase() -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 check_flash(shape, dtype, causal, timed=False)
+    for *shape, dv in FLASH_DV_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                check_flash(tuple(shape), dtype, causal, timed=False, dv=dv)
+    main["ptxas"] = ptxas_fwd
     return main
 
 
@@ -1912,13 +1969,21 @@ def device_breakdown(fn) -> dict:
             groups["matmul"] += ms
         else:
             groups["other"] += ms
-    bwd_kernels = {}
+    bwd_kernels, fwd_kernels = {}, {}
     for name, ms, c in kernels:
         for sym in FLASH_BWD_SYMBOLS:
             if sym in name.lower():
                 got = bwd_kernels.setdefault(sym, {"ms": 0.0, "count": 0})
                 got["ms"] += ms
                 got["count"] += c
+        if (any(sym in name for sym in FLASH_SYMBOLS)
+                and not any(sym in name for sym in FLASH_BWD_SYMBOLS)):
+            # the forward's kernels by their instantiation, e.g.
+            # "flash_bf16_wgmma_kernel<192, 128>"
+            key = re.sub(r"^.*?(flash_\w+<[^>]*>).*$", r"\1", name)
+            got = fwd_kernels.setdefault(key, {"ms": 0.0, "count": 0})
+            got["ms"] += ms
+            got["count"] += c
     top = sorted(kernels, key=lambda k: -k[1])[:8]
     # zero fills: a training step's count shows whether gradients of the
     # stacked layers scatter into whole-stack zeros
@@ -1928,6 +1993,7 @@ def device_breakdown(fn) -> dict:
             "fills": {"ms": sum(ms for ms, _ in fills),
                       "count": sum(c for _, c in fills)},
             "flash_bwd_kernels": bwd_kernels,
+            "flash_kernels": fwd_kernels,
             "top_kernels": [{"name": n[:80], "ms": ms, "count": c}
                             for n, ms, c in top]}
 
@@ -2031,34 +2097,48 @@ def serving_phase() -> dict:
 
 
 def mla_flash_phase() -> dict:
-    """The flash kernel at deepseek-v3's MLA prefill shape, as the model
-    calls it (q/k head dim 192, v zero-padded to 192), against its plain
-    version and timed; beside it ``scaled_dot_product_attention`` on the
-    unpadded shapes (v 128) and the bound of the unpadded function."""
+    """The flash kernel at deepseek-v3's MLA prefill shape as the model
+    calls it (q/k head dim 192, v head dim 128, nothing padded) against
+    its plain version, repeated bit for bit and timed beside its bound and
+    ``scaled_dot_product_attention`` on the same tensors (``check_flash``);
+    then, in turns with it, the padded problem that the prefill ran before
+    (v zero-padded to 192, so Dv > 128: the kept ``mma.sync`` route), its
+    first 128 columns held to the unpadded output within FLASH_TOL."""
     import torch.nn.functional as F
-    row = check_flash(MLA_FLASH, torch.bfloat16, causal=True, timed=True)
-    B, H, _, S, D = MLA_FLASH
+    from repro_torch.kernels import flash_attention as fa
+    row = check_flash(MLA_FLASH, torch.bfloat16, causal=True, timed=True,
+                      dv=MLA_V_DIM)
+    B, H, Hkv, S, D = MLA_FLASH
     gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k = (torch.randn((B, H, S, D), generator=gen, device="cuda")
-            .to(torch.bfloat16) for _ in range(2))
-    v = torch.randn((B, H, S, MLA_V_DIM), generator=gen,
-                    device="cuda").to(torch.bfloat16)
-    row["sdpa_unpadded_ms"] = time_ms(
-        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                               scale=D ** -0.5), 5)
-    # the function computed: two products over the S(S+1)/2 causal pairs,
-    # of depth 192 (q k^T) and 128 (p v); q, k, v read, o written once
-    flops = 2 * B * H * S * (S + 1) // 2 * (D + MLA_V_DIM)
-    nbytes = 2 * B * H * S * (2 * D + 2 * MLA_V_DIM)
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    row["unpadded_gflop"] = flops / 1e9
-    row["unpadded_bound_ms"] = max(t_ops, t_bytes)
-    row["unpadded_bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
-    row["unpadded_share_of_bound"] = row["unpadded_bound_ms"] / row["ms"]
-    del q, k, v
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, Hkv, S, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, Hkv, S, MLA_V_DIM), generator=gen,
+                    device="cuda").bfloat16()
+    vp = F.pad(v, (0, D - MLA_V_DIM))
+    out = fa.flash_attention_bhsd(q, k, v)
+    padded = fa.flash_attention_bhsd(q, k, vp)
+    torch.cuda.synchronize()
+    tol = FLASH_TOL[torch.bfloat16]
+    row["padded_max_abs_diff"] = float(
+        (padded[..., :MLA_V_DIM].float() - out.float()).abs().max())
+    row["padded_close"] = torch.allclose(padded[..., :MLA_V_DIM].float(),
+                                         out.float(), atol=tol, rtol=tol)
+    del out, padded
+    turns = {"unpadded": [], "padded": []}
+    for name in ("unpadded", "padded", "padded", "unpadded"):
+        vv = v if name == "unpadded" else vp
+        turns[name].append(time_ms(lambda: fa.flash_attention_bhsd(q, k, vv),
+                                   10))
+    row["ms_in_turns"] = turns["unpadded"]
+    row["padded_mma_sync_ms_in_turns"] = turns["padded"]
+    row["padded_mma_sync_ms"] = sum(turns["padded"]) / 2
+    row["symbol"] = MLA_SYMBOL
+    del q, k, v, vp
     torch.cuda.empty_cache()
     say("flash_attention at the MLA prefill shape " + json.dumps(row))
+    if not row["padded_close"]:
+        raise AssertionError(f"the padded mma.sync route and the unpadded "
+                             f"Hopper kernel disagree: {row}")
     return row
 
 
@@ -2121,6 +2201,15 @@ def moe_serving_phase() -> dict:
             T.moe_fwd = real
         dispatch = [{k: int(v) for k, v in st.items()} for st in stats]
         breakdown = prefill_breakdown(prefill, params, tokens)
+        # the forward's flash kernels in the profiled call: the Hopper
+        # kernel alone, once a layer (MLA at <192, 128>)
+        flash_kernels = breakdown["flash_kernels"]
+        hopper_only = (
+            all(name.startswith("flash_bf16_wgmma_kernel<")
+                for name in flash_kernels)
+            and sum(x["count"] for x in flash_kernels.values())
+            == cfg.n_layers
+            and (cfg.attention != "mla" or MLA_SYMBOL in flash_kernels))
         breakdown["busy_share_of_timed_call"] = (breakdown["device_ms"]
                                                  / 1e3 / prefill_s[-1])
         prompt = tokens[:2, :SERVE_DECODE["prompt_len"]]
@@ -2181,6 +2270,10 @@ def moe_serving_phase() -> dict:
         if not row["prefill"]["bitwise_repeat"]:
             raise AssertionError(f"{arch}: prefill calls on the same weights "
                                  f"gave other tokens: {nxt}")
+        if not hopper_only:
+            raise AssertionError(f"{arch}: a profiled prefill call ran flash "
+                                 f"kernels other than the Hopper kernel "
+                                 f"once a layer: {flash_kernels}")
         if not (all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
                     for t in nxt) and toks.shape == (nb, nd)
                 and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
@@ -2588,9 +2681,9 @@ def fedavg_step_breakdown(cfg) -> dict:
 def main() -> int:
     kind, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    ptxas_bwd = build()
+    ptxas = build()
     kern = kernels_phase()
-    flash = flash_phase()
+    flash = flash_phase(ptxas["fwd"])
     small_loop = small_run_phase()
     small_transformer_phase()
     conv_precision_phase()
@@ -2614,7 +2707,7 @@ def main() -> int:
     fused = fused_phase()
     serving = serving_phase()
     moe_serving = moe_serving_phase()
-    bwd = flash_bwd_phase(ptxas_bwd)
+    bwd = flash_bwd_phase(ptxas["bwd"])
     training = train_phase()
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
@@ -2690,11 +2783,15 @@ def main() -> int:
         "max_abs_err": flash["max_abs_err"], "ms": flash["ms"],
         "plain_ms": flash["plain_ms"], "bound_ms": flash["bound_ms"],
         "bound_by": flash["bound_by"], "library_ms": flash["library_ms"],
+        "ptxas": flash["ptxas"],
         "mla_prefill_shape": {
-            key: moe_serving["mla_flash"][key] for key in (
-                "shape", "max_abs_err", "ms", "plain_ms", "library_ms",
-                "bound_ms", "sdpa_unpadded_ms", "unpadded_bound_ms",
-                "unpadded_share_of_bound")}}, {
+            "launches": by_path["flash_attention"][
+                "moe_serving deepseek-v3-671b"],
+            **{key: moe_serving["mla_flash"][key] for key in (
+                "shape", "dv", "symbol", "max_abs_err", "bitwise_repeat",
+                "ms", "ms_in_turns", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "share_of_bound", "padded_mma_sync_ms",
+                "padded_mma_sync_ms_in_turns", "padded_max_abs_diff")}}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

@@ -1,15 +1,15 @@
 // Flash attention (causal or not, grouped-query) for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py
-// (_flash_kernel, launched by flash_attention_bhsd). For q (B, H, S, D) and
-// k, v (B, Hkv, S, D), H a multiple of Hkv, query head h reading kv head
-// h / (H / Hkv), it computes
+// (_flash_kernel, launched by flash_attention_bhsd). For q (B, H, S, D),
+// k (B, Hkv, S, D) and v (B, Hkv, S, Dv), Dv <= D, H a multiple of Hkv,
+// query head h reading kv head h / (H / Hkv), it computes
 //
 //     o[b, h, i] = sum_j softmax_j(scale * <q[b, h, i], k[b, hk, j]>) v[b, hk, j]
 //
-// over j <= i when causal, with an online softmax: a running row max m and
-// row sum l and the output accumulator, all f32, are carried over kv tiles,
-// so the (S, S) scores never reach device memory. Masked scores are -1e30
+// (o of width Dv) over j <= i when causal, with an online softmax: a
+// running row max m and row sum l and the output accumulator, all f32, are
+// carried over kv tiles, so the (S, S) scores never reach device memory. Masked scores are -1e30
 // as in the TPU kernel, the probabilities are rounded to bf16 for the
 // second product, and the output is acc / max(l, 1e-30) in q's dtype.
 //
@@ -17,11 +17,16 @@
 // D=128, bf16, causal) the two products take 4*B*H*D*S(S+1)/2 = 962 GFLOP,
 // 0.97 ms at the H100's 989 TFLOP/s for bf16 tensor cores, while q, k, v and
 // o are 0.54 GB, 0.16 ms at 3.35 TB/s: the kernel is bound by operations.
+// At MLA's prefill (deepseek-v3: B=4, S=4096, H=Hkv=128, D=192, Dv=128) the
+// products take 2*B*H*(D+Dv)*S(S+1)/2 = 2,750 GFLOP, 2.78 ms.
 //
-// Three kernels; the entry point picks one by (dtype, D) alone, an explicit
-// choice by shape (no error is caught and retried another way):
-//   * bf16, D <= 128 (every config of the zoo has D = 128): the Hopper
-//     kernel, flash_bf16_wgmma_kernel. What its design does about the bound:
+// Three kernels; the entry point picks one by (dtype, D, Dv) alone, an
+// explicit choice by shape (no error is caught and retried another way):
+//   * bf16, Dv <= 128 (every config of the zoo: D = Dv = 128, or MLA's
+//     D = 192, Dv = 128): the Hopper kernel, flash_bf16_wgmma_kernel<DQK,
+//     DV>, at <64, 64> for D <= 64, <128, 128> for D <= 128, <192, 128> for
+//     D <= 192 and <256, 128> for D <= 256. What its design does about the
+//     bound:
 //       - wgmma, the only path to the full tensor-core rate, for both
 //         products: S = q k^T with both operands in shared memory, and
 //         O += P v with P taken from registers (the f32 scores, rounded to
@@ -32,8 +37,8 @@
 //       - TMA loads through tensor maps built on the host from the (b, h, s)
 //         strides: no thread spends registers or instructions on copies,
 //         the model-layout (B, S, H, D) views go in as they are, and rows
-//         past S or columns past D come back as zeros (D rounds up to a
-//         bucket of 64 or 128, S needs no padding);
+//         past S or columns past D (q, k) or Dv (v) come back as zeros (the
+//         head dims round up to their bucket, S needs no padding);
 //       - a ring of k/v stages with full and empty mbarriers, kept full by
 //         one producer thread, so loads run under the products; setmaxnreg
 //         moves registers from the producer warpgroup to the consumers;
@@ -50,14 +55,30 @@
 //         straight-line code;
 //       - causal: tiles wholly above the diagonal are skipped, only the one
 //         or two tiles that cross it (or S) are masked, the last tile comes
-//         first, and blocks are issued longest first;
+//         first, and a kv head's blocks are issued longest first;
+//       - the blocks of one kv head (its query tiles and group) run
+//         together, so its k and v are read from device memory about once
+//         and then from L2, whatever the group (MLA's is 1);
 //       - the output is staged in shared memory and stored by TMA.
-//   * bf16, 128 < D <= 256 (no config reaches it): mma.sync m16n8k16 with
+//     Two head dims (MLA): q and k tiles are DQK columns wide, v and o
+//     tiles DV. The consumer's registers hold o (DV/2 a thread), the scores
+//     of one tile (48) and P of the previous one (24), which depend on DV
+//     and the tile alone, so <192, 128> and <256, 128> keep the 64 + 48 +
+//     24 of <128, 128>, and a tile stays 96 keys for the reason above; only
+//     q k^T takes more k-steps (DQK / 16: 12 at 192 against 8 at 128) for
+//     the same softmax work a tile. What grows is shared memory: q 128 x
+//     DQK, two k tiles 96 x DQK and two v tiles 96 x DV in bf16, with the
+//     barriers and the alignment 169 KB at <192, 128> and 209 KB at
+//     <256, 128>, both within the 227 KB a block can take (WsLayout).
+//     Nothing is padded in device memory: MLA's v is read at its own 128
+//     columns and o written at them.
+//   * bf16, Dv > 128 (no config reaches it): mma.sync m16n8k16 with
 //     cp.async double buffering, 64 query rows per block.
 //   * f32: a CUDA-core kernel (f32 FMA, exact f32 products as the TPU
 //     kernel's) that is right, not fast; no full-size path runs it.
 //
-// Ragged shapes: any S >= 1 and any D that is a multiple of 8 up to 256.
+// Ragged shapes: any S >= 1, any D and Dv <= D that are multiples of 8 up
+// to 256.
 // One block owns each output row and no atomics are used, so two runs on
 // the same inputs give bit-identical results. The C entry point launches on
 // the caller's stream, allocates nothing, and returns a nonzero code when a
@@ -90,7 +111,7 @@ struct Params {
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
-  int B, H, Hkv, S, D;
+  int B, H, Hkv, S, D, Dv;  // D: q and k; Dv: v and o
   float scale;
   int causal;
 };
@@ -158,9 +179,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
     __syncthreads();  // the previous tile is consumed (and qs is staged)
     for (int i = threadIdx.x; i < BN * DP; i += kThreads) {
       const int r = i / DP, c = i % DP;
-      const bool in = n0 + r < p.S && c < p.D;
-      ks[r * (DP + 1) + c] = in ? k[(n0 + r) * p.k_ss + c] : 0.f;
-      vs[r * DP + c] = in ? v[(n0 + r) * p.v_ss + c] : 0.f;
+      const bool in = n0 + r < p.S;
+      ks[r * (DP + 1) + c] = in && c < p.D ? k[(n0 + r) * p.k_ss + c] : 0.f;
+      vs[r * DP + c] = in && c < p.Dv ? v[(n0 + r) * p.v_ss + c] : 0.f;
     }
     __syncthreads();
 
@@ -212,14 +233,14 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int c = lane + 32 * i;
-      if (c < p.D) o[(row0 + r) * p.o_ss + c] = acc[r][i] / den;
+      if (c < p.Dv) o[(row0 + r) * p.o_ss + c] = acc[r][i] / den;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16, 128 < D <= 256: tensor cores through mma.sync m16n8k16
-// (bf16 x bf16 -> f32), the Ampere path; no config of the zoo reaches it.
+// bf16, Dv > 128: tensor cores through mma.sync m16n8k16 (bf16 x bf16 ->
+// f32), the Ampere path; no config of the zoo reaches it.
 // Fragment layout (PTX ISA, per lane: g = lane / 4, t = lane % 4):
 //   A 16x16 row-major: a0 (g, 2t..2t+1), a1 (g+8, 2t..), a2 (g, 2t+8..),
 //                      a3 (g+8, 2t+8..)
@@ -309,15 +330,16 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
   const uint16_t* v = static_cast<const uint16_t*>(p.v) + b * p.v_sb + hk * p.v_sh;
   uint16_t* o = static_cast<uint16_t*>(p.o) + b * p.o_sb + h * p.o_sh;
 
-  // Stage the k and v rows [n0, n0 + BN) into buffer buf, zeros past S or D.
+  // Stage the k and v rows [n0, n0 + BN) into buffer buf, zeros past S, D
+  // (k) or Dv (v).
   auto load_tile = [&](int n0, int buf) {
     uint16_t* kd = kv_smem + buf * 2 * BN * LD;
     uint16_t* vd = kd + BN * LD;
     for (int i = threadIdx.x; i < BN * VPR; i += NTH) {
       const int r = i / VPR, c = (i % VPR) * 8;
-      const bool in = n0 + r < p.S && c < p.D;
-      cp_async16(kd + r * LD + c, in ? k + (n0 + r) * p.k_ss + c : k, in);
-      cp_async16(vd + r * LD + c, in ? v + (n0 + r) * p.v_ss + c : v, in);
+      const bool ik = n0 + r < p.S && c < p.D, iv = n0 + r < p.S && c < p.Dv;
+      cp_async16(kd + r * LD + c, ik ? k + (n0 + r) * p.k_ss + c : k, ik);
+      cp_async16(vd + r * LD + c, iv ? v + (n0 + r) * p.v_ss + c : v, iv);
     }
     cp_async_commit();
   };
@@ -456,7 +478,7 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
 #pragma unroll
   for (int d = 0; d < DT; ++d) {
     const int c = d * 8 + 2 * t;
-    if (c >= p.D) continue;
+    if (c >= p.Dv) continue;
     if (r_lo < p.S) {
       *reinterpret_cast<uint32_t*>(o + r_lo * p.o_ss + c) =
           pack_bf16(acc[d][0] * inv_lo, acc[d][1] * inv_lo);
@@ -469,12 +491,13 @@ __global__ void __launch_bounds__(32 * kBf16Warps)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, D <= 128: TMA, an mbarrier ring, warp specialisation and wgmma.
+// bf16, Dv <= 128: TMA, an mbarrier ring, warp specialisation and wgmma.
 //
 // A block owns 128 query rows of one (b, h): 384 threads, warpgroup 0 the
 // producer (one thread issues every TMA load), warpgroups 1 and 2 the
-// consumers, 64 rows each. Shared memory holds q, kStages k tiles and
-// kStages v tiles of 96 keys, each tile 128-byte swizzled as TMA writes it
+// consumers, 64 rows each. Shared memory holds q (DQK columns), kStages k
+// tiles (DQK) and kStages v tiles (DV) of 96 keys, each tile 128-byte
+// swizzled as TMA writes it
 // and wgmma reads it (hopper.cuh gives the layout and the wgmma fragments:
 // the scores' accumulator, packed pairwise into bf16x2, is P's A fragment).
 // ---------------------------------------------------------------------------
@@ -484,21 +507,27 @@ constexpr int kWsBN = 96;        // keys per k/v tile
 constexpr int kWsStages = 2;     // depth of the k/v ring
 constexpr int kWsThreads = 384;  // producer warpgroup + two consumers
 
-template <int DP>
+template <int DQK, int DV>
 struct WsLayout {
-  static constexpr int boxes = DP / kBoxCols;
-  static constexpr uint32_t q_bytes = kWsBM * DP * 2;
-  static constexpr uint32_t kv_bytes = kWsBN * DP * 2;  // one k or v tile
+  static_assert(DQK % kBoxCols == 0 && DV % kBoxCols == 0 && DV <= DQK &&
+                DV <= 128, "whole boxes; o is staged in q's rows; o[DV/2]");
+  static constexpr int qk_boxes = DQK / kBoxCols;  // of q and of a k tile
+  static constexpr int v_boxes = DV / kBoxCols;    // of a v tile and of o
+  static constexpr uint32_t q_bytes = kWsBM * DQK * 2;
+  static constexpr uint32_t k_bytes = kWsBN * DQK * 2;  // one k tile
+  static constexpr uint32_t v_bytes = kWsBN * DV * 2;   // one v tile
   static constexpr uint32_t k_off = q_bytes;
-  static constexpr uint32_t v_off = k_off + kWsStages * kv_bytes;
-  static constexpr uint32_t bar_off = v_off + kWsStages * kv_bytes;
+  static constexpr uint32_t v_off = k_off + kWsStages * k_bytes;
+  static constexpr uint32_t bar_off = v_off + kWsStages * v_bytes;
   // q full; per stage: k full, v full, k empty, v empty
   static constexpr int n_bars = 1 + 4 * kWsStages;
   static constexpr size_t smem = bar_off + 8 * n_bars + 1024;  // + alignment
+  // 173,128 bytes at <192, 128>, 214,088 at <256, 128>: both fit
+  static_assert(smem <= 232448, "a block takes at most 227 KB");
 };
 
 struct WsParams {
-  int S, H, group, nq, causal;
+  int S, H, Hkv, group, nq, causal;
   float sl2;  // scale * log2(e): scores go to the log2 domain
   float* lse;  // (B, H, S) or null
 };
@@ -605,13 +634,13 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da,
 }
 
 // S = q k^T of one tile into sc (64 rows of q at sq_w, kWsBN keys at kt),
-// D/16 steps of k16: within a 64-column box a step advances 32 bytes, past
+// DQK/16 steps of k16: within a 64-column box a step advances 32 bytes, past
 // it a box. Issued and committed as one group.
-template <int DP>
+template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kWsBN / 2], uint32_t sq_w,
                                          uint32_t kt) {
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     wgmma_ss(sc, wgmma_desc(sq_w + (kk / 4) * kWsBM * kBoxRowBytes + col,
                                  16, 1024),
@@ -622,7 +651,7 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kWsBN / 2], uint32_t sq_w,
   wgmma_commit();
 }
 
-// O += P v of one tile, P's A fragments in pa: v at vt (keys x D, D
+// O += P v of one tile, P's A fragments in pa: v at vt (keys x DV, DV
 // contiguous) is the transposed B operand, 8 key rows 128 bytes apart, the
 // next 8 at 1024 bytes, the next 64 columns one box (kWsBN keys) further.
 template <int N>
@@ -645,14 +674,14 @@ __device__ __forceinline__ void to_bf16(uint32_t (&pa)[kWsBN / 4],
   for (int i = 0; i < kWsBN / 4; ++i) pa[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
-template <int DP>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq,
     const __grid_constant__ CUtensorMap tk,
     const __grid_constant__ CUtensorMap tv,
     const __grid_constant__ CUtensorMap to, const WsParams p) {
-  using L = WsLayout<DP>;
-  constexpr int NB = L::boxes;
+  using L = WsLayout<DQK, DV>;
+  constexpr int NBQK = L::qk_boxes, NBV = L::v_boxes;
   constexpr uint32_t kQBox = kWsBM * kBoxRowBytes;   // one box of q
   constexpr uint32_t kKVBox = kWsBN * kBoxRowBytes;  // one box of a k/v tile
   extern __shared__ uint8_t ws_smem[];
@@ -664,10 +693,17 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   const uint32_t k_empty = v_full + 8 * kWsStages;
   const uint32_t v_empty = k_empty + 8 * kWsStages;
 
-  // blockIdx.x walks (b, h) fastest, so the blocks in flight share k/v;
-  // blockIdx.y walks the query tiles from the last (longest causal) down
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H, hk = h / p.group;
-  const int q0 = (p.nq - 1 - static_cast<int>(blockIdx.y)) * kWsBM;
+  // Blocks walk the (b, kv head) pairs slowest; within one, the query
+  // tiles from the last (longest causal) down, and within a tile the
+  // query heads of the kv head's group. The blocks in flight then read
+  // the k and v of one or two kv heads, which stay in L2. ((b, h) fastest
+  // would put one query tile of 132 heads in flight: with H = Hkv (MLA)
+  // they share no k or v, and the loads, not the products, bound it.)
+  const int per_kv = p.nq * p.group;
+  const int bk = blockIdx.x / per_kv, rest = blockIdx.x % per_kv;
+  const int b = bk / p.Hkv, hk = bk % p.Hkv, h = hk * p.group + rest % p.group;
+  const int q0 = (p.nq - 1 - rest / p.group) * kWsBM;
+  const int bh = b * p.H + h;
   const int kv_end = p.causal ? min(p.S, q0 + kWsBM) : p.S;
   const int n_tiles = (kv_end + kWsBN - 1) / kWsBN;
   const int wg = threadIdx.x / 128;
@@ -690,7 +726,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::q_bytes);
-      for (int c = 0; c < NB; ++c) {
+      for (int c = 0; c < NBQK; ++c) {
         tma_load(sq + c * kQBox, tq, q_full, c * kBoxCols, q0, h, b);
       }
       for (int it = 0; it < n_tiles; ++it) {
@@ -698,15 +734,15 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
         const uint32_t freed = ((it / kWsStages) & 1) ^ 1;
         const int n0 = (n_tiles - 1 - it) * kWsBN;
         if (it >= kWsStages) mbar_wait(k_empty + 8 * s, freed);
-        mbar_expect_tx(k_full + 8 * s, L::kv_bytes);
-        for (int c = 0; c < NB; ++c) {
-          tma_load(sk + s * L::kv_bytes + c * kKVBox, tk, k_full + 8 * s,
+        mbar_expect_tx(k_full + 8 * s, L::k_bytes);
+        for (int c = 0; c < NBQK; ++c) {
+          tma_load(sk + s * L::k_bytes + c * kKVBox, tk, k_full + 8 * s,
                    c * kBoxCols, n0, hk, b);
         }
         if (it >= kWsStages) mbar_wait(v_empty + 8 * s, freed);
-        mbar_expect_tx(v_full + 8 * s, L::kv_bytes);
-        for (int c = 0; c < NB; ++c) {
-          tma_load(sv + s * L::kv_bytes + c * kKVBox, tv, v_full + 8 * s,
+        mbar_expect_tx(v_full + 8 * s, L::v_bytes);
+        for (int c = 0; c < NBV; ++c) {
+          tma_load(sv + s * L::v_bytes + c * kKVBox, tv, v_full + 8 * s,
                    c * kBoxCols, n0, hk, b);
         }
       }
@@ -724,9 +760,9 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   const uint32_t sq_w = sq + w * 64 * kBoxRowBytes;  // this warpgroup's q rows
   const Turns turns(w);
 
-  float o[DP / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   RowStats st;
   float sc[kWsBN / 2];      // scores, then probabilities, of one tile
   uint32_t pa[kWsBN / 4];   // those probabilities in bf16: P's A fragments
@@ -738,8 +774,8 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
     if (lane == 0) mbar_arrive(bar + 8 * (it % kWsStages));
   };
   auto n0_of = [&](int it) { return (n_tiles - 1 - it) * kWsBN; };
-  auto k_tile = [&](int it) { return sk + (it % kWsStages) * L::kv_bytes; };
-  auto v_tile = [&](int it) { return sv + (it % kWsStages) * L::kv_bytes; };
+  auto k_tile = [&](int it) { return sk + (it % kWsStages) * L::k_bytes; };
+  auto v_tile = [&](int it) { return sv + (it % kWsStages) * L::v_bytes; };
 
   // Tile 0 (the last in key order): its scores and softmax. Then for each
   // next tile, in one turn: the scores of tile it, the output rescaled by
@@ -750,7 +786,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   full(k_full, 0);
   turns.begin();
   wgmma_fence();
-  issue_qk<DP>(sc, sq_w, k_tile(0));
+  issue_qk<DQK>(sc, sq_w, k_tile(0));
   turns.end(false);
   wgmma_wait<0>();
   keep(sc);
@@ -762,7 +798,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
     full(v_full, it - 1);
     turns.begin();
     wgmma_fence();
-    issue_qk<DP>(sc, sq_w, k_tile(it));
+    issue_qk<DQK>(sc, sq_w, k_tile(it));
     rescale(o, a_lo, a_hi);
     wgmma_fence();
     issue_pv(o, pa, v_tile(it - 1));
@@ -788,16 +824,16 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   keep(pa);
   release(v_empty, n_tiles - 1);
 
-  // o / l into this warpgroup's q rows (free now), swizzled as the o map's
-  // boxes, then one thread stores them by TMA (rows past S, columns past D
-  // are not written)
+  // o / l into this warpgroup's q rows (free now; DQK >= DV columns),
+  // swizzled as the o map's boxes, then one thread stores them by TMA (rows
+  // past S, columns past Dv are not written)
 #pragma unroll
   for (int x = 1; x <= 2; x <<= 1) {
     st.l_lo += __shfl_xor_sync(0xffffffffu, st.l_lo, x);
     st.l_hi += __shfl_xor_sync(0xffffffffu, st.l_hi, x);
   }
   if (p.lse != nullptr && t == 0) {  // the rows' final m and l (log2)
-    float* lse = p.lse + static_cast<size_t>(blockIdx.x) * p.S;
+    float* lse = p.lse + static_cast<size_t>(bh) * p.S;
     if (r_lo < p.S) lse[r_lo] = (st.m_lo + log2f(st.l_lo)) * kLn2;
     if (r_hi < p.S) lse[r_hi] = (st.m_hi + log2f(st.l_hi)) * kLn2;
   }
@@ -805,7 +841,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   const float inv_hi = 1.f / fmaxf(st.l_hi, 1e-30f);
   const int rl = 16 * warp + lane / 4, rh = rl + 8;  // rows within the 64
 #pragma unroll
-  for (int j = 0; j < DP / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const uint32_t box = sq_w + (j / 8) * kQBox;
     const uint32_t byte = 4 * t;  // within the 16-byte chunk j % 8
     st_shared(box + rl * kBoxRowBytes + (((j % 8) ^ (rl % 8)) * 16) + byte,
@@ -816,7 +852,7 @@ __global__ void __launch_bounds__(kWsThreads, 1) flash_bf16_wgmma_kernel(
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   named_sync(1 + w, 128);
   if (threadIdx.x % 128 == 0) {
-    for (int c = 0; c < NB; ++c) {
+    for (int c = 0; c < NBV; ++c) {
       tma_store(to, sq_w + c * kQBox, c * kBoxCols, row0, h, b);
     }
     asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
@@ -848,35 +884,38 @@ cudaError_t launch_bf16_mma(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DQK, int DV>
 int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
-  using L = WsLayout<DP>;
+  using L = WsLayout<DQK, DV>;
   const int nq = (p.S + kWsBM - 1) / kWsBM;
-  if (nq > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = static_cast<long long>(p.B) * p.H * nq;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tq, tk, tv, to;
   int err = encode_bf16_map(&tq, p.q, p.D, p.S, p.H, p.B, p.q_sb, p.q_sh,
                             p.q_ss, kWsBM);
   if (err == 0) err = encode_bf16_map(&tk, p.k, p.D, p.S, p.Hkv, p.B, p.k_sb,
                                       p.k_sh, p.k_ss, kWsBN);
-  if (err == 0) err = encode_bf16_map(&tv, p.v, p.D, p.S, p.Hkv, p.B, p.v_sb,
+  if (err == 0) err = encode_bf16_map(&tv, p.v, p.Dv, p.S, p.Hkv, p.B, p.v_sb,
                                       p.v_sh, p.v_ss, kWsBN);
-  if (err == 0) err = encode_bf16_map(&to, p.o, p.D, p.S, p.H, p.B, p.o_sb,
+  if (err == 0) err = encode_bf16_map(&to, p.o, p.Dv, p.S, p.H, p.B, p.o_sb,
                                       p.o_sh, p.o_ss, 64);
   if (err != 0) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bf16_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bf16_wgmma_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(L::smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   WsParams wp;
   wp.S = p.S;
   wp.H = p.H;
+  wp.Hkv = p.Hkv;
   wp.group = p.H / p.Hkv;
   wp.nq = nq;
   wp.causal = p.causal;
   wp.sl2 = p.scale * kLog2e;
   wp.lse = p.lse;
-  const dim3 grid(p.B * p.H, nq);
-  flash_bf16_wgmma_kernel<DP><<<grid, kWsThreads, L::smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(blocks));
+  flash_bf16_wgmma_kernel<DQK, DV><<<grid, kWsThreads, L::smem, stream>>>(
       tq, tk, tv, to, wp);
   return static_cast<int>(cudaGetLastError());
 }
@@ -885,20 +924,21 @@ int launch_bf16_wgmma(const Params& p, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). lse, if not null,
-// receives the (B, H, S) f32 log-sum-exp. strides holds the (batch, head,
-// sequence) strides in elements of q, k, v and o, in that order; each last
-// dim is dense. The caller guarantees 1 <= S,
-// H % Hkv == 0, B * H <= 65535, D % 8 == 0 with 8 <= D <= 256, 16-byte
-// aligned base pointers, and strides that are multiples of 16 bytes and
-// below 2^40 bytes (the tensor maps' limits).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o alike). D is the head dim
+// of q and k, Dv that of v and o. lse, if not null, receives the (B, H, S)
+// f32 log-sum-exp. strides holds the (batch, head, sequence) strides in
+// elements of q, k, v and o, in that order; each last dim is dense. The
+// caller guarantees 1 <= S, H % Hkv == 0, B * H <= 65535, D and Dv
+// multiples of 8 with 8 <= Dv <= D <= 256, 16-byte aligned base pointers,
+// and strides that are multiples of 16 bytes and below 2^40 bytes (the
+// tensor maps' limits).
 int flash_attention_launch(int dtype, const void* q, const void* k,
                            const void* v, void* o, float* lse,
                            const long long* strides,
-                           int B, int H, int Hkv, int S, int D, float scale,
-                           int causal, void* stream) {
-  if ((dtype != 0 && dtype != 1) || D < 8 || D > 256 || D % 8 != 0 || S < 1 ||
-      Hkv < 1 || H % Hkv != 0) {
+                           int B, int H, int Hkv, int S, int D, int Dv,
+                           float scale, int causal, void* stream) {
+  if ((dtype != 0 && dtype != 1) || D > 256 || D % 8 != 0 || Dv < 8 ||
+      Dv > D || Dv % 8 != 0 || S < 1 || Hkv < 1 || H % Hkv != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Params p;
@@ -916,13 +956,16 @@ int flash_attention_launch(int dtype, const void* q, const void* k,
   p.Hkv = Hkv;
   p.S = S;
   p.D = D;
+  p.Dv = Dv;
   p.scale = scale;
   p.causal = causal;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {  // bf16: the kernel is chosen by D alone
-    if (D <= 64) return launch_bf16_wgmma<64>(p, s);
-    if (D <= 128) return launch_bf16_wgmma<128>(p, s);
-    return static_cast<int>(launch_bf16_mma(p, s));
+  if (dtype == 1) {  // bf16: the kernel is chosen by (D, Dv) alone
+    if (Dv > 128) return static_cast<int>(launch_bf16_mma(p, s));
+    if (D <= 64) return launch_bf16_wgmma<64, 64>(p, s);
+    if (D <= 128) return launch_bf16_wgmma<128, 128>(p, s);
+    if (D <= 192) return launch_bf16_wgmma<192, 128>(p, s);
+    return launch_bf16_wgmma<256, 128>(p, s);
   }
   cudaError_t err;
   if (D <= 32) {

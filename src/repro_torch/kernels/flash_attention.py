@@ -3,23 +3,27 @@ and its plain PyTorch version.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel``, launched by ``flash_attention_bhsd``). q (B, H, S, D),
-k and v (B, Hkv, S, D), H a multiple of Hkv, query head h reading kv head
-``h // (H // Hkv)``; f32 math with an online softmax, output in q's dtype,
-``scale`` defaulting to D ** -0.5. ``csrc/flash_attention.cu`` holds three
-kernels and its entry point picks one by (dtype, D) alone: bf16 with
-D <= 128 takes the Hopper kernel (TMA, mbarriers, warp-specialised
-``wgmma``), bf16 with D > 128 an ``mma.sync`` kernel, f32 a CUDA-core one.
-The source says what each design does about its bound (operations, at the
-serving path's prefill shape). ``flash_attention_bhsd`` launches it for
-CUDA tensors and raises if it cannot; only CPU tensors take
-``flash_attention_plain``. ``flash_attention_bhsd.launches`` counts the
-kernel's launches.
+k (B, Hkv, S, D) and v (B, Hkv, S, Dv) with Dv <= D (MLA: D = 192, Dv =
+128), H a multiple of Hkv, query head h reading kv head ``h // (H //
+Hkv)``; f32 math with an online softmax, output (B, H, S, Dv) in q's
+dtype, ``scale`` defaulting to D ** -0.5. ``csrc/flash_attention.cu``
+holds three kernels and its entry point picks one by (dtype, D, Dv) alone:
+bf16 with Dv <= 128 takes the Hopper kernel (TMA, mbarriers,
+warp-specialised ``wgmma``; instantiated at (D, Dv) buckets of (64, 64),
+(128, 128), (192, 128) and (256, 128)), bf16 with Dv > 128 an ``mma.sync``
+kernel, f32 a CUDA-core one. The source says what each design does about
+its bound (operations, at the serving path's prefill shapes).
+``flash_attention_bhsd`` launches it for CUDA tensors and raises if it
+cannot; only CPU tensors take ``flash_attention_plain``.
+``flash_attention_bhsd.launches`` counts the kernel's launches.
 
 The backward (``flash_attention_bwd``, ``csrc/flash_attention_bwd.cu``)
 takes the forward's output and its per-row log-sum-exp, which the forward
 writes when it is given an ``lse`` buffer, and gives dq, dk, dv in the
 inputs' dtype and layout; ``flash_attention_plain_bwd`` is its plain
-version. Its entry point also picks by (dtype, D) alone: bf16 with
+version, which takes Dv < D as the forward does. The kernels take one head
+dim (Dv == D); ``kernels.ops.FlashAttention`` pads v for them when Dv < D.
+Their entry point also picks by (dtype, D) alone: bf16 with
 D <= 128 takes the Hopper route (a preprocess, one TMA/``wgmma`` pass for
 dk, dv and dq's partial sums, added into an f32 workspace in a fixed
 order of turns, and a conversion of that workspace into dq), bf16 with
@@ -59,7 +63,8 @@ def _causal_keep(S: int, device):
 def flash_attention_plain(q, k, v, *, causal=True, scale=None,
                           return_lse=False):
     """The same function in plain torch: f32 math, q scaled before the dot,
-    masked scores -1e30, output divided by max(l, 1e-30), cast to q's dtype.
+    masked scores -1e30, output divided by max(l, 1e-30), cast to q's dtype,
+    (B, H, S, Dv) for v of head dim Dv.
     One batch row at a time, so the (H, S, S) scores of one row are the
     largest temporary; kv heads are broadcast over their query group, never
     repeated in memory. With ``return_lse`` it returns ``(out, lse)``, lse
@@ -67,10 +72,10 @@ def flash_attention_plain(q, k, v, *, causal=True, scale=None,
     arithmetic's dtype."""
     _check(q, k, v)
     B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Dv = k.shape[1], v.shape[-1]
     scale = D ** -0.5 if scale is None else scale
     md = _math_dtype(q)
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, S, Dv))
     lse = torch.empty((B, H, S), dtype=md, device=q.device)
     keep = _causal_keep(S, q.device) if causal else None
     for b in range(B):
@@ -82,7 +87,7 @@ def flash_attention_plain(q, k, v, *, causal=True, scale=None,
         p = torch.exp(s - m)
         den = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
         o = (p @ v[b].to(md)[:, None]) / den
-        out[b] = o.reshape(H, S, D).to(q.dtype)
+        out[b] = o.reshape(H, S, Dv).to(q.dtype)
         lse[b] = (m + torch.log(den)).reshape(H, S)
     return (out, lse) if return_lse else out
 
@@ -92,11 +97,12 @@ def flash_attention_plain_bwd(q, k, v, o, lse, do, causal=True, scale=None):
     row at a time. With s = scale q k^T and P = exp(s - lse) (0 where
     masked): delta = rowsum(do o), dS = P (do v^T - delta), dq = scale dS k,
     dk = scale dS^T q and dv = P^T do, the last two summed over each kv
-    head's query group. Returns (dq, dk, dv) in the inputs' dtype."""
+    head's query group. o and do are (B, H, S, Dv) like the forward's
+    output. Returns (dq, dk, dv) in the inputs' dtype."""
     _check(q, k, v)
-    _check_grad_inputs(q, o, lse, do)
+    _check_grad_inputs(q, v, o, lse, do)
     B, H, S, D = q.shape
-    Hkv = k.shape[1]
+    Hkv, Dv = k.shape[1], v.shape[-1]
     G = H // Hkv
     scale = D ** -0.5 if scale is None else scale
     md = _math_dtype(q)
@@ -106,13 +112,13 @@ def flash_attention_plain_bwd(q, k, v, o, lse, do, causal=True, scale=None):
         qb = q[b].to(md).reshape(Hkv, G, S, D)
         kb = k[b].to(md)[:, None]                            # (Hkv, 1, S, D)
         vb = v[b].to(md)[:, None]
-        dob = do[b].to(md).reshape(Hkv, G, S, D)
+        dob = do[b].to(md).reshape(Hkv, G, S, Dv)
         s = (qb * scale) @ kb.transpose(-1, -2)              # (Hkv, G, S, S)
         p = torch.exp(s - lse[b].to(md).reshape(Hkv, G, S, 1))
         if keep is not None:
             p = torch.where(keep, p, 0.0)
-        delta = (dob * o[b].to(md).reshape(Hkv, G, S, D)).sum(-1,
-                                                               keepdim=True)
+        delta = (dob * o[b].to(md).reshape(Hkv, G, S, Dv)).sum(-1,
+                                                                keepdim=True)
         ds = p * (dob @ vb.transpose(-1, -2) - delta)
         dq[b] = (scale * (ds @ kb)).reshape(H, S, D).to(q.dtype)
         dk[b] = (scale * (ds.transpose(-1, -2) @ qb)).sum(1).to(k.dtype)
@@ -122,22 +128,27 @@ def flash_attention_plain_bwd(q, k, v, o, lse, do, causal=True, scale=None):
 
 def _check(q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError(f"flash attention needs q (B, H, S, D) and k, v "
-                         f"(B, Hkv, S, D); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"flash attention needs q (B, H, S, D), k (B, Hkv, "
+                         f"S, D) and v (B, Hkv, S, Dv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, H, S, D = q.shape
-    Hkv = k.shape[1]
-    if (k.shape != v.shape or k.shape[0] != B or k.shape[2:] != (S, D)
-            or Hkv < 1 or H % Hkv):
-        raise ValueError(f"flash attention needs k, v (B, Hkv, S, D) with H "
-                         f"a multiple of Hkv; got q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    Hkv, Dv = k.shape[1], v.shape[-1]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != B
+            or k.shape[2:] != (S, D) or Hkv < 1 or H % Hkv):
+        raise ValueError(f"flash attention needs k (B, Hkv, S, D) and v "
+                         f"(B, Hkv, S, Dv) with H a multiple of Hkv; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}")
     if B < 1 or S < 1:
         raise ValueError(f"flash attention needs B, S >= 1; got "
                          f"{tuple(q.shape)}")
     if D % 8 or not 8 <= D <= _MAX_HEAD_DIM:
         raise ValueError(f"flash attention takes a head dim D that is a "
                          f"multiple of 8 from 8 to {_MAX_HEAD_DIM}; got {D}")
+    if Dv % 8 or not 8 <= Dv <= D:
+        raise ValueError(f"flash attention takes v's head dim Dv, a multiple "
+                         f"of 8 with 8 <= Dv <= D; got Dv = {Dv}, D = {D}")
     if (q.dtype not in _PLAIN_DTYPES or k.dtype != q.dtype
             or v.dtype != q.dtype):
         raise TypeError(f"flash attention takes float32 or bfloat16 q, k, v "
@@ -147,12 +158,13 @@ def _check(q, k, v) -> None:
         raise ValueError(f"q, k, v lie on {q.device}, {k.device}, {v.device}")
 
 
-def _check_grad_inputs(q, o, lse, do) -> None:
+def _check_grad_inputs(q, v, o, lse, do) -> None:
     B, H, S, _ = q.shape
+    shape = (B, H, S, v.shape[-1])
     for name, x in (("o", o), ("do", do)):
-        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"the backward needs {name} like q ({q.dtype} "
-                             f"{tuple(q.shape)} on {q.device}); got "
+        if x.shape != shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"the backward needs {name} like q at v's head "
+                             f"dim ({q.dtype} {shape} on {q.device}); got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
     if (lse.shape != (B, H, S) or lse.dtype != _math_dtype(q)
             or lse.device != q.device):
@@ -176,14 +188,15 @@ def _check_card(q) -> None:
                          f"{_MAX_BATCH_HEADS}; got {B * H}")
 
 
-def _out(x, like, name):
-    """``x``, or a new tensor like ``like`` laid out (B, H, S, D)."""
+def _out(x, like, name, width=None):
+    """``x``, or a new contiguous tensor like ``like``, whose last dim is
+    ``width`` if given."""
+    shape = (*like.shape[:-1], like.shape[-1] if width is None else width)
     if x is None:
-        return torch.empty_like(like, memory_format=torch.contiguous_format)
-    if (x.shape != like.shape or x.dtype != like.dtype
-            or x.device != like.device):
+        return torch.empty(shape, dtype=like.dtype, device=like.device)
+    if x.shape != shape or x.dtype != like.dtype or x.device != like.device:
         raise ValueError(f"{name} must be a {like.dtype} tensor of shape "
-                         f"{tuple(like.shape)} on {like.device}")
+                         f"{shape} on {like.device}")
     return x
 
 
@@ -206,9 +219,10 @@ def _check_layout(name: str, x: torch.Tensor) -> None:
 
 def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None,
                          lse=None):
-    """q (B, H, S, D); k, v (B, Hkv, S, D) -> (B, H, S, D) in q's dtype.
-    Launches the CUDA kernel for CUDA tensors; CPU tensors take
-    ``flash_attention_plain``. ``out``, if given, is a (B, H, S, D) tensor
+    """q (B, H, S, D); k (B, Hkv, S, D); v (B, Hkv, S, Dv), Dv <= D ->
+    (B, H, S, Dv) in q's dtype. Launches the CUDA kernel for CUDA tensors;
+    CPU tensors take ``flash_attention_plain``. ``out``, if given, is a
+    (B, H, S, Dv) tensor
     (any strides the kernel can write) that receives the result; ``lse``,
     if given, a contiguous (B, H, S) tensor that receives the log-sum-exp
     (f32 on the card)."""
@@ -227,7 +241,7 @@ def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None,
             lse.copy_(res_lse)
         return res if out is None else out.copy_(res)
     _check_card(q)
-    out = _out(out, q, "out")
+    out = _out(out, q, "out", v.shape[-1])
     for name, x in (("q", q), ("k", k), ("v", v), ("out", out)):
         _check_layout(name, x)
     strides = (ctypes.c_longlong * 12)(
@@ -238,7 +252,8 @@ def flash_attention_bhsd(q, k, v, *, causal=True, scale=None, out=None,
         err = lib.flash_attention_launch(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), None if lse is None else lse.data_ptr(), strides,
-            B, H, k.shape[1], S, D, scale, int(bool(causal)), stream)
+            B, H, k.shape[1], S, D, v.shape[-1], scale, int(bool(causal)),
+            stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.flash_attention_error_string(err).decode())
@@ -253,14 +268,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
                         dq=None, dk=None, dv=None):
     """The gradients (dq, dk, dv) of ``flash_attention_bhsd`` at q, k, v,
     given its output o, its log-sum-exp lse and the output's gradient do
-    ((B, H, S, D) like q). Launches the backward kernels (a preprocess for
-    rowsum(do o), then dk/dv and dq: three launches on every route) for
-    CUDA tensors and raises if it cannot; CPU tensors take
-    ``flash_attention_plain_bwd``. dq, dk, dv, if
-    given, are tensors (any strides the kernels can write) that receive the
+    ((B, H, S, Dv) like the output). Launches the backward kernels (a
+    preprocess for rowsum(do o), then dk/dv and dq: three launches on every
+    route) for CUDA tensors and raises if it cannot, as it does for Dv < D,
+    which the kernels do not take (``ops.FlashAttention`` pads v for them);
+    CPU tensors take ``flash_attention_plain_bwd``. dq, dk, dv, if given,
+    are tensors (any strides the kernels can write) that receive the
     results."""
     _check(q, k, v)
-    _check_grad_inputs(q, o, lse, do)
+    _check_grad_inputs(q, v, o, lse, do)
     B, H, S, D = q.shape
     scale = D ** -0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
@@ -269,6 +285,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, scale=None,
         return tuple(r if x is None else x.copy_(r)
                      for r, x in zip(res, (dq, dk, dv)))
     _check_card(q)
+    if v.shape[-1] != D:
+        raise ValueError(f"the backward kernels take one head dim (Dv == D); "
+                         f"got D = {D}, Dv = {v.shape[-1]}")
     dq, dk, dv = (_out(x, like, name) for x, like, name in
                   ((dq, q, "dq"), (dk, k, "dk"), (dv, v, "dv")))
     for name, x in zip(("q", "k", "v", "o", "do", "dq", "dk", "dv"),
@@ -377,31 +396,33 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
             ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def bound_flops(q, k, *, causal=True) -> int:
-    """Operations the two products need on these inputs: 2 D multiply-adds
-    for each (query, key) pair that is not masked, S(S+1)/2 pairs per head
-    when causal, S^2 otherwise."""
+def bound_flops(q, k, v, *, causal=True) -> int:
+    """Operations the two products need on these inputs: D + Dv
+    multiply-adds (q k^T, then p v) for each (query, key) pair that is not
+    masked, S(S+1)/2 pairs per head when causal, S^2 otherwise."""
     B, H, S, D = q.shape
     pairs = S * (S + 1) // 2 if causal else S * S
-    return 4 * B * H * D * pairs
+    return 2 * B * H * pairs * (D + v.shape[-1])
 
 
 def bound_bytes(q, k, v) -> int:
-    """Bytes the function must move: q, k, v read once, o written once."""
-    return (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    """Bytes the function must move: q, k, v read once, o (B, H, S, Dv)
+    written once."""
+    o = q.numel() // q.shape[-1] * v.shape[-1]
+    return (q.numel() + k.numel() + v.numel() + o) * q.element_size()
 
 
 def bound_flops_bwd(q, k, *, causal=True) -> int:
     """Operations the backward's five products need (s and dp recomputed,
-    dv, dk, dq): 2.5 times the forward's two."""
-    return 5 * bound_flops(q, k, causal=causal) // 2
+    dv, dk, dq): 2.5 times the forward's two, at one head dim."""
+    return 5 * bound_flops(q, k, k, causal=causal) // 2
 
 
 def bound_bytes_bwd(q, k, v) -> int:

@@ -8,8 +8,9 @@ from repro_torch.kernels.scored_reduce import scored_reduce_plain
 
 
 def mha_reference(q, k, v, *, causal=True, scale=None):
-    """q (B, H, S, D); k/v (B, Hkv, S, D) -> (B, H, S, D): repeated kv
-    heads, f32 logits, -inf mask, softmax, cast to q's dtype."""
+    """q (B, H, S, D); k (B, Hkv, S, D); v (B, Hkv, S, Dv) -> (B, H, S,
+    Dv): repeated kv heads, f32 logits, -inf mask, softmax, cast to q's
+    dtype."""
     B, H, S, D = q.shape
     Hkv = k.shape[1]
     scale = D ** -0.5 if scale is None else scale

@@ -18,17 +18,16 @@ switch. Decode over the cache, windowed and non-causal attention take
 ``_sdpa``, plain torch ops at the reference's rounding points.
 
 MLA's prefill attention has a q/k head dim of ``qk_nope + qk_rope`` (192)
-and a v head dim of ``v_head_dim`` (128). The kernel takes one head dim,
-so v is padded with zeros to q's and the output's first ``v_head_dim``
-columns are kept: the same function (the zero columns add nothing), at
-(192 + 192) / (192 + 128) = 1.2x the work. The latent cache holds
+and a v head dim of ``v_head_dim`` (128). The flash kernel takes the two
+head dims as they are: v goes in at its 128 columns and the output comes
+out at them, with nothing padded or sliced (on the card, bf16 runs the
+Hopper kernel's (192, 128) instantiation). The latent cache holds
 ``c`` (B, L, kv_lora_rank) and the shared rope key (B, L, qk_rope); decode
 writes both in place.
 """
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -193,9 +192,10 @@ def _mla_qkv(params, x, cfg: ModelConfig, positions):
 def mla_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
             cache_pos=None):
     """MLA attention. Prefill/train: naive expansion through the flash
-    kernel (v zero-padded to q's head dim). Decode (S == 1, ``cache_pos``
-    an int): absorbed form over the latent cache {"c": (B, L, rank),
-    "k_rope": (B, L, r)}, written in place. Returns (y, cache)."""
+    kernel, q and k at ``qk_nope + qk_rope`` and v at ``v_head_dim``.
+    Decode (S == 1, ``cache_pos`` an int): absorbed form over the latent
+    cache {"c": (B, L, rank), "k_rope": (B, L, r)}, written in place.
+    Returns (y, cache)."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.n_heads
@@ -213,9 +213,7 @@ def mla_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
         k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_head_dim)],
                       dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        v = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
         o = ops.flash_attention(q, k, v, causal=True, scale=scale)
-        o = o[..., :m.v_head_dim]
     else:
         if S != 1:
             raise ValueError(f"decode takes one token per step, got S={S}")

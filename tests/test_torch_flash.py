@@ -17,16 +17,22 @@ from repro_torch.kernels import ops, ref
 SHAPES = [(2, 4, 4, 128, 64), (1, 8, 2, 256, 64), (2, 4, 1, 128, 128),
           (1, 2, 2, 512, 32), (1, 14, 2, 1, 32), (1, 14, 2, 77, 32),
           (1, 14, 2, 130, 32)]
+# q/k head dim D and v head dim Dv apart (B, H, Hkv, S, D, Dv): MLA's
+# 192/128 at a ragged S (the Hopper kernel's <192, 128> on the card), a
+# ragged pair in a 4:1 group, and Dv below a 64 bucket
+DV_SHAPES = [(1, 4, 4, 77, 192, 128), (2, 8, 2, 130, 136, 72),
+             (1, 4, 2, 64, 64, 40)]
 # tests/test_kernels.py:26
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
-def _inputs(B, H, Hkv, S, D, dtype, seed=0):
+def _inputs(B, H, Hkv, S, D, dtype, seed=0, Dv=None):
     """One f32 numpy draw, cast to ``dtype`` by each framework (bf16 values
-    are then bit-identical in both)."""
+    are then bit-identical in both); v's head dim is ``Dv`` (default D)."""
     rng = np.random.default_rng(seed)
     arrs = [rng.normal(size=shape).astype(np.float32)
-            for shape in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, D))]
+            for shape in ((B, H, S, D), (B, Hkv, S, D),
+                          (B, Hkv, S, D if Dv is None else Dv))]
     jx = [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
     tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
     return jx, tx
@@ -52,6 +58,35 @@ def test_flash_matches_mha_reference(B, H, Hkv, S, D, dtype, causal):
     np.testing.assert_allclose(
         ref.mha_reference(q, k, v, causal=causal).float().numpy(), expect,
         atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,D,Dv", DV_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_two_head_dims_matches_mha_reference(B, H, Hkv, S, D, Dv,
+                                                        dtype, causal):
+    """v of head dim Dv < D as it is, no padding: the output is (B, H, S,
+    Dv), the scale D ** -0.5, through ``flash_attention_bhsd`` (the plain
+    version on the CPU) and the model-layout ``ops.flash_attention``."""
+    (jq, jk, jv), (q, k, v) = _inputs(B, H, Hkv, S, D, dtype, seed=D + Dv,
+                                      Dv=Dv)
+    expect = np.asarray(jref.mha_reference(jq, jk, jv, causal=causal),
+                        np.float32)
+    assert expect.shape == (B, H, S, Dv)
+    launches = fa.flash_attention_bhsd.launches
+    got = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    assert fa.flash_attention_bhsd.launches == launches   # CPU: plain
+    assert got.dtype == q.dtype and got.shape == (B, H, S, Dv)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), expect, atol=tol,
+                               rtol=tol)
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal)
+    assert out.is_contiguous() and out.shape == (B, S, H, Dv)
+    torch.testing.assert_close(out.transpose(1, 2), got, rtol=0, atol=0)
+    given = torch.empty((B, H, S, Dv), dtype=q.dtype)
+    assert fa.flash_attention_bhsd(q, k, v, causal=causal, out=given) is given
+    torch.testing.assert_close(given, got, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("scale", [None, 0.3])
@@ -82,13 +117,21 @@ def test_masked_rows_follow_the_kernel_contract():
     ((1, 4, 16, 264), (1, 2, 16, 264), torch.float32, "multiple of 8"),
     ((1, 4, 0, 32), (1, 2, 0, 32), torch.float32, "S >= 1"),
     ((1, 4, 16, 32), (1, 2, 16, 32), torch.float16, "float32 or bfloat16"),
+    # a (k, v) pair of shapes: v's head dim above D, or not a multiple of 8
+    ((1, 4, 16, 32), ((1, 2, 16, 32), (1, 2, 16, 40)), torch.float32,
+     "8 <= Dv <= D"),
+    ((1, 4, 16, 32), ((1, 2, 16, 32), (1, 2, 16, 20)), torch.float32,
+     "8 <= Dv <= D"),
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(q_shape, kv_shape,
                                                        dtype, match):
+    """``kv_shape`` is the shape of k and v, or a (k, v) pair of shapes."""
     q = torch.zeros(q_shape, dtype=dtype)
-    k = torch.zeros(kv_shape, dtype=dtype)
+    k_shape, v_shape = (kv_shape if isinstance(kv_shape[0], tuple)
+                        else (kv_shape, kv_shape))
+    k = torch.zeros(k_shape, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
-        fa.flash_attention_bhsd(q, k, k.clone())
+        fa.flash_attention_bhsd(q, k, torch.zeros(v_shape, dtype=dtype))
 
 
 def test_wrapper_rejects_mixed_dtypes():
@@ -147,10 +190,27 @@ def test_bound_at_the_prefill_shape():
     # B=4, S=4096, H=56, Hkv=8, D=128, bf16, causal (chip_smoke.py)
     q = torch.empty((4, 56, 4096, 128), dtype=torch.bfloat16, device="meta")
     k = torch.empty((4, 8, 4096, 128), dtype=torch.bfloat16, device="meta")
-    assert fa.bound_flops(q, k, causal=True) == 4 * 4 * 56 * 128 * (
+    assert fa.bound_flops(q, k, k, causal=True) == 4 * 4 * 56 * 128 * (
         4096 * 4097 // 2) == 962_307_555_328
-    assert fa.bound_flops(q, k, causal=False) == 4 * 4 * 56 * 128 * 4096 ** 2
+    assert fa.bound_flops(q, k, k, causal=False) == (4 * 4 * 56 * 128
+                                                     * 4096 ** 2)
     assert fa.bound_bytes(q, k, k) == 2 * (2 * 4 * 56 + 2 * 4 * 8) \
         * 4096 * 128 == 536_870_912
     # 962 GFLOP at 989 TFLOP/s outweighs 0.54 GB at 3.35 TB/s
-    assert fa.bound_flops(q, k) / 989e12 > fa.bound_bytes(q, k, k) / 3.35e12
+    assert (fa.bound_flops(q, k, k) / 989e12
+            > fa.bound_bytes(q, k, k) / 3.35e12)
+
+
+def test_bound_at_the_mla_prefill_shape():
+    # deepseek-v3's MLA prefill (chip_smoke.py): B=4, S=4096, H=Hkv=128,
+    # q/k head dim 192, v head dim 128, bf16, causal: products of depth 192
+    # (q k^T) and 128 (p v) over S(S+1)/2 pairs; o written at 128 columns
+    q = torch.empty((4, 128, 4096, 192), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((4, 128, 4096, 128), dtype=torch.bfloat16, device="meta")
+    flops = fa.bound_flops(q, q, v)
+    assert flops == 2 * 4 * 128 * (4096 * 4097 // 2) * (192 + 128) \
+        == 2_749_450_158_080
+    assert fa.bound_bytes(q, q, v) == 2 * 4 * 128 * 4096 * (2 * 192 + 2 * 128)
+    assert round(flops / 989e12 * 1e3, 3) == 2.780
+    # padding v to 192 would count (192 + 192) / (192 + 128) = 1.2x
+    assert fa.bound_flops(q, q, q) * 5 == flops * 6

@@ -134,6 +134,73 @@ def test_backward_matches_jax_grad(shape, dtype, causal):
             fa.flash_attention_bwd.launches) == launches
 
 
+# q/k head dim D and v head dim Dv apart (B, H, Hkv, S, D, Dv): a GQA
+# group of 2 at a ragged S, and MHA with Dv below a 64 bucket
+DV_SHAPES = [(2, 4, 2, 33, 24, 16), (1, 4, 4, 40, 64, 40)]
+
+
+@pytest.mark.parametrize("shape", DV_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_with_two_head_dims_matches_jax_grad(shape, dtype, causal):
+    """MLA's case, v narrower than q and k: the plain backward at Dv and
+    ``ops.flash_attention``'s gradients (the autograd function, on CPU
+    tensors the plain versions at Dv as they are) against the
+    vector-Jacobian product of the reference's oracle."""
+    B, H, Hkv, S, D, Dv = shape
+    rng = np.random.default_rng(D + Dv)
+    arrs = [rng.normal(size=sh).astype(np.float32) for sh in
+            ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv), (B, H, S, Dv))]
+    jout, want = _jax_vjp(arrs, dtype, causal)
+    q, k, v, do = (torch.from_numpy(a).to(getattr(torch, dtype))
+                   for a in arrs)
+    launches = (fa.flash_attention_bhsd.launches,
+                fa.flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    assert o.shape == (B, H, S, Dv)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    for g, x in zip(got, (q, k, v)):
+        assert g.dtype == x.dtype and g.shape == x.shape
+    _grads_close(got, want, dtype)
+
+    qm, km, vm = (x.transpose(1, 2).clone().requires_grad_()
+                  for x in (q, k, v))
+    out = ops.flash_attention(qm, km, vm, causal=causal)
+    assert out.shape == (B, S, H, Dv)
+    _rel_close(out.transpose(1, 2), jout, TOL[dtype])
+    out.backward(do.transpose(1, 2))
+    _grads_close([x.grad.transpose(1, 2) for x in (qm, km, vm)], want,
+                 dtype)
+    assert (fa.flash_attention_bhsd.launches,
+            fa.flash_attention_bwd.launches) == launches
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_padded_backward_route_gives_the_two_head_dim_gradients(causal):
+    """The card's route for Dv < D (``FlashAttention.backward``): v, o and
+    do zero-padded to D through the one-head-dim backward, dv's first Dv
+    columns kept, gives what the backward at Dv gives; the padded columns
+    of dv are zero."""
+    B, H, Hkv, S, D, Dv = 2, 4, 2, 33, 24, 16
+    rng = np.random.default_rng(5)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=sh).astype(np.float32))
+                   for sh in ((B, H, S, D), (B, Hkv, S, D), (B, Hkv, S, Dv),
+                              (B, H, S, Dv)))
+    o, lse = fa.flash_attention_plain(q, k, v, causal=causal,
+                                      return_lse=True)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    vp, op, dop = (torch.nn.functional.pad(x, (0, D - Dv))
+                   for x in (v, o, do))
+    torch.testing.assert_close(fa.flash_attention_plain(q, k, vp,
+                                                        causal=causal),
+                               op, rtol=1e-6, atol=1e-6)
+    got = fa.flash_attention_bwd(q, k, vp, op, lse, dop, causal=causal)
+    assert torch.count_nonzero(got[2][..., Dv:]) == 0
+    for g, w in zip((got[0], got[1], got[2][..., :Dv]), want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_func_grad_takes_the_autograd_function(dtype):
     """``torch.func.grad`` through ``ops.flash_attention`` gives what

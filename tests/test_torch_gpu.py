@@ -467,6 +467,112 @@ def test_hopper_flash_matches_plain_version(cuda, D, S, B, H, Hkv, causal):
         rtol=2e-2, atol=2e-2)
 
 
+# v narrower than q and k (D, Dv): MLA's 192/128 (the Hopper kernel's
+# <192, 128>), <256, 128>, a ragged pair in <192, 128>, and Dv = 40 in
+# <128, 128> (v's second 64-column box lies wholly past Dv)
+@pytest.mark.parametrize("D,Dv", [(192, 128), (256, 128), (136, 72),
+                                  (128, 40)])
+@pytest.mark.parametrize("S", [1, 77, 130, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_with_two_head_dims_matches_plain_version(cuda, D, Dv, S, dtype,
+                                                        causal):
+    gen = torch.Generator(device=cuda).manual_seed(S + D + Dv)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((2, 8, S, D), (2, 2, S, D), (2, 2, S, Dv)))
+    before = fa.flash_attention_bhsd.launches
+    out = fa.flash_attention_bhsd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + 1
+    assert out.shape == (2, 8, S, Dv)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_plain(q, k, v, causal=causal).float(),
+        rtol=tol, atol=tol)
+    assert torch.equal(out, fa.flash_attention_bhsd(q, k, v, causal=causal))
+
+
+def test_flash_with_two_head_dims_reads_model_layout_views(cuda):
+    """MLA's (B, S, H, 192) q and k and (B, S, H, 128) v through
+    ``ops.flash_attention``, as ``mla_fwd`` passes them: the bits of the
+    contiguous (B, H, S, D) call."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).bfloat16()
+               for shape in ((2, 8, 300, 192), (2, 8, 300, 192),
+                             (2, 8, 300, 128)))
+    qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    out = ops.flash_attention(qm, km, vm)
+    assert out.shape == (2, 300, 8, 128) and out.is_contiguous()
+    assert torch.equal(out.transpose(1, 2), fa.flash_attention_bhsd(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_with_two_head_dims_pads_v_for_the_backward(cuda,
+                                                                   dtype):
+    """MLA's head dims (192/128) under ``ops.flash_attention``'s autograd on
+    the card: one forward launch at Dv, one backward call on v, o and do
+    zero-padded to D, and gradients of the inputs' shapes that agree with
+    the plain backward at Dv on the same tensors."""
+    B, S, H, D, Dv = 2, 130, 4, 192, 128
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v, do = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                   for shape in ((B, S, H, D), (B, S, H, D), (B, S, H, Dv),
+                                 (B, S, H, Dv)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = (fa.flash_attention_bhsd.launches,
+              fa.flash_attention_bwd.launches)
+    out = ops.flash_attention(*leaves)
+    assert out.shape == (B, S, H, Dv)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bhsd.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    bq, bk, bv, bdo = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, lse = fa.flash_attention_plain(bq, bk, bv, return_lse=True)
+    want = fa.flash_attention_plain_bwd(bq, bk, bv, o, lse, bdo)
+    got = [x.grad.transpose(1, 2) for x in leaves]
+    assert [g.shape for g in got] == [w.shape for w in want]
+    _grads_close(got, want, dtype)
+
+
+def test_mla_prefill_passes_v_unpadded_to_the_kernel(cuda, monkeypatch):
+    """A reduced deepseek-v3 with its own MLA head dims (q/k 128 + 64, v
+    128) through prefill on the card in bf16: each layer's attention
+    reaches the kernel once with v at its 128 columns (the Hopper kernel's
+    <192, 128>), and each output agrees with the plain version on the same
+    tensors."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import transformer as T
+    cfg = _moe_cfg("deepseek-v3-671b", "bfloat16", capacity_factor=50.0)
+    cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128))
+    card = tree_map(lambda t: t.to(cuda),
+                    T.init_model(torch.Generator().manual_seed(5), cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 130),
+                           generator=torch.Generator().manual_seed(6))
+    calls, real = [], ops.flash_attention
+
+    def recording(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+    monkeypatch.setattr(ops, "flash_attention", recording)
+    before = fa.flash_attention_bhsd.launches
+    with torch.inference_mode():
+        T.forward(card, {"tokens": tokens.to(cuda)}, cfg)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bhsd.launches == before + cfg.n_layers
+    assert len(calls) == cfg.n_layers
+    for q, k, v, kw, out in calls:
+        assert q.shape[-1] == k.shape[-1] == 192 and v.shape[-1] == 128
+        assert out.shape == (*q.shape[:3], 128)
+        plain = fa.flash_attention_plain(*(x.transpose(1, 2)
+                                           for x in (q, k, v)), **kw)
+        torch.testing.assert_close(out.transpose(1, 2).float(), plain.float(),
+                                   rtol=2e-2, atol=2e-2)
+
+
 def test_flash_attention_refuses_what_it_cannot_read(cuda):
     q, k, v = _qkv(cuda, 1, 4, 2, 16, 64, torch.float32)
     shifted = torch.randn(q.numel() + 2, device=cuda)[2:].view(q.shape)
