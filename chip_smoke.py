@@ -124,6 +124,22 @@ Phases, each fatal on failure:
      once a layer), forward against decode at ``capacity_factor`` 50 (f32
      compute and cache; the bf16 row beside it), then
      ``serve_decode.run`` (batch 8, 4096-position cache);
+  7c. the recurrent serving path: the flash kernel at zamba2's shared
+     attention shape (4, 32, 32, 4096, 80; the Hopper kernel's <128, 128>,
+     columns 80-127 filled with zeros) against its plain version, repeated
+     bit for bit, timed beside its bound and
+     ``scaled_dot_product_attention``; then zamba2-2.7b (54 Mamba2 layers
+     and 9 applications of the shared attention block) and xlstm-350m (21
+     mLSTM and 3 sLSTM blocks) at full width and depth with seeded random
+     f32 weights, one config at a time: two timed ``make_prefill_step``
+     calls on 4 x 4096 prompts (flash 9 times a zamba2 call, never in
+     xLSTM; the second with each block kind's span on the device
+     timeline), a profiled one (zamba2's flash kernels all <128, 128>),
+     forward against decode on 2 x 512 tokens (chunked SSD and chunked
+     mLSTM against their recurrences; f32 compute and caches at atol
+     6e-3, rtol 1e-2; the bf16 row beside it), then
+     ``serve_decode.run`` (batch 8, 4096-position cache) and the peak
+     device memory;
   8. the training path: the flash backward kernels against their plain
      version (log-sum-exp of the forward included) at the training shape,
      ragged and small shapes, f32 and bf16, causal and not, and timed at
@@ -222,8 +238,9 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # flash attention: the serving path's prefill (B, H, Hkv, S, D), bf16,
 # causal, timed on contiguous (B, H, S, D) inputs and on the model's
 # (B, S, H, D) views; ragged and small shapes: S of one key, S ending
-# mid-tile above one tile, D = 40 (filled to the 64 bucket), D = 256 (the
-# mma.sync kernel); tests/test_kernels.py:26's tolerances
+# mid-tile above one tile, D = 40 (filled to the 64 bucket), zamba2's
+# D = 80 (filled to the 128 bucket), D = 256 (the mma.sync kernel);
+# tests/test_kernels.py:26's tolerances
 FLASH_MAIN = (4, 56, 8, 4096, 128)
 # v narrower than q and k (B, H, Hkv, S, D, Dv): MLA's 192/128 at a ragged
 # S of one tile and past one, 256/128 (the Hopper kernel's <256, 128>), a
@@ -234,7 +251,8 @@ FLASH_DV_SHAPES = ((1, 4, 4, 77, 192, 128), (2, 8, 2, 130, 192, 128),
                    (1, 4, 2, 77, 128, 40))
 FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
                 (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
-                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256))
+                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256),
+                (2, 32, 32, 130, 80))
 # the kernels of csrc/flash_attention.cu, by symbol (prefill_breakdown)
 FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
                  "flash_f32_kernel")
@@ -392,6 +410,24 @@ MLA_SYMBOL = "flash_bf16_wgmma_kernel<192, 128>"
 # forward against decode routes alike only when nothing is dropped
 # (tests/test_models.py:66-70)
 MOE_GATE_CAPACITY = 50.0
+# the recurrent serving path (phase 7c): both families at full width and
+# depth, f32 weights from seed 0: zamba2-2.7b (54 Mamba2 layers in 9 groups
+# of 6, the shared attention block after each group; ~2.42 B parameters,
+# 9.7 GB) and xlstm-350m (24 blocks: 3 groups of 7 mLSTM + 1 sLSTM; ~0.52
+# B, 2.1 GB); the serving path's prefill and decode shapes
+RECURRENT_SERVE = ("zamba2-2.7b", "xlstm-350m")
+# forward against decode: a prompt that is a multiple of the SSD's chunk
+# (64) and of the mLSTM's (256) and at least twice the latter, so both
+# chunked forms are held to their recurrences, at the reference's own
+# tolerance (tests/test_models.py:91-94), f32 compute and caches
+RECURRENT_GATE_SEQ = 512
+RECURRENT_GATE_TOL = dict(atol=6e-3, rtol=1e-2)
+# the flash kernel at zamba2's shared attention (B, H, Hkv, S, D): head dim
+# 2560 / 32 = 80, run by the Hopper kernel's <128, 128> (TMA fills columns
+# 80-127 with zeros); each profiled zamba2 prefill call must show it alone,
+# once a shared-block application
+ZAMBA_FLASH = (4, 32, 32, 4096, 80)
+ZAMBA_SYMBOL = "flash_bf16_wgmma_kernel<128, 128>"
 # the transformer zoo's training path (phase 8): qwen1.5-4b at full width
 # (d_model 2560, 20 heads x 128, d_ff 6912, vocab 151,936, qkv bias; bf16
 # compute, f32 params), depth cut 40 -> 8: recompute holds five
@@ -417,11 +453,11 @@ TRAIN_TOL = 1e-4
 # training shape, S of one key, S ending mid-tile, D = 40 (filled to the
 # 64 bucket), 64 and 256 (two column blocks); for the Hopper route's
 # ordered dq, eight key tiles of an 8:1 group at a ragged S, and
-# h2o-danube's D = 120; the serving prefill shape is timed, each of its
-# kernels also alone. Each gradient is held on its own (grad_errors): its
-# largest error to FLASH_TOL of its own largest magnitude, its error's
-# Frobenius norm to FRO_TOL of its own; the log-sum-exp to LSE_TOL
-# (absolute)
+# h2o-danube's D = 120 and zamba2's D = 80 (ragged in the 128 bucket);
+# the serving prefill shape is timed, each of its kernels also alone.
+# Each gradient is held on its own (grad_errors): its largest error to
+# FLASH_TOL of its own largest magnitude, its error's Frobenius norm to
+# FRO_TOL of its own; the log-sum-exp to LSE_TOL (absolute)
 BWD_TRAIN = (2, 20, 20, 1024, 128)
 # ops.flash_attention's autograd on bf16 model-layout (B, S, H, D) tensors,
 # as the full-width fedavg and exact_tp steps give them (B, H, Hkv, S, D)
@@ -429,7 +465,7 @@ BWD_MODEL_LAYOUT = (8, 20, 20, 1024, 128)
 FRO_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 BWD_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 130, 128), (2, 14, 2, 130, 40),
               (1, 4, 4, 130, 64), (1, 8, 2, 130, 256), (1, 16, 2, 1000, 128),
-              (2, 8, 8, 777, 120))
+              (2, 8, 8, 777, 120), (2, 32, 32, 130, 80))
 LSE_TOL = 1e-4
 
 
@@ -1913,10 +1949,12 @@ def fused_phase() -> dict:
             fig1_dispatch, "small": small, "serve": serve}
 
 
-def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
-    """Last-position logits of ``forward`` (the flash path) against those
-    of sequential ``decode_step``s over a cache (``_sdpa``, or MLA's
-    absorbed form), same prompt. ``exact``, the f32 run's forward logits,
+def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None,
+                      atol=LOGIT_TOL, rtol=LOGIT_TOL) -> dict:
+    """Last-position logits of ``forward`` (the flash path; the chunked
+    recurrent forms) against those of sequential ``decode_step``s over a
+    cache (``_sdpa``, MLA's absorbed form, the recurrences), same prompt,
+    held to ``atol``/``rtol``. ``exact``, the f32 run's forward logits,
     measures how far each path is from it; the run's own forward logits
     are returned beside the row."""
     from repro_torch.models import transformer as T
@@ -1934,8 +1972,9 @@ def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
            "max_abs_err": float((a - b).abs().max()),
            "mean_abs_logit": float(b.abs().mean()),
            "finite": bool(torch.isfinite(a).all() and torch.isfinite(b).all()),
-           "allclose": torch.allclose(a, b, atol=LOGIT_TOL, rtol=LOGIT_TOL),
-           "tokens_agree": _close_tokens(a, b, LOGIT_TOL)}
+           "atol": atol, "rtol": rtol,
+           "allclose": torch.allclose(a, b, atol=atol, rtol=rtol),
+           "tokens_agree": _close_tokens(a, b, atol)}
     if exact is not None:
         out["forward_vs_f32_max_abs"] = float((a - exact).abs().max())
         out["decode_vs_f32_max_abs"] = float((b - exact).abs().max())
@@ -1945,17 +1984,21 @@ def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None) -> dict:
 def device_breakdown(fn) -> dict:
     """Device time of one call of ``fn`` by kernel (torch.profiler),
     grouped into the flash forward, its backward, matrix products and
-    everything else."""
+    everything else. The profiler's raw device events are summed by name:
+    ``key_averages()`` builds the whole event tree first, which took 150 s
+    against 7.7 s for xlstm-350m's prefill call (266,447 device events;
+    ``tools/recurrent_probe.py``, NVIDIA H100 80GB HBM3, 700.00 W)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = []
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0)
-        if us > 0 and ev.device_type.name == "CUDA":
-            kernels.append((ev.key, us / 1e3, ev.count))
+    by_name = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type().name == "CUDA" and not ev.is_user_annotation():
+            ms, count = by_name.get(ev.name(), (0.0, 0))
+            by_name[ev.name()] = (ms + ev.duration_ns() / 1e6, count + 1)
+    kernels = [(name, ms, c) for name, (ms, c) in by_name.items() if ms > 0]
     groups = {"flash_attention": 0.0, "flash_attention_bwd": 0.0,
               "matmul": 0.0, "other": 0.0}
     for name, ms, _ in kernels:
@@ -2286,6 +2329,184 @@ def moe_serving_phase() -> dict:
         rows[arch] = row
         torch.cuda.empty_cache()
     return {"mla_flash": mla, "runs": rows}
+
+
+class _Spans:
+    """While entered, each call of the named functions (``{label: (module,
+    attribute)}``) is bracketed by CUDA events on the current stream, with
+    no synchronisation; ``ms()`` sums each label's spans on the device
+    timeline (idle gaps inside a call included) and counts the calls."""
+
+    def __init__(self, targets: dict):
+        self.targets = targets
+        self.events = {label: [] for label in targets}
+
+    def __enter__(self):
+        self.real = {}
+        for label, (mod, attr) in self.targets.items():
+            real = self.real[label] = getattr(mod, attr)
+
+            def timed(*args, _real=real, _label=label, **kwargs):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = _real(*args, **kwargs)
+                end.record()
+                self.events[_label].append((start, end))
+                return out
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self.real[label])
+        return False
+
+    def ms(self) -> dict:
+        torch.cuda.synchronize()
+        return {label: {"ms": sum(a.elapsed_time(b) for a, b in evs),
+                        "calls": len(evs)}
+                for label, evs in self.events.items() if evs}
+
+
+def recurrent_serving_phase() -> dict:
+    """The flash kernel at zamba2's shared-attention shape (D = 80) against
+    its plain version, repeated bit for bit and timed beside its bound and
+    ``scaled_dot_product_attention`` (``check_flash``); then zamba2-2.7b and
+    xlstm-350m at full width and depth, seeded random f32 weights drawn on
+    the card and freed before the next config: two timed
+    ``make_prefill_step`` calls on 4 x 4096 prompts (flash once a shared
+    block application), each block kind's span on the device timeline
+    (Mamba2, the shared block, mLSTM, sLSTM's token loop) in the second,
+    a profiled one, the f32 forward-against-decode gate on 2 x 512 tokens
+    (the bf16 row beside it), then ``serve_decode.run`` (batch 8,
+    4096-position cache); launch counts reset just before each leg and
+    read just after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as T
+    flash = check_flash(ZAMBA_FLASH, torch.bfloat16, causal=True, timed=True)
+    flash["symbol"] = ZAMBA_SYMBOL
+    torch.cuda.empty_cache()
+    rows = {}
+    for arch in RECURRENT_SERVE:
+        cfg = get_config(arch)
+        n_attn = (cfg.n_layers // cfg.hybrid.shared_attn_every
+                  if cfg.hybrid else 0)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t_arch = _clock()
+        base = torch.cuda.memory_allocated()      # earlier phases' caches
+        params = T.init_model(gen, cfg)
+        init_s = _clock() - t_arch
+        weights = torch.cuda.memory_allocated() - base
+        B, S = SERVE_PREFILL["batch"], SERVE_PREFILL["seq"]
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        prefill = make_prefill_step(cfg)
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        # the first call warms up cuBLAS; the second brackets each block
+        # call with CUDA events (150 events, no synchronisation)
+        spans = _Spans({"mamba2": (ssm, "mamba_fwd"),
+                        "shared_block": (T, "block_fwd"),
+                        "mlstm": (ssm, "mlstm_fwd"),
+                        "slstm": (ssm, "slstm_fwd")})
+        prefill_s, per_call, nxt = [], [], []
+        with torch.inference_mode():
+            for watch in (contextlib.nullcontext(), spans):
+                before = fa.flash_attention_bhsd.launches
+                with watch:
+                    t0 = _clock()
+                    nxt.append(prefill(params, {"tokens": tokens}))
+                    prefill_s.append(_clock() - t0)
+                per_call.append(fa.flash_attention_bhsd.launches - before)
+        launches = {"flash_attention": fa.flash_attention_bhsd.launches,
+                    "scored_reduce": sr.scored_reduce.launches}
+        prefill_peak = torch.cuda.max_memory_allocated()
+        block_ms = spans.ms()
+        legs = {"prefill_calls": _clock() - t_arch}
+        breakdown = prefill_breakdown(prefill, params, tokens)
+        legs["profiled_call"] = _clock() - t_arch - sum(legs.values())
+        flash_kernels = breakdown["flash_kernels"]
+        flash_ok = (set(flash_kernels) == ({ZAMBA_SYMBOL} if n_attn else set())
+                    and sum(x["count"] for x in flash_kernels.values())
+                    == n_attn)
+        breakdown["busy_share_of_timed_call"] = (breakdown["device_ms"]
+                                                 / 1e3 / prefill_s[-1])
+        prompt = tokens[:2, :RECURRENT_GATE_SEQ]
+        del tokens
+        torch.cuda.empty_cache()
+        gate, exact = forward_vs_decode(
+            params, dataclasses.replace(cfg, dtype="float32"), prompt,
+            torch.float32, **RECURRENT_GATE_TOL)
+        checks = [gate, forward_vs_decode(params, cfg, prompt,
+                                          torch.bfloat16, exact)[0]]
+        legs["forward_vs_decode"] = _clock() - t_arch - sum(legs.values())
+        del params
+        torch.cuda.empty_cache()
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        dec = serve_decode.run(cfg, **SERVE_DECODE)
+        launches["flash_attention"] += fa.flash_attention_bhsd.launches
+        launches["scored_reduce"] += sr.scored_reduce.launches
+        peak = torch.cuda.max_memory_allocated()
+        legs["serve_decode"] = _clock() - t_arch - sum(legs.values())
+        nb, npl, nd = (SERVE_DECODE["batch"], SERVE_DECODE["prompt_len"],
+                       SERVE_DECODE["decode_steps"])
+        s_cfg = cfg.ssm
+        row = {"config": f"{cfg.name} n_layers={cfg.n_layers} d_model="
+                         f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}"
+                         f" attention={cfg.attention} ssm={s_cfg.kind} "
+                         f"d_state={s_cfg.d_state} chunk={s_cfg.chunk_size} "
+                         f"shared_attn_every="
+                         f"{cfg.hybrid.shared_attn_every if cfg.hybrid else 0}"
+                         f" slstm_every={s_cfg.slstm_every} vocab="
+                         f"{cfg.vocab_size} params={cfg.param_dtype}",
+               "params": T.param_count(T.init_model(None, cfg)),
+               "weights_bytes": weights, "init_s": init_s,
+               "prefill": {"batch": B, "seq": S, "seconds": prefill_s,
+                           "tokens_per_s": [B * S / t for t in prefill_s],
+                           "flash_launches_per_call": per_call,
+                           "max_memory_allocated": prefill_peak,
+                           "bitwise_repeat": all(torch.equal(nxt[0], t)
+                                                 for t in nxt[1:]),
+                           "block_span_ms": block_ms},
+               "decode": {**SERVE_DECODE, "prefill_s": dec["prefill_s"],
+                          "decode_s": dec["decode_s"],
+                          "prefill_tokens_per_s": nb * npl / dec["prefill_s"],
+                          "decode_tokens_per_s": nb * nd / dec["decode_s"],
+                          "ms_per_step": dec["decode_s"] / nd * 1e3},
+               "max_memory_allocated": peak, "allocated_before": base,
+               "launches": launches, "prefill_breakdown": breakdown,
+               "forward_vs_decode": checks, "leg_seconds": legs}
+        say("recurrent serving path " + json.dumps(row))
+        toks = dec["tokens"]
+        if per_call != [n_attn] * len(per_call):
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{per_call} times per prefill call, not "
+                                 f"{n_attn}")
+        if not flash_ok:
+            raise AssertionError(f"{arch}: a profiled prefill call ran flash "
+                                 f"kernels other than {ZAMBA_SYMBOL} once a "
+                                 f"shared-block application: {flash_kernels}")
+        if not (all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
+                    for t in nxt) and toks.shape == (nb, nd)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())):
+            raise AssertionError(f"{arch}: the serving path gave tokens "
+                                 f"outside the vocabulary")
+        if not (gate["finite"] and gate["allclose"] and gate["tokens_agree"]
+                and checks[1]["finite"]):
+            raise AssertionError(f"{arch}: forward (chunked) and decode "
+                                 f"(recurrent) disagree: {checks}")
+        rows[arch] = row
+        torch.cuda.empty_cache()
+    return {"zamba_flash": flash, "runs": rows}
 
 
 def grad_errors(got, want, dtype) -> tuple:
@@ -2678,37 +2899,50 @@ def fedavg_step_breakdown(cfg) -> dict:
     return row
 
 
+def timed(label: str, fn, *args):
+    """``fn(*args)``; prints its wall seconds as ``phase <label>: <s> s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    say(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     kind, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    ptxas = build()
-    kern = kernels_phase()
-    flash = flash_phase(ptxas["fwd"])
-    small_loop = small_run_phase()
-    small_transformer_phase()
-    conv_precision_phase()
-    main = fl_run("main path", "osafl", MAIN_RUN, MAIN_EVAL)
-    list_api = list_api_phase()
-    loop = fl_run("loop engine", "osafl", LOOP_RUN, MAIN_EVAL)
-    breakdown_phase(MAIN_RUN)
-    grid = grid_phase(main)
-    determinism = determinism_phase(grid)
+    ptxas = timed("2 build", build)
+    kern = timed("3 kernels", kernels_phase)
+    flash = timed("3 flash", flash_phase, ptxas["fwd"])
+    small_loop = timed("4 small runs", small_run_phase)
+    timed("4 small transformer", small_transformer_phase)
+    timed("4 conv precision", conv_precision_phase)
+    main = timed("5 main path", fl_run, "main path", "osafl", MAIN_RUN,
+                 MAIN_EVAL)
+    list_api = timed("5b list api", list_api_phase)
+    loop = timed("5c loop engine", fl_run, "loop engine", "osafl", LOOP_RUN,
+                 MAIN_EVAL)
+    timed("6 breakdown", breakdown_phase, MAIN_RUN)
+    grid = timed("6b grid", grid_phase, main)
+    determinism = timed("6c determinism", determinism_phase, grid)
     for alg, kw in GRID_RUNS:
         if kw["model"] != "fcn":
-            breakdown_phase(kw)
-    requests = requests_phase(main)
-    stacked_small = small_run_phase(STACKED_SMALL)
-    f32 = f32_solve_phase()
-    ckpt = checkpoint_phase()
-    loop_resume = loop_resume_phase()
-    breakdown_phase(dict(MAIN_RUN, request_backend="stacked"))
-    cohorts = cohort_phase()
-    pods = pod_phase(main, grid)
-    fused = fused_phase()
-    serving = serving_phase()
-    moe_serving = moe_serving_phase()
-    bwd = flash_bwd_phase(ptxas["bwd"])
-    training = train_phase()
+            timed(f"6 breakdown {kw['model']}", breakdown_phase, kw)
+    requests = timed("6d requests", requests_phase, main)
+    stacked_small = timed("6d small stacked", small_run_phase,
+                          STACKED_SMALL)
+    f32 = timed("6e f32 solve", f32_solve_phase)
+    ckpt = timed("6f checkpoint", checkpoint_phase)
+    loop_resume = timed("6f loop resume", loop_resume_phase)
+    timed("6 breakdown stacked requests", breakdown_phase,
+          dict(MAIN_RUN, request_backend="stacked"))
+    cohorts = timed("6g cohorts", cohort_phase)
+    pods = timed("6i pod", pod_phase, main, grid)
+    fused = timed("6h fused", fused_phase)
+    serving = timed("7 serving", serving_phase)
+    moe_serving = timed("7b moe serving", moe_serving_phase)
+    recurrent = timed("7c recurrent serving", recurrent_serving_phase)
+    bwd = timed("8 flash backward", flash_bwd_phase, ptxas["bwd"])
+    training = timed("8 training", train_phase)
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
     # every run of the grid (the main path's among them) and its
@@ -2753,6 +2987,8 @@ def main() -> int:
     for k in by_path:
         for arch, row in moe_serving["runs"].items():
             by_path[k][f"moe_serving {arch}"] = row["launches"][k]
+        for arch, row in recurrent["runs"].items():
+            by_path[k][f"recurrent_serving {arch}"] = row["launches"][k]
         for engine, row in training["runs"].items():
             by_path[k][f"train_{engine}"] = row["launches"][k]
     for k in by_path:
@@ -2791,7 +3027,14 @@ def main() -> int:
                 "shape", "dv", "symbol", "max_abs_err", "bitwise_repeat",
                 "ms", "ms_in_turns", "plain_ms", "library_ms", "bound_ms",
                 "bound_by", "share_of_bound", "padded_mma_sync_ms",
-                "padded_mma_sync_ms_in_turns", "padded_max_abs_diff")}}}, {
+                "padded_mma_sync_ms_in_turns", "padded_max_abs_diff")}},
+        "zamba_prefill_shape": {
+            "launches": by_path["flash_attention"][
+                "recurrent_serving zamba2-2.7b"],
+            **{key: recurrent["zamba_flash"][key] for key in (
+                "shape", "symbol", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

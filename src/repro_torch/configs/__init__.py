@@ -2,18 +2,21 @@
 
 ``get_config(name)`` knows every architecture id of the reference. It
 returns the configs of the dense GQA decoders (full or sliding-window
-attention) and of the MoE decoders (arctic-480b; deepseek-v3-671b with MLA
-and MTP), which ``repro_torch.models.transformer`` runs, and the paper's
-four models' pseudo-configs (``paper-*``, run by
-``repro_torch.models.small``); any other architecture raises
+attention), of the MoE decoders (arctic-480b; deepseek-v3-671b with MLA
+and MTP) and of the recurrent families (zamba2-2.7b, Mamba2 with a shared
+attention block; xlstm-350m, mLSTM and sLSTM blocks), which
+``repro_torch.models.transformer`` runs, and the paper's four models'
+pseudo-configs (``paper-*``, run by ``repro_torch.models.small``); any
+other architecture (whisper-medium, llama-3.2-vision-11b) raises
 ``NotImplementedError`` (ROADMAP.md queue A lists it).
 """
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ExperimentConfig, FLConfig, MLAConfig,
-                                      ModelConfig, MoEConfig, SSMConfig)
+from repro_torch.configs.base import (ExperimentConfig, FLConfig,
+                                      HybridConfig, MLAConfig, ModelConfig,
+                                      MoEConfig, SSMConfig)
 
 ARCH_IDS = (
     "deepseek-v3-671b", "arctic-480b", "h2o-danube-3-4b", "nemotron-4-15b",
@@ -29,6 +32,8 @@ _MODULES = {
     "h2o-danube-3-4b": "h2o_danube_3_4b",
     "nemotron-4-15b": "nemotron_4_15b",
     "qwen1.5-4b": "qwen1_5_4b",
+    "zamba2-2.7b": "zamba2_2_7b",
+    "xlstm-350m": "xlstm_350m",
     "paper-fcn": "paper_models",
     "paper-cnn": "paper_models",
     "paper-squeezenet": "paper_models",
@@ -50,4 +55,4 @@ def get_config(name: str) -> ModelConfig:
 
 
 __all__ = ["ARCH_IDS", "get_config", "ExperimentConfig", "FLConfig",
-           "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig"]
+           "HybridConfig", "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig"]

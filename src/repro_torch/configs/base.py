@@ -68,7 +68,8 @@ class VisionConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     """One architecture of the transformer zoo. The port runs the dense
-    GQA decoders and the MoE decoders (MoE, MLA, MTP) so far
+    GQA decoders, the MoE decoders (MoE, MLA, MTP) and the recurrent
+    families (zamba2's hybrid, xLSTM) so far
     (``repro_torch.models.transformer``); the nested configs of the other
     families exist so that every field means what it means in the
     reference."""

@@ -1,6 +1,8 @@
-"""Serve a decoder of the zoo with batched requests: prefill, then KV-cache
-decode (``examples/serve_decode.py``'s ``run``, for the dense and MoE
-decoders; whisper's encoder path is not ported).
+"""Serve a decoder of the zoo with batched requests: prefill, then cached
+decode (``examples/serve_decode.py``'s ``run``, whose default architecture
+is zamba2-2.7b): the dense and MoE decoders over KV caches, zamba2 over
+its Mamba2 states and its shared block's KV caches, xLSTM over its mLSTM
+and sLSTM states; whisper's encoder path is not ported.
 
 As in the reference, the prompt is prefilled by sequential decode steps
 (cache-exact), then ``decode_steps`` tokens are decoded greedily. The
@@ -9,7 +11,7 @@ config is passed in, so a caller can cut depth with
 
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_decode import run
-    res = run(get_config("deepseek-coder-33b").reduced(), device="cpu")
+    res = run(get_config("zamba2-2.7b").reduced(), device="cpu")
     res = run(get_config("deepseek-v3-671b").reduced(), device="cpu")
 """
 from __future__ import annotations

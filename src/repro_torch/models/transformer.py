@@ -1,19 +1,24 @@
-"""Model assembly for the dense and MoE decoders of the transformer zoo
-(``repro/models/transformer.py``, the dense/MoE decoder family):
-deepseek-coder, nemotron-4, qwen1.5, h2o-danube-3 (full or sliding-window
-GQA, optional qkv bias, swiglu/relu2/gelu MLP), arctic (MoE with a dense
-residual MLP) and deepseek-v3 (MLA, dense first layers, MoE with a shared
-expert, multi-token prediction). The hybrid, xLSTM, audio and vision
-families raise ``NotImplementedError``.
+"""Model assembly for the transformer zoo (``repro/models/transformer.py``):
+the dense and MoE decoders, deepseek-coder, nemotron-4, qwen1.5,
+h2o-danube-3 (full or sliding-window GQA, optional qkv bias,
+swiglu/relu2/gelu MLP), arctic (MoE with a dense residual MLP) and
+deepseek-v3 (MLA, dense first layers, MoE with a shared expert, multi-token
+prediction); the hybrid zamba2 (Mamba2 layers in groups, one shared
+attention block applied after each group with the same weights and its own
+KV cache per group); and xLSTM (groups of mLSTM blocks, each followed by an
+sLSTM block). The audio and vision families raise ``NotImplementedError``.
 
 Layers are stacked as in the reference: every leaf of ``dense_layers`` and
-``moe_layers`` has a leading (n_layers,) axis, so reference weights carry
-over leaf by leaf (``params_from_numpy``, float32 or bfloat16 trees);
-``_scan_blocks`` is a Python loop over that axis and sums the MoE layers'
-auxiliary losses. ``loss_fn`` is differentiable (the flash kernel has a
-backward) and adds the MTP loss when the config has one; with
-``cfg.remat`` each layer of a training forward is recomputed in the
-backward (``torch.utils.checkpoint``), as the reference's ``_maybe_remat``.
+``moe_layers`` has a leading (n_layers,) axis, zamba2's ``mamba_layers``
+(n_groups, every) axes, xLSTM's ``mlstm_layers`` (n_groups, n_m) and
+``slstm_layers`` (n_groups,), so reference weights carry over leaf by leaf
+(``params_from_numpy``, float32 or bfloat16 trees); ``_scan_blocks`` is a
+Python loop over that axis and sums the MoE layers' auxiliary losses, and
+the recurrent trunks are loops over their groups. ``loss_fn`` is
+differentiable (the flash kernel has a backward) and adds the MTP loss
+when the config has one; with ``cfg.remat`` each layer of a training
+forward is recomputed in the backward (``torch.utils.checkpoint``), as the
+reference's ``_maybe_remat``.
 Public API:
 
   init_model(gen, cfg)                           -> params
@@ -39,6 +44,7 @@ from repro_torch.models.attention import (gqa_fwd, init_gqa, init_gqa_cache,
 from repro_torch.models.layers import (dense_init, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp_fwd,
                                        rmsnorm, unembed)
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.moe import init_moe, moe_fwd
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,16 +58,30 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
     return _DTYPES[cfg.param_dtype]
 
 
+def _family(cfg: ModelConfig) -> str:
+    """The reference's dispatch order: the encoder (whisper), the hybrid
+    (zamba2), xLSTM, the vision decoder, else the dense/MoE decoder."""
+    if cfg.encoder is not None:
+        return "encoder"
+    if cfg.hybrid is not None:
+        return "hybrid"
+    if cfg.ssm is not None and cfg.ssm.kind == "xlstm":
+        return "xlstm"
+    if cfg.vision is not None:
+        return "vision"
+    return "decoder"
+
+
 def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse the families the port does not run yet."""
-    unported = [name for name, on in (
-        ("ssm", cfg.ssm is not None), ("hybrid", cfg.hybrid is not None),
-        ("encoder", cfg.encoder is not None),
-        ("vision", cfg.vision is not None)) if on]
-    if unported or cfg.attention not in ("gqa", "mla"):
+    """Refuse the families the port does not run yet, and attention kinds
+    other than GQA and MLA outside xLSTM (which has none)."""
+    family = _family(cfg)
+    if family in ("encoder", "vision") or (
+            family != "xlstm" and cfg.attention not in ("gqa", "mla")):
+        what = family if family in ("encoder", "vision") else cfg.attention
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs the dense and MoE decoders only; "
-            f"{unported or [cfg.attention]} are not ported yet (ROADMAP.md "
+            f"{cfg.name}: repro_torch runs the dense, MoE, hybrid (zamba2) "
+            f"and xLSTM families; {what!r} is not ported yet (ROADMAP.md "
             f"queue A lists what is left)")
 
 
@@ -243,6 +263,159 @@ def _mtp_loss(params, h, batch, cfg, positions, weight: float = 0.1):
 
 
 # ===========================================================================
+# Hybrid (zamba2): Mamba2 backbone + shared attention block
+# ===========================================================================
+
+def _layers(stack, n_lead: int) -> list:
+    """One parameter tree per layer of a stack with ``n_lead`` leading
+    axes, in order: views from one unbind per leaf (a backward stacks each
+    leaf's gradient once, as in ``_scan_blocks``)."""
+    flat = tree_map(lambda t: t.flatten(0, n_lead - 1).unbind(0), stack)
+    n = len(tree_get(flat, tree_paths(flat)[0]))
+    return [tree_map(lambda ts: ts[i], flat) for i in range(n)]
+
+
+def _apply(fn, remat: bool, *args):
+    """``fn(*args)``, recomputed in the backward under ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _init_zamba(gen, cfg: ModelConfig):
+    pd = _pdtype(cfg)
+    every = cfg.hybrid.shared_attn_every
+    lead = (cfg.n_layers // every, every)
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, pd),
+        "final_norm": init_rmsnorm(gen, cfg.d_model, pd),
+        "mamba_layers": {"ln": init_rmsnorm(gen, cfg.d_model, pd, lead),
+                         "m": ssm_lib.init_mamba(gen, cfg, pd, lead)},
+        "shared_block": init_block(gen, cfg,
+                                   d_ff=cfg.hybrid.shared_block_d_ff),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=pd)
+    return params
+
+
+def _mamba_layer(lp, x, cfg):
+    hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
+    return x + ssm_lib.mamba_fwd(lp["m"], hn, cfg)
+
+
+def _zamba_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
+    """Each group's Mamba2 layers, then the shared block (the same weights
+    after every group; with caches, group g's own KV cache)."""
+    every = cfg.hybrid.shared_attn_every
+    remat = caches is None and _remat(cfg)
+    for j, lp in enumerate(_layers(params["mamba_layers"], 2)):
+        g, i = divmod(j, every)
+        if caches is None:
+            x = _apply(_mamba_layer, remat, lp, x, cfg)
+        else:
+            hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
+            y, _ = ssm_lib.mamba_decode_step(
+                lp["m"], hn, tree_map(lambda t: t[g, i], caches["mamba"]),
+                cfg)
+            x = x + y
+        if i < every - 1:
+            continue
+        if remat:
+            x, _ = checkpoint(_block_out, params["shared_block"], x, cfg,
+                              positions, False, True, True,
+                              use_reentrant=False)
+        else:
+            cache = (None if caches is None
+                     else tree_map(lambda t: t[g], caches["attn"]))
+            x, _, _ = block_fwd(params["shared_block"], x, cfg, positions,
+                                cache=cache, cache_pos=cache_pos)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
+# ===========================================================================
+# xLSTM: groups of mLSTM blocks, each followed by an sLSTM block
+# ===========================================================================
+
+def _xlstm_groups(cfg: ModelConfig) -> tuple:
+    """(n_groups, n_m), the reference's arithmetic: with ``slstm_every``
+    set, max(1, n_layers // slstm_every) groups of slstm_every - 1 mLSTM
+    blocks and one sLSTM block each (the reduced config's 2 layers give 7 +
+    1 blocks); else one group of n_layers mLSTM blocks."""
+    every = cfg.ssm.slstm_every
+    if not every:
+        return 1, cfg.n_layers
+    return max(1, cfg.n_layers // every), every - 1
+
+
+def _init_xlstm(gen, cfg: ModelConfig):
+    pd = _pdtype(cfg)
+    n_groups, n_m = _xlstm_groups(cfg)
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, pd),
+        "final_norm": init_rmsnorm(gen, cfg.d_model, pd),
+        "mlstm_layers": {
+            "ln": init_rmsnorm(gen, cfg.d_model, pd, (n_groups, n_m)),
+            "m": ssm_lib.init_mlstm(gen, cfg, pd, (n_groups, n_m))},
+    }
+    if cfg.ssm.slstm_every:
+        params["slstm_layers"] = {
+            "ln": init_rmsnorm(gen, cfg.d_model, pd, (n_groups,)),
+            "s": ssm_lib.init_slstm(gen, cfg, pd, (n_groups,))}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=pd)
+    return params
+
+
+def _mlstm_layer(lp, x, cfg):
+    return x + ssm_lib.mlstm_fwd(lp["m"], rmsnorm(lp["ln"], x, cfg.norm_eps),
+                                 cfg)
+
+
+def _slstm_layer(lp, x, cfg):
+    hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
+    return x + ssm_lib.slstm_fwd(lp["s"], hn, cfg)[0]
+
+
+def _xlstm_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
+    n_groups, n_m = params["mlstm_layers"]["ln"]["scale"].shape[:2]
+    remat = caches is None and _remat(cfg)
+    m_layers = _layers(params["mlstm_layers"], 2)
+    s_layers = (_layers(params["slstm_layers"], 1)
+                if "slstm_layers" in params else None)
+    for g in range(n_groups):
+        for i in range(n_m):
+            lp = m_layers[g * n_m + i]
+            if caches is None:
+                x = _apply(_mlstm_layer, remat, lp, x, cfg)
+            else:
+                hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
+                y, _ = ssm_lib.mlstm_decode_step(
+                    lp["m"], hn,
+                    tree_map(lambda t: t[g, i], caches["mlstm"]), cfg)
+                x = x + y
+        if s_layers is None:
+            continue
+        lp = s_layers[g]
+        if caches is None:
+            x = _apply(_slstm_layer, remat, lp, x, cfg)
+        else:
+            hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
+            y, _ = ssm_lib.slstm_decode_step(
+                lp["s"], hn, tree_map(lambda t: t[g], caches["slstm"]), cfg)
+            x = x + y
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
+_INITS = {"decoder": _init_decoder, "hybrid": _init_zamba,
+          "xlstm": _init_xlstm}
+_TRUNKS = {"decoder": _decoder_trunk, "hybrid": _zamba_trunk,
+           "xlstm": _xlstm_trunk}
+
+
+# ===========================================================================
 # Public API
 # ===========================================================================
 
@@ -250,7 +423,7 @@ def init_model(gen, cfg: ModelConfig):
     """Parameters of ``cfg`` drawn from ``gen`` on its device (``gen=None``:
     meta tensors, the layout only)."""
     _check_ported(cfg)
-    return _init_decoder(gen, cfg)
+    return _INITS[_family(cfg)](gen, cfg)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device=None):
@@ -290,8 +463,9 @@ def forward(params, batch, cfg: ModelConfig):
     B, S = tokens.shape
     x = embed(params["embed"], tokens, _cdtype(cfg))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, aux, _ = _decoder_trunk(params, x, cfg, positions)
-    if cfg.mtp_depth and "labels" in batch:
+    family = _family(cfg)
+    x, aux, _ = _TRUNKS[family](params, x, cfg, positions)
+    if family == "decoder" and cfg.mtp_depth and "labels" in batch:
         aux = aux + _mtp_loss(params, x, batch, cfg, positions)
     return _logits(params, x, cfg), aux
 
@@ -316,9 +490,29 @@ def loss_fn(params, batch, cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
                dtype=torch.bfloat16):
     """Zeroed KV caches of the dense and MoE stacks (GQA or MLA latent
-    caches, by the config's attention) in ``dtype``."""
+    caches, by the config's attention) in ``dtype``. zamba2: the Mamba2
+    layers' conv windows and states, (n_groups, every) stacks in f32, and
+    the shared block's KV cache of each group in ``dtype``; xLSTM: the
+    mLSTM and sLSTM states, f32 (m at -1e9). The recurrent states are f32
+    whatever ``dtype`` is, as in the reference."""
     _check_ported(cfg)
     dev = resolve_device(device)
+    family = _family(cfg)
+    if family == "hybrid":
+        every = cfg.hybrid.shared_attn_every
+        n_groups = cfg.n_layers // every
+        return {"mamba": ssm_lib.init_mamba_cache(cfg, batch, device=dev,
+                                                  lead=(n_groups, every)),
+                "attn": _stacked_cache(cfg, n_groups, batch, length, dev,
+                                       dtype)}
+    if family == "xlstm":
+        n_groups, n_m = _xlstm_groups(cfg)
+        out = {"mlstm": ssm_lib.init_mlstm_cache(cfg, batch, device=dev,
+                                                 lead=(n_groups, n_m))}
+        if cfg.ssm.slstm_every:
+            out["slstm"] = ssm_lib.init_slstm_cache(cfg, batch, device=dev,
+                                                    lead=(n_groups,))
+        return out
     n_dense = _n_dense(cfg)
     out = {}
     for name, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
@@ -329,13 +523,14 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
 
 def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
     """tokens: (B, 1); pos: int — the current write index. Writes the step's
-    keys and values into ``cache`` in place. Returns (logits (B,1,V), cache)."""
+    keys and values (and the recurrent states) into ``cache`` in place.
+    Returns (logits (B,1,V), cache)."""
     _check_ported(cfg)
     B = tokens.shape[0]
     x = embed(params["embed"], tokens, _cdtype(cfg))
     positions = torch.full((B, 1), int(pos), device=tokens.device)
-    x, _, nc = _decoder_trunk(params, x, cfg, positions, caches=cache,
-                              cache_pos=pos)
+    x, _, nc = _TRUNKS[_family(cfg)](params, x, cfg, positions, caches=cache,
+                                     cache_pos=pos)
     return _logits(params, x, cfg), nc
 
 

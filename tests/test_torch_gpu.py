@@ -404,7 +404,8 @@ def test_conv_grads_match_cpu_only_in_full_f32(cuda, monkeypatch, model):
 # (D = 256 takes the mma.sync kernel in bf16)
 FLASH_SHAPES = [(1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
                 (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
-                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256)]
+                (2, 14, 2, 130, 40), (1, 8, 2, 130, 256),
+                (2, 32, 32, 130, 80)]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -449,10 +450,10 @@ def test_flash_attention_reads_model_layout_views(cuda, S, D):
 
 
 # The Hopper kernel (bf16, D <= 128): D below, at and inside its buckets of
-# 64 and 128 (TMA fills the missing columns with zeros), S of one key, of
-# one tile, just past one and ending mid-tile above one, kv groups of 7:1
-# and 2:1
-@pytest.mark.parametrize("D", [40, 64, 128])
+# 64 and 128 (TMA fills the missing columns with zeros; 80 is zamba2's), S
+# of one key, of one tile, just past one and ending mid-tile above one, kv
+# groups of 7:1 and 2:1
+@pytest.mark.parametrize("D", [40, 64, 80, 128])
 @pytest.mark.parametrize("S", [1, 77, 128, 130, 300])
 @pytest.mark.parametrize("B,H,Hkv", [(1, 7, 1), (2, 14, 2), (1, 16, 8)])
 @pytest.mark.parametrize("causal", [True, False])
@@ -465,6 +466,35 @@ def test_hopper_flash_matches_plain_version(cuda, D, S, B, H, Hkv, causal):
     torch.testing.assert_close(
         out.float(), fa.flash_attention_plain(q, k, v, causal=causal).float(),
         rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_at_head_dim_80_reads_and_writes_its_columns_alone(cuda,
+                                                                  causal):
+    """zamba2's shared attention (D = Dv = 80, 32 heads) in the Hopper
+    kernel's <128, 128>: q, k, v and the output are views of 128-wide
+    buffers. Columns 80-127 of the inputs hold 1e4 and must not be read
+    (TMA fills past the tensor's 80 with zeros), those of the output hold 7
+    and must not be written; the caller's scale is the one applied."""
+    B, H, S, D = 2, 32, 130, 80
+    gen = torch.Generator(device=cuda).manual_seed(80)
+    bufs = [torch.full((B, H, S, 128), 1e4, device=cuda).bfloat16()
+            for _ in range(3)]
+    q, k, v = (b[..., :D] for b in bufs)
+    for x in (q, k, v):
+        x.copy_(torch.randn(x.shape, generator=gen, device=cuda))
+    out_buf = torch.full((B, H, S, 128), 7.0, dtype=torch.bfloat16,
+                         device=cuda)
+    for scale in (None, 0.3):
+        out = fa.flash_attention_bhsd(q, k, v, causal=causal, scale=scale,
+                                      out=out_buf[..., :D])
+        torch.cuda.synchronize()
+        assert bool((out_buf[..., D:] == 7.0).all())
+        plain = fa.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), causal=causal,
+                                         scale=scale)
+        torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                                   atol=2e-2)
 
 
 # v narrower than q and k (D, Dv): MLA's 192/128 (the Hopper kernel's
@@ -767,10 +797,11 @@ def test_f32_solve_decisions_on_card_are_the_cpu_decisions(cuda, n_params):
 # (B, H, Hkv, S, D): the training shape, S of one key, ragged S over the
 # f32 and the three bf16 buckets, a 7:1 group; for the ordered dq of the
 # Hopper route, eight key tiles of an 8:1 group at a ragged S, and
-# h2o-danube's D = 120 (a ragged bucket of 128)
+# h2o-danube's D = 120 (a ragged bucket of 128), zamba2's D = 80
 BWD_SHAPES = [(2, 20, 20, 1024, 128), (1, 7, 1, 1, 128), (2, 14, 2, 130, 40),
               (1, 4, 4, 77, 64), (2, 4, 2, 300, 128), (1, 8, 2, 130, 256),
-              (1, 16, 2, 1000, 128), (2, 8, 8, 777, 120)]
+              (1, 16, 2, 1000, 128), (2, 8, 8, 777, 120),
+              (2, 32, 32, 130, 80)]
 
 
 # the error's Frobenius norm over the gradient's own
@@ -1083,3 +1114,89 @@ def test_moe_decode_on_card_matches_cpu(cuda, arch):
             want, caches["cpu"] = T.decode_step(
                 host, caches["cpu"], tok[:, i:i + 1], i, cfg)
             torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- the recurrent families (zamba2, xLSTM) ---------------------------------
+
+def _recurrent_cfg(arch, dtype):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch).reduced(), dtype=dtype)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
+def test_recurrent_forward_on_card_matches_cpu(cuda, arch):
+    """The reduced zamba2 and xLSTM's prefill (64 tokens: two chunks of
+    the SSD and of the chunked mLSTM) on the card against the CPU from the
+    same f32 weights: f32 compute within 1e-4; bf16 no farther from the
+    CPU's f32 logits than the CPU's own bf16 run, with a quarter's
+    headroom (bf16 over 8 recurrent blocks lies ~0.1 from f32 in the JAX
+    reference too, tests/test_torch_ssm_models.py). The flash kernel once a
+    shared-block application (none in xLSTM); a second card call equal bit
+    for bit."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import transformer as T
+    tokens = torch.randint(0, 512, (2, 64),
+                           generator=torch.Generator().manual_seed(2))
+    logits = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = _recurrent_cfg(arch, dtype)
+        host = T.init_model(torch.Generator().manual_seed(1), cfg)
+        card = tree_map(lambda t: t.to(cuda), host)
+        n_attn = (cfg.n_layers // cfg.hybrid.shared_attn_every
+                  if cfg.hybrid else 0)
+        before = fa.flash_attention_bhsd.launches
+        with torch.inference_mode():
+            got, _ = T.forward(card, {"tokens": tokens.to(cuda)}, cfg)
+            again, _ = T.forward(card, {"tokens": tokens.to(cuda)}, cfg)
+            want, _ = T.forward(host, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bhsd.launches == before + 2 * n_attn
+        assert torch.equal(got, again)
+        logits[dtype] = (got.cpu().float(), want.float())
+    torch.testing.assert_close(*logits["float32"], rtol=1e-4, atol=1e-4)
+    exact = logits["float32"][1]
+    card_err = float((logits["bfloat16"][0] - exact).abs().max())
+    cpu_err = float((logits["bfloat16"][1] - exact).abs().max())
+    assert card_err <= 1.25 * cpu_err, (card_err, cpu_err)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "xlstm-350m"])
+def test_recurrent_decode_on_card_matches_cpu(cuda, arch):
+    """f32 compute and caches: eight teacher-forced decode steps (logits
+    within 1e-4, the recurrent states after them within 1e-4), then a
+    4-token prompt and 6 greedy tokens through ``make_serve_step``: the
+    same tokens on the card as on the CPU."""
+    from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+    from repro_torch.core.pod import make_serve_step
+    from repro_torch.models import transformer as T
+    cfg = _recurrent_cfg(arch, "float32")
+    host = T.init_model(torch.Generator().manual_seed(3), cfg)
+    params = {"cpu": host, cuda: tree_map(lambda t: t.to(cuda), host)}
+    tok = torch.randint(0, cfg.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(4))
+    caches = {dev: T.init_cache(cfg, 2, 16, device=dev, dtype=torch.float32)
+              for dev in params}
+    serve = make_serve_step(cfg)
+    tokens = {}
+    with torch.inference_mode():
+        for i in range(8):
+            got, _ = T.decode_step(params[cuda], caches[cuda],
+                                   tok[:, i:i + 1].to(cuda), i, cfg)
+            want, _ = T.decode_step(host, caches["cpu"], tok[:, i:i + 1], i,
+                                    cfg)
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for path in tree_paths(caches["cpu"]):
+            torch.testing.assert_close(tree_get(caches[cuda], path).cpu(),
+                                       tree_get(caches["cpu"], path),
+                                       rtol=1e-4, atol=1e-4)
+        for dev in params:
+            cache = T.init_cache(cfg, 2, 16, device=dev, dtype=torch.float32)
+            for i in range(4):
+                nxt, cache = serve(params[dev], cache,
+                                   tok[:, i:i + 1].to(dev), i)
+            out = []
+            for i in range(6):
+                nxt, cache = serve(params[dev], cache, nxt, 4 + i)
+                out.append(nxt.cpu())
+            tokens[dev] = torch.cat(out, 1)
+    assert torch.equal(tokens[cuda], tokens["cpu"])

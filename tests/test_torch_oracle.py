@@ -37,7 +37,7 @@ _REFERENCE_MODULES = (
     "repro.data.video_caching_stacked", "repro.harness",
     "repro.kernels.ops", "repro.kernels.ref", "repro.kernels.scored_reduce",
     "repro.models.attention", "repro.models.layers", "repro.models.moe",
-    "repro.models.small",
+    "repro.models.small", "repro.models.ssm",
     "repro.models.transformer",
     "repro.core.cohort", "repro.core.hierarchy",
     "repro.scenarios", "repro.scenarios.base", "repro.scenarios.library",

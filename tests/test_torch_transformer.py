@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from repro_torch.configs import SSMConfig, get_config
+from repro_torch.configs.base import EncoderConfig, VisionConfig
 from repro_torch.core.pod import make_prefill_step
 from repro_torch.kernels import ops
 from repro_torch.launch import serve_decode
@@ -96,14 +97,25 @@ def test_configs_match_reference(reference, arch):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-2.7b")
+    """The audio and vision families (whisper, llama-3.2-vision) are not
+    ported; an attention kind other than GQA or MLA outside xLSTM is
+    refused."""
+    for arch in ("whisper-medium", "llama-3.2-vision-11b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
-    ssm = dataclasses.replace(get_config("deepseek-coder-33b").reduced(),
-                              ssm=SSMConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.init_model(None, ssm)
+    dense = get_config("deepseek-coder-33b").reduced()
+    for change in (dict(encoder=EncoderConfig()),
+                   dict(vision=VisionConfig()), dict(attention="none")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            transformer.init_model(None, dataclasses.replace(dense,
+                                                             **change))
+    # a Mamba2 SSMConfig without the hybrid config is a plain decoder, as
+    # in the reference's dispatch
+    plain = dataclasses.replace(dense, ssm=SSMConfig())
+    assert set(transformer.init_model(None, plain)) == set(
+        transformer.init_model(None, dense))
 
 
 # -- layers ------------------------------------------------------------------
