@@ -135,11 +135,29 @@ Phases, each fatal on failure:
      calls on 4 x 4096 prompts (flash 9 times a zamba2 call, never in
      xLSTM; the second with each block kind's span on the device
      timeline), a profiled one (zamba2's flash kernels all <128, 128>),
-     forward against decode on 2 x 512 tokens (chunked SSD and chunked
+     forward against decode on 2 x 512 tokens over the first groups of the
+     same weights (zamba2 2 of 9, xLSTM 1 of 3: chunked SSD and chunked
      mLSTM against their recurrences; f32 compute and caches at atol
      6e-3, rtol 1e-2; the bf16 row beside it), then
      ``serve_decode.run`` (batch 8, 4096-position cache) and the peak
      device memory;
+  7d. the cross-attention serving path: the flash kernel at whisper-medium's
+     decoder self-attention (8, 16, 16, 448, 64; the Hopper kernel's <64,
+     64>) and llama-3.2-vision-11b's self layers (4, 32, 8, 4096, 128; GQA
+     4:1 at <128, 128>) against its plain version, repeated bit for bit,
+     timed beside its bound and ``scaled_dot_product_attention``; then
+     both at full width and depth with seeded random f32 weights (the
+     vision decoder's tanh gates at 0.5, not their zero init), one at a
+     time: whisper's encoder over 8 x 1,500 frames alone, two timed
+     ``make_prefill_step`` calls (whisper 8 x 448 tokens with its frames,
+     the vision decoder 4 x 4096 with 4 x 1,601 patches; flash once a
+     causal self-attention layer, 24 and 32; never in the encoder or a
+     cross-attention), a profiled one (its flash kernels the shape's
+     symbol alone, once a layer), forward against decode over the memory
+     on 2 x 128 tokens (f32 compute and caches within 2e-2; the bf16 row
+     beside it), then ``serve_decode.run`` (batch 8; whisper's cache 448
+     positions, the vision decoder's 4096), the peak device memory and
+     each leg's seconds;
   8. the training path: the flash backward kernels against their plain
      version (log-sum-exp of the forward included) at the training shape,
      ragged and small shapes, f32 and bf16, causal and not, and timed at
@@ -240,7 +258,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # (B, S, H, D) views; ragged and small shapes: S of one key, S ending
 # mid-tile above one tile, D = 40 (filled to the 64 bucket), zamba2's
 # D = 80 (filled to the 128 bucket), D = 256 (the mma.sync kernel);
-# tests/test_kernels.py:26's tolerances
+# whisper-medium's decoder (D = 64) and llama-3.2-vision-11b's self layers
+# (GQA 4:1) at their prefill shapes; tests/test_kernels.py:26's tolerances
 FLASH_MAIN = (4, 56, 8, 4096, 128)
 # v narrower than q and k (B, H, Hkv, S, D, Dv): MLA's 192/128 at a ragged
 # S of one tile and past one, 256/128 (the Hopper kernel's <256, 128>), a
@@ -252,7 +271,8 @@ FLASH_DV_SHAPES = ((1, 4, 4, 77, 192, 128), (2, 8, 2, 130, 192, 128),
 FLASH_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 77, 64), (1, 4, 4, 130, 64),
                 (2, 56, 8, 24, 128), (1, 8, 2, 512, 128), (2, 14, 2, 300, 128),
                 (2, 14, 2, 130, 40), (1, 8, 2, 130, 256),
-                (2, 32, 32, 130, 80))
+                (2, 32, 32, 130, 80), (8, 16, 16, 448, 64),
+                (4, 32, 8, 4096, 128))
 # the kernels of csrc/flash_attention.cu, by symbol (prefill_breakdown)
 FLASH_SYMBOLS = ("flash_bf16_wgmma_kernel", "flash_bf16_kernel",
                  "flash_f32_kernel")
@@ -422,12 +442,48 @@ RECURRENT_SERVE = ("zamba2-2.7b", "xlstm-350m")
 # tolerance (tests/test_models.py:91-94), f32 compute and caches
 RECURRENT_GATE_SEQ = 512
 RECURRENT_GATE_TOL = dict(atol=6e-3, rtol=1e-2)
+# ... over the first groups of the full-depth weights: 512 decode steps
+# of all 54 + 9 zamba2 blocks and all 24 xLSTM blocks, in f32 and in bf16,
+# took 129 s of a 1,094 s script (measured on one NVIDIA H100 80GB HBM3,
+# 700.00 W); two groups of zamba2 (12 Mamba2 layers, the shared
+# block twice) and one of xLSTM (7 mLSTM blocks and the sLSTM block) run
+# every block kind and both chunked forms
+RECURRENT_GATE_LAYERS = {"zamba2-2.7b": 12, "xlstm-350m": 8}
 # the flash kernel at zamba2's shared attention (B, H, Hkv, S, D): head dim
 # 2560 / 32 = 80, run by the Hopper kernel's <128, 128> (TMA fills columns
 # 80-127 with zeros); each profiled zamba2 prefill call must show it alone,
 # once a shared-block application
 ZAMBA_FLASH = (4, 32, 32, 4096, 80)
 ZAMBA_SYMBOL = "flash_bf16_wgmma_kernel<128, 128>"
+# the cross-attention serving path (phase 7d): whisper-medium (24 encoder
+# blocks over 1,500 frame embeddings, 24 decoder blocks of causal
+# self-attention, cross-attention and a gelu MLP; d_model 1024, 16 heads of
+# 64; ~0.81 B parameters, 3.2 GB) and llama-3.2-vision-11b (8 groups of 4
+# self-attention layers and one gated cross layer over 1,601 projected
+# patches of width 1280; d_model 4096, 32/8 heads of 128; ~9.78 B, 39.1
+# GB) at full width and depth, f32 weights from seed 0; the cross layers'
+# tanh gates set to CROSS_GATE (at their zero init a cross layer adds
+# nothing). whisper prefills its decoder's whole context, 8 x 448 tokens,
+# over 8 x 1,500 frames; the vision decoder the serving path's 4 x 4096
+# over 4 x 1,601 patches. Decode: whisper's cache holds its 448 positions,
+# the vision decoder's the serving path's 4096
+CROSS_SERVE = ("whisper-medium", "llama-3.2-vision-11b")
+CROSS_GATE = 0.5
+CROSS_PREFILL = {"whisper-medium": dict(batch=8, seq=448),
+                 "llama-3.2-vision-11b": SERVE_PREFILL}
+CROSS_DECODE = {"whisper-medium": dict(SERVE_DECODE, cache_len=448),
+                "llama-3.2-vision-11b": SERVE_DECODE}
+# forward against decode over the memory, f32 compute and caches, at the
+# serving tolerance (LOGIT_TOL), the bf16 row beside it
+CROSS_GATE_SEQ = 128
+# the flash kernel at each one's causal self-attention (B, H, Hkv, S, D):
+# whisper's decoder (D = 64: the Hopper kernel's <64, 64>) and the vision
+# decoder's self layers (GQA 4:1 at D = 128: <128, 128>); each profiled
+# prefill call must show its symbol alone, once a self-attention layer
+CROSS_FLASH = {"whisper-medium": ((8, 16, 16, 448, 64),
+                                  "flash_bf16_wgmma_kernel<64, 64>"),
+               "llama-3.2-vision-11b": ((4, 32, 8, 4096, 128),
+                                        "flash_bf16_wgmma_kernel<128, 128>")}
 # the transformer zoo's training path (phase 8): qwen1.5-4b at full width
 # (d_model 2560, 20 heads x 128, d_ff 6912, vocab 151,936, qkv bias; bf16
 # compute, f32 params), depth cut 40 -> 8: recompute holds five
@@ -729,6 +785,11 @@ def flash_phase(ptxas_fwd: dict) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             for causal in (True, False):
                 check_flash(tuple(shape), dtype, causal, timed=False, dv=dv)
+    # the plain versions at the 4096-token shapes of FLASH_SHAPES leave
+    # segments of several GB in the allocator's pool: release them before
+    # later phases place long-lived tensors in them (with one of those
+    # pinned, phase 7b's f32 gate ran out of device memory)
+    torch.cuda.empty_cache()
     main["ptxas"] = ptxas_fwd
     return main
 
@@ -1950,22 +2011,26 @@ def fused_phase() -> dict:
 
 
 def forward_vs_decode(params, cfg, prompt, cache_dtype, exact=None,
-                      atol=LOGIT_TOL, rtol=LOGIT_TOL) -> dict:
+                      atol=LOGIT_TOL, rtol=LOGIT_TOL, extra=None) -> dict:
     """Last-position logits of ``forward`` (the flash path; the chunked
     recurrent forms) against those of sequential ``decode_step``s over a
     cache (``_sdpa``, MLA's absorbed form, the recurrences), same prompt,
-    held to ``atol``/``rtol``. ``exact``, the f32 run's forward logits,
-    measures how far each path is from it; the run's own forward logits
-    are returned beside the row."""
+    held to ``atol``/``rtol``. ``extra`` (frames or patches) goes into the
+    forward's batch, and the decode steps attend to its memory as the
+    forward builds it. ``exact``, the f32 run's forward logits, measures
+    how far each path is from it; the run's own forward logits are
+    returned beside the row."""
     from repro_torch.models import transformer as T
     B, S = prompt.shape
+    extra = extra or {}
     with torch.inference_mode():
-        lf, _ = T.forward(params, {"tokens": prompt}, cfg)
+        lf, _ = T.forward(params, {"tokens": prompt, **extra}, cfg)
+        memory = T.memory_of(params, extra, cfg)
         cache = T.init_cache(cfg, B, S, device=prompt.device,
                              dtype=cache_dtype)
         for i in range(S):
             ld, cache = T.decode_step(params, cache, prompt[:, i:i + 1], i,
-                                      cfg)
+                                      cfg, memory=memory)
     a, b = lf[:, -1].float(), ld[:, -1].float()
     out = {"compute": cfg.dtype,
            "cache": str(cache_dtype).replace("torch.", ""),
@@ -2261,6 +2326,9 @@ def moe_serving_phase() -> dict:
         # the gate in f32 over all layers: an f32 product casts one expert
         # stack at a time (17.8 GB for arctic, 15.0 for deepseek-v3), which
         # fits beside the bf16 weights
+        say(f"moe serving {arch}: before the f32 gate "
+            f"{torch.cuda.memory_allocated()} B allocated, "
+            f"{torch.cuda.memory_reserved()} B reserved")
         wide = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=MOE_GATE_CAPACITY))
         gate, exact = forward_vs_decode(
@@ -2369,6 +2437,20 @@ class _Spans:
                 for label, evs in self.events.items() if evs}
 
 
+def _first_groups(params, cfg, n_layers: int) -> tuple:
+    """zamba2's or xLSTM's config and weights cut to their first
+    ``n_layers`` (whole groups): views of the stacked layers, no copies."""
+    from repro_torch.core.flatten import tree_map
+    cut = dataclasses.replace(cfg, n_layers=n_layers)
+    every = (cfg.hybrid.shared_attn_every if cfg.hybrid
+             else cfg.ssm.slstm_every)
+    groups = n_layers // every
+    stacks = (("mamba_layers",) if cfg.hybrid
+              else ("mlstm_layers", "slstm_layers"))
+    return cut, {k: (tree_map(lambda t: t[:groups], v) if k in stacks
+                     else v) for k, v in params.items()}
+
+
 def recurrent_serving_phase() -> dict:
     """The flash kernel at zamba2's shared-attention shape (D = 80) against
     its plain version, repeated bit for bit and timed beside its bound and
@@ -2379,7 +2461,8 @@ def recurrent_serving_phase() -> dict:
     block application), each block kind's span on the device timeline
     (Mamba2, the shared block, mLSTM, sLSTM's token loop) in the second,
     a profiled one, the f32 forward-against-decode gate on 2 x 512 tokens
-    (the bf16 row beside it), then ``serve_decode.run`` (batch 8,
+    over the first groups of the same weights (``RECURRENT_GATE_LAYERS``;
+    the bf16 row beside it), then ``serve_decode.run`` (batch 8,
     4096-position cache); launch counts reset just before each leg and
     read just after."""
     from repro_torch.configs import get_config
@@ -2442,13 +2525,17 @@ def recurrent_serving_phase() -> dict:
         prompt = tokens[:2, :RECURRENT_GATE_SEQ]
         del tokens
         torch.cuda.empty_cache()
+        gate_cfg, gate_params = _first_groups(params, cfg,
+                                              RECURRENT_GATE_LAYERS[arch])
         gate, exact = forward_vs_decode(
-            params, dataclasses.replace(cfg, dtype="float32"), prompt,
-            torch.float32, **RECURRENT_GATE_TOL)
-        checks = [gate, forward_vs_decode(params, cfg, prompt,
+            gate_params, dataclasses.replace(gate_cfg, dtype="float32"),
+            prompt, torch.float32, **RECURRENT_GATE_TOL)
+        checks = [gate, forward_vs_decode(gate_params, gate_cfg, prompt,
                                           torch.bfloat16, exact)[0]]
+        for row in checks:
+            row["n_layers"] = gate_cfg.n_layers
         legs["forward_vs_decode"] = _clock() - t_arch - sum(legs.values())
-        del params
+        del params, gate_params
         torch.cuda.empty_cache()
         fa.flash_attention_bhsd.launches = 0
         sr.scored_reduce.launches = 0
@@ -2507,6 +2594,204 @@ def recurrent_serving_phase() -> dict:
         rows[arch] = row
         torch.cuda.empty_cache()
     return {"zamba_flash": flash, "runs": rows}
+
+
+def _set_gates(params) -> None:
+    """The vision decoder's cross-layer gates at CROSS_GATE, in place."""
+    if "cross_layers" in params:
+        params["cross_layers"]["gate_attn"].fill_(CROSS_GATE)
+        params["cross_layers"]["gate_mlp"].fill_(CROSS_GATE)
+
+
+def _memory_inputs(cfg, batch: int, gen) -> dict:
+    """0.02 N(0, 1) frames (whisper) or patches (the vision decoder) on the
+    card, as the reference's serving example draws them."""
+    if cfg.encoder is not None:
+        return {"frames": 0.02 * torch.randn(
+            (batch, cfg.encoder.n_frames, cfg.d_model), generator=gen,
+            device="cuda")}
+    return {"patches": 0.02 * torch.randn(
+        (batch, cfg.vision.n_patches, cfg.vision.d_vision), generator=gen,
+        device="cuda")}
+
+
+def cross_serving_phase() -> dict:
+    """The flash kernel at whisper-medium's decoder shape and the vision
+    decoder's self-attention shape against its plain version, repeated bit
+    for bit and timed beside its bound and ``scaled_dot_product_attention``
+    (``check_flash``); then whisper-medium and llama-3.2-vision-11b at full
+    width and depth, seeded random f32 weights drawn on the card (the
+    vision decoder's gates at CROSS_GATE) and freed before the next
+    config: whisper's ``whisper_encode`` of 8 x 1,500 frames alone (twice),
+    two timed ``make_prefill_step`` calls (the memory built inside, flash
+    once a causal self-attention layer, the same tokens bit for bit), a
+    profiled one (its flash kernels: the shape's symbol alone, once a
+    layer), the f32 forward-against-decode gate on 2 x 128 tokens over the
+    memory (the bf16 row beside it), then ``serve_decode.run`` (batch 8;
+    the gates set by wrapping its ``init_model``), the peak memory and each
+    leg's seconds; launch counts reset just before each leg and read just
+    after."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch import serve_decode
+    from repro_torch.models import transformer as T
+    flash = {}
+    for arch in CROSS_SERVE:
+        shape, symbol = CROSS_FLASH[arch]
+        flash[arch] = check_flash(shape, torch.bfloat16, causal=True,
+                                  timed=True)
+        flash[arch]["symbol"] = symbol
+        torch.cuda.empty_cache()
+    rows = {}
+    real_init = serve_decode.init_model
+
+    def gated_init(gen, cfg):
+        params = real_init(gen, cfg)
+        _set_gates(params)
+        return params
+    for arch in CROSS_SERVE:
+        cfg = get_config(arch)
+        symbol = CROSS_FLASH[arch][1]
+        n_self = (cfg.n_layers if cfg.encoder else
+                  cfg.n_layers // cfg.vision.cross_attn_every
+                  * (cfg.vision.cross_attn_every - 1))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t_arch = _clock()
+        base = torch.cuda.memory_allocated()      # earlier phases' caches
+        params = T.init_model(gen, cfg)
+        _set_gates(params)
+        init_s = _clock() - t_arch
+        weights = torch.cuda.memory_allocated() - base
+        B, S = CROSS_PREFILL[arch]["batch"], CROSS_PREFILL[arch]["seq"]
+        tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                               device="cuda")
+        extra = _memory_inputs(cfg, B, gen)
+        batch = {"tokens": tokens, **extra}
+        encode_s = []
+        if cfg.encoder is not None:
+            with torch.inference_mode():
+                for _ in range(2):         # the first call warms up cuBLAS
+                    t0 = _clock()
+                    memory = T.whisper_encode(params, extra["frames"], cfg)
+                    encode_s.append(_clock() - t0)
+            encode_finite = bool(torch.isfinite(memory).all())
+            del memory
+        prefill = make_prefill_step(cfg)
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        prefill_s, per_call, nxt = [], [], []
+        with torch.inference_mode():
+            for _ in range(2):
+                before = fa.flash_attention_bhsd.launches
+                t0 = _clock()
+                nxt.append(prefill(params, batch))
+                prefill_s.append(_clock() - t0)
+                per_call.append(fa.flash_attention_bhsd.launches - before)
+        launches = {"flash_attention": fa.flash_attention_bhsd.launches,
+                    "scored_reduce": sr.scored_reduce.launches}
+        prefill_peak = torch.cuda.max_memory_allocated()
+        legs = {"prefill_calls": _clock() - t_arch}
+        with torch.inference_mode():
+            breakdown = device_breakdown(lambda: prefill(params, batch))
+        legs["profiled_call"] = _clock() - t_arch - sum(legs.values())
+        flash_kernels = breakdown["flash_kernels"]
+        flash_ok = (set(flash_kernels) == {symbol}
+                    and flash_kernels[symbol]["count"] == n_self)
+        breakdown["busy_share_of_timed_call"] = (breakdown["device_ms"]
+                                                 / 1e3 / prefill_s[-1])
+        prompt = tokens[:2, :CROSS_GATE_SEQ]
+        gate_extra = {k: t[:2] for k, t in extra.items()}
+        del tokens, batch
+        torch.cuda.empty_cache()
+        gate, exact = forward_vs_decode(
+            params, dataclasses.replace(cfg, dtype="float32"), prompt,
+            torch.float32, extra=gate_extra)
+        torch.cuda.empty_cache()
+        checks = [gate, forward_vs_decode(params, cfg, prompt,
+                                          torch.bfloat16, exact,
+                                          extra=gate_extra)[0]]
+        legs["forward_vs_decode"] = _clock() - t_arch - sum(legs.values())
+        del params, extra, gate_extra
+        torch.cuda.empty_cache()
+        fa.flash_attention_bhsd.launches = 0
+        sr.scored_reduce.launches = 0
+        dec_kw = CROSS_DECODE[arch]
+        serve_decode.init_model = gated_init
+        try:
+            dec = serve_decode.run(cfg, **dec_kw)
+        finally:
+            serve_decode.init_model = real_init
+        launches["flash_attention"] += fa.flash_attention_bhsd.launches
+        launches["scored_reduce"] += sr.scored_reduce.launches
+        peak = torch.cuda.max_memory_allocated()
+        legs["serve_decode"] = _clock() - t_arch - sum(legs.values())
+        nb, npl, nd = (dec_kw["batch"], dec_kw["prompt_len"],
+                       dec_kw["decode_steps"])
+        kind = (f"encoder_layers={cfg.encoder.n_layers} n_frames="
+                f"{cfg.encoder.n_frames} max_decoder_len="
+                f"{cfg.encoder.max_decoder_len}" if cfg.encoder else
+                f"cross_attn_every={cfg.vision.cross_attn_every} n_patches="
+                f"{cfg.vision.n_patches} d_vision={cfg.vision.d_vision} "
+                f"gates={CROSS_GATE}")
+        row = {"config": f"{cfg.name} n_layers={cfg.n_layers} d_model="
+                         f"{cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads}"
+                         f" head_dim={cfg.resolved_head_dim} d_ff={cfg.d_ff}"
+                         f" mlp={cfg.mlp} {kind} vocab={cfg.vocab_size} "
+                         f"params={cfg.param_dtype}",
+               "params": T.param_count(T.init_model(None, cfg)),
+               "weights_bytes": weights, "init_s": init_s,
+               "encode_s": encode_s,
+               "prefill": {"batch": B, "seq": S, "seconds": prefill_s,
+                           "tokens_per_s": [B * S / t for t in prefill_s],
+                           "flash_launches_per_call": per_call,
+                           "max_memory_allocated": prefill_peak,
+                           "bitwise_repeat": all(torch.equal(nxt[0], t)
+                                                 for t in nxt[1:])},
+               "decode": {**dec_kw, "memory_s": dec["memory_s"],
+                          "prefill_s": dec["prefill_s"],
+                          "decode_s": dec["decode_s"],
+                          "prefill_tokens_per_s": nb * npl / dec["prefill_s"],
+                          "decode_tokens_per_s": nb * nd / dec["decode_s"],
+                          "ms_per_step": dec["decode_s"] / nd * 1e3},
+               "max_memory_allocated": peak, "allocated_before": base,
+               "launches": launches, "prefill_breakdown": breakdown,
+               "forward_vs_decode": checks, "leg_seconds": legs}
+        say("cross serving path " + json.dumps(row))
+        toks = dec["tokens"]
+        if per_call != [n_self] * len(per_call):
+            raise AssertionError(f"{arch}: flash_attention launched "
+                                 f"{per_call} times per prefill call, not "
+                                 f"{n_self}")
+        if not row["prefill"]["bitwise_repeat"]:
+            raise AssertionError(f"{arch}: prefill calls on the same weights "
+                                 f"gave other tokens: {nxt}")
+        if not flash_ok:
+            raise AssertionError(f"{arch}: a profiled prefill call ran flash "
+                                 f"kernels other than {symbol} once a "
+                                 f"self-attention layer: {flash_kernels}")
+        if cfg.encoder is not None and not encode_finite:
+            raise AssertionError(f"{arch}: the encoder's output is not "
+                                 f"finite")
+        if not (all(bool(((t >= 0) & (t < cfg.vocab_size)).all())
+                    for t in nxt) and toks.shape == (nb, nd)
+                and bool(((toks >= 0) & (toks < cfg.vocab_size)).all())
+                and bool(torch.isfinite(dec["memory"]).all())):
+            raise AssertionError(f"{arch}: the serving path gave tokens "
+                                 f"outside the vocabulary or a memory that "
+                                 f"is not finite")
+        if not (gate["finite"] and gate["allclose"] and gate["tokens_agree"]
+                and checks[1]["finite"]):
+            raise AssertionError(f"{arch}: forward (flash) and decode "
+                                 f"(cache) disagree over the memory: "
+                                 f"{checks}")
+        del dec
+        rows[arch] = row
+        torch.cuda.empty_cache()
+    return {"flash": flash, "runs": rows}
 
 
 def grad_errors(got, want, dtype) -> tuple:
@@ -2941,6 +3226,7 @@ def main() -> int:
     serving = timed("7 serving", serving_phase)
     moe_serving = timed("7b moe serving", moe_serving_phase)
     recurrent = timed("7c recurrent serving", recurrent_serving_phase)
+    cross = timed("7d cross serving", cross_serving_phase)
     bwd = timed("8 flash backward", flash_bwd_phase, ptxas["bwd"])
     training = timed("8 training", train_phase)
     m = kern["main"]
@@ -2989,6 +3275,8 @@ def main() -> int:
             by_path[k][f"moe_serving {arch}"] = row["launches"][k]
         for arch, row in recurrent["runs"].items():
             by_path[k][f"recurrent_serving {arch}"] = row["launches"][k]
+        for arch, row in cross["runs"].items():
+            by_path[k][f"cross_serving {arch}"] = row["launches"][k]
         for engine, row in training["runs"].items():
             by_path[k][f"train_{engine}"] = row["launches"][k]
     for k in by_path:
@@ -3034,7 +3322,13 @@ def main() -> int:
             **{key: recurrent["zamba_flash"][key] for key in (
                 "shape", "symbol", "max_abs_err", "bitwise_repeat", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "share_of_bound")}}}, {
+                "share_of_bound")}},
+        **{f"{arch}_prefill_shape": {
+            "launches": by_path["flash_attention"][f"cross_serving {arch}"],
+            **{key: cross["flash"][arch][key] for key in (
+                "shape", "symbol", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}} for arch in CROSS_SERVE}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

@@ -1,14 +1,14 @@
 """Configurations and the architecture registry (``repro/configs``).
 
-``get_config(name)`` knows every architecture id of the reference. It
-returns the configs of the dense GQA decoders (full or sliding-window
-attention), of the MoE decoders (arctic-480b; deepseek-v3-671b with MLA
-and MTP) and of the recurrent families (zamba2-2.7b, Mamba2 with a shared
-attention block; xlstm-350m, mLSTM and sLSTM blocks), which
+``get_config(name)`` returns the config of every architecture id of the
+reference: the dense GQA decoders (full or sliding-window attention), the
+MoE decoders (arctic-480b; deepseek-v3-671b with MLA and MTP), the
+recurrent families (zamba2-2.7b, Mamba2 with a shared attention block;
+xlstm-350m, mLSTM and sLSTM blocks), the audio encoder-decoder
+(whisper-medium, over precomputed frame embeddings) and the vision decoder
+(llama-3.2-vision-11b, gated cross-attention over patch embeddings), which
 ``repro_torch.models.transformer`` runs, and the paper's four models'
-pseudo-configs (``paper-*``, run by ``repro_torch.models.small``); any
-other architecture (whisper-medium, llama-3.2-vision-11b) raises
-``NotImplementedError`` (ROADMAP.md queue A lists it).
+pseudo-configs (``paper-*``, run by ``repro_torch.models.small``).
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ _MODULES = {
     "qwen1.5-4b": "qwen1_5_4b",
     "zamba2-2.7b": "zamba2_2_7b",
     "xlstm-350m": "xlstm_350m",
+    "whisper-medium": "whisper_medium",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
     "paper-fcn": "paper_models",
     "paper-cnn": "paper_models",
     "paper-squeezenet": "paper_models",
@@ -44,10 +46,6 @@ _MODULES = {
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_IDS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCH_IDS)}")
-    if name not in _MODULES:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet (ported: "
-            f"{sorted(_MODULES)}); ROADMAP.md queue A lists what is left")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
     if name.startswith("paper-"):
         return mod.CONFIGS[name]

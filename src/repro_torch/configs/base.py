@@ -67,12 +67,10 @@ class VisionConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture of the transformer zoo. The port runs the dense
-    GQA decoders, the MoE decoders (MoE, MLA, MTP) and the recurrent
-    families (zamba2's hybrid, xLSTM) so far
-    (``repro_torch.models.transformer``); the nested configs of the other
-    families exist so that every field means what it means in the
-    reference."""
+    """One architecture of the transformer zoo, as the reference defines
+    it: every family of it (the dense and MoE decoders, zamba2's hybrid,
+    xLSTM, whisper's encoder-decoder and the vision decoder) runs in
+    ``repro_torch.models.transformer``."""
     name: str
     arch_type: str                    # dense | moe | hybrid | ssm | audio | vlm
     n_layers: int

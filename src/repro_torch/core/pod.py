@@ -368,18 +368,21 @@ def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
 # ---------------------------------------------------------------------------
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
-    """One KV-cache decode step: (params, cache, tokens (B, 1), pos) ->
-    (next tokens (B, 1) int32, cache), greedy."""
-    def serve_step(params, cache, tokens, pos):
-        logits, new_cache = decode_step(params, cache, tokens, pos, cfg)
+    """One KV-cache decode step: (params, cache, tokens (B, 1), pos,
+    memory=None) -> (next tokens (B, 1) int32, cache), greedy; ``memory``
+    is whisper's encoder output or the vision decoder's projected
+    patches."""
+    def serve_step(params, cache, tokens, pos, memory=None):
+        logits, new_cache = decode_step(params, cache, tokens, pos, cfg,
+                                        memory=memory)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return next_tok[:, None], new_cache
     return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """The prompt's forward: (params, {"tokens": (B, S)}) -> the greedy next
-    token (B,) int32."""
+    """The prompt's forward: (params, {"tokens": (B, S)} [+ "frames" or
+    "patches"]) -> the greedy next token (B,) int32."""
     def prefill(params, batch):
         logits, _ = forward(params, batch, cfg)
         return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)

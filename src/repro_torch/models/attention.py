@@ -1,7 +1,8 @@
-"""Grouped-query attention and multi-head latent attention
-(``repro/models/attention.py``, the GQA and MLA parts): optional qkv bias
-and sliding window, prefill and single-step decode over an explicit KV
-cache; MLA's naive prefill and absorbed decode over a latent cache.
+"""Grouped-query attention, multi-head latent attention and
+cross-attention (``repro/models/attention.py``): optional qkv bias and
+sliding window, prefill and single-step decode over an explicit KV cache;
+MLA's naive prefill and absorbed decode over a latent cache; full
+attention over an encoder's or a vision tower's memory.
 
 Cache layout (full attention): {"k": (B, L, n_kv, hd), "v": (B, L, n_kv, hd)}
 with the write position passed separately. Sliding-window caches are ring
@@ -14,8 +15,10 @@ Every causal, unwindowed attention whose query and key lengths agree
 (prefill and the training forward) goes through ``kernels.ops.
 flash_attention``: the CUDA kernel on the card, its plain version on the
 CPU. That is the reference with ``REPRO_USE_FLASH=1``; the port has no such
-switch. Decode over the cache, windowed and non-causal attention take
-``_sdpa``, plain torch ops at the reference's rounding points.
+switch. Decode over the cache, windowed and non-causal attention (whisper's
+encoder) and cross-attention take ``_sdpa``, plain torch ops at the
+reference's rounding points, as the reference does: its flash kernel takes
+neither a query length unlike the key length nor a length off its blocks.
 
 MLA's prefill attention has a q/k head dim of ``qk_nope + qk_rope`` (192)
 and a v head dim of ``v_head_dim`` (128). The flash kernel takes the two
@@ -39,17 +42,22 @@ def _sdpa(q, k, v, mask, scale):
     """q: (B,S,H,D) k/v: (B,L,Hkv,D) mask: broadcastable (B,1,S,L) or None.
     Logits in q's dtype, softmax in f32, probabilities back in q's dtype, as
     the reference rounds. Each kv head serves its group of query heads by
-    broadcasting, so the repeated heads are never built."""
+    broadcasting, so the repeated heads are never built. Operands of two
+    dtypes (cross-attention over a memory wider than the model's compute
+    dtype) meet in the wider one, as ``jnp.einsum`` promotes them."""
     B, S, H, D = q.shape
     L, Hkv = k.shape[1], k.shape[2]
-    qg = q.reshape(B, S, Hkv, H // Hkv, D)
-    logits = torch.einsum("bsngd,btnd->bngst", qg, k) * scale
+    qk = torch.promote_types(q.dtype, k.dtype)
+    qg = q.reshape(B, S, Hkv, H // Hkv, D).to(qk)
+    logits = torch.einsum("bsngd,btnd->bngst", qg, k.to(qk)) * scale
     logits = logits.reshape(B, H, S, L)
     if mask is not None:
         logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    probs = probs.reshape(B, Hkv, H // Hkv, S, L)
-    return torch.einsum("bngst,btnd->bsngd", probs, v).reshape(B, S, H, D)
+    pv = torch.promote_types(q.dtype, v.dtype)
+    probs = probs.reshape(B, Hkv, H // Hkv, S, L).to(pv)
+    return torch.einsum("bngst,btnd->bsngd", probs, v.to(pv)).reshape(
+        B, S, H, D)
 
 
 def causal_mask(s_q: int, s_k: int, q_offset=0, window: int = 0,
@@ -148,6 +156,44 @@ def init_gqa_cache(cfg: ModelConfig, batch: int, length: int,
     shape = (*lead, batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (the vision decoder's image layers, whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def init_cross_attn(gen, cfg: ModelConfig, d_memory: int,
+                    dtype=torch.float32, lead: tuple = ()):
+    d, H, Hkv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
+    return {"wq": dense_init(gen, (*lead, d, H * hd), dtype=dtype),
+            "wk": dense_init(gen, (*lead, d_memory, Hkv * hd), dtype=dtype),
+            "wv": dense_init(gen, (*lead, d_memory, Hkv * hd), dtype=dtype),
+            "wo": dense_init(gen, (*lead, H * hd, d), dtype=dtype)}
+
+
+def _promoted_matmul(a, w, dt):
+    """``a @ w.astype(dt)`` as ``jnp`` computes it: the weight rounded to
+    ``dt`` first, then both operands in the wider of their dtypes."""
+    w = w.to(dt)
+    ct = torch.promote_types(a.dtype, dt)
+    return a.to(ct) @ w.to(ct)
+
+
+def cross_attn_fwd(params, x, memory, cfg: ModelConfig):
+    """x: (B,S,d); memory: (B,M,d_mem). Full (non-causal) attention over
+    the memory through ``_sdpa``, with no mask; S and M may differ. A memory
+    in a wider dtype than x's (f32 frames or patches into a bf16 model)
+    makes k, v and the output that dtype, as in the reference."""
+    B, S, _ = x.shape
+    M = memory.shape[1]
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = x.dtype
+    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
+    k = _promoted_matmul(memory, params["wk"], dt).reshape(B, M, Hkv, hd)
+    v = _promoted_matmul(memory, params["wv"], dt).reshape(B, M, Hkv, hd)
+    o = _sdpa(q, k, v, None, hd ** -0.5)
+    return _promoted_matmul(o.reshape(B, S, H * hd), params["wo"], dt)
 
 
 # ---------------------------------------------------------------------------

@@ -5,16 +5,24 @@ swiglu/relu2/gelu MLP), arctic (MoE with a dense residual MLP) and
 deepseek-v3 (MLA, dense first layers, MoE with a shared expert, multi-token
 prediction); the hybrid zamba2 (Mamba2 layers in groups, one shared
 attention block applied after each group with the same weights and its own
-KV cache per group); and xLSTM (groups of mLSTM blocks, each followed by an
-sLSTM block). The audio and vision families raise ``NotImplementedError``.
+KV cache per group); xLSTM (groups of mLSTM blocks, each followed by an
+sLSTM block); whisper (an encoder of non-causal blocks over precomputed
+frame embeddings with sinusoidal positions, then decoder blocks of causal
+self-attention, cross-attention over the encoder's output and an MLP); and
+the vision decoder llama-3.2-vision (groups of self-attention layers, each
+followed by a cross layer over the projected patch embeddings whose
+attention and MLP outputs pass through tanh gates).
 
 Layers are stacked as in the reference: every leaf of ``dense_layers`` and
 ``moe_layers`` has a leading (n_layers,) axis, zamba2's ``mamba_layers``
 (n_groups, every) axes, xLSTM's ``mlstm_layers`` (n_groups, n_m) and
-``slstm_layers`` (n_groups,), so reference weights carry over leaf by leaf
+``slstm_layers`` (n_groups,), whisper's ``enc_layers`` and ``dec_layers``
+(n_layers,), the vision decoder's ``self_layers`` (n_groups,
+cross_attn_every - 1) and ``cross_layers`` (n_groups,), so reference
+weights carry over leaf by leaf
 (``params_from_numpy``, float32 or bfloat16 trees); ``_scan_blocks`` is a
 Python loop over that axis and sums the MoE layers' auxiliary losses, and
-the recurrent trunks are loops over their groups. ``loss_fn`` is
+the other trunks are loops over their layers and groups. ``loss_fn`` is
 differentiable (the flash kernel has a backward) and adds the MTP loss
 when the config has one; with ``cfg.remat`` each layer of a training
 forward is recomputed in the backward (``torch.utils.checkpoint``), as the
@@ -25,7 +33,10 @@ Public API:
   forward(params, batch, cfg)                    -> (logits, aux_loss)
   loss_fn(params, batch, cfg)                    -> (loss, metrics)
   init_cache(cfg, batch, length, device, dtype)  -> cache
-  decode_step(params, cache, tokens, pos, cfg)   -> (logits, cache)
+  decode_step(params, cache, tokens, pos, cfg, memory=None)
+                                                 -> (logits, cache)
+  whisper_encode(params, frames, cfg)            -> memory
+  memory_of(params, batch, cfg)                  -> memory or None
 """
 from __future__ import annotations
 
@@ -39,8 +50,10 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flatten import tree_get, tree_map, tree_paths
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (gqa_fwd, init_gqa, init_gqa_cache,
-                                          init_mla, init_mla_cache, mla_fwd)
+from repro_torch.models.attention import (cross_attn_fwd, gqa_fwd,
+                                          init_cross_attn, init_gqa,
+                                          init_gqa_cache, init_mla,
+                                          init_mla_cache, mla_fwd)
 from repro_torch.models.layers import (dense_init, embed, init_embedding,
                                        init_mlp, init_rmsnorm, mlp_fwd,
                                        rmsnorm, unembed)
@@ -73,16 +86,13 @@ def _family(cfg: ModelConfig) -> str:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    """Refuse the families the port does not run yet, and attention kinds
-    other than GQA and MLA outside xLSTM (which has none)."""
-    family = _family(cfg)
-    if family in ("encoder", "vision") or (
-            family != "xlstm" and cfg.attention not in ("gqa", "mla")):
-        what = family if family in ("encoder", "vision") else cfg.attention
+    """Refuse attention kinds other than GQA and MLA outside xLSTM (which
+    has none): the reference builds no other."""
+    if _family(cfg) != "xlstm" and cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"{cfg.name}: repro_torch runs the dense, MoE, hybrid (zamba2) "
-            f"and xLSTM families; {what!r} is not ported yet (ROADMAP.md "
-            f"queue A lists what is left)")
+            f"{cfg.name}: attention {cfg.attention!r} outside xLSTM is not "
+            f"a kind the reference builds; repro_torch runs GQA and MLA "
+            f"(ROADMAP.md queue A)")
 
 
 # ---------------------------------------------------------------------------
@@ -409,10 +419,175 @@ def _xlstm_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
     return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
+# ===========================================================================
+# VLM (llama-3.2-vision): interleaved gated cross-attention layers
+# ===========================================================================
+
+def _vlm_groups(cfg: ModelConfig) -> tuple:
+    """(n_groups, n_self): n_layers // cross_attn_every groups of
+    cross_attn_every - 1 self-attention layers and one cross layer each."""
+    every = cfg.vision.cross_attn_every
+    return cfg.n_layers // every, every - 1
+
+
+def _init_vlm(gen, cfg: ModelConfig):
+    pd = _pdtype(cfg)
+    n_groups, n_self = _vlm_groups(cfg)
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, pd),
+        "final_norm": init_rmsnorm(gen, cfg.d_model, pd),
+        "vision_proj": dense_init(gen, (cfg.vision.d_vision, cfg.d_model),
+                                  dtype=pd),
+        "self_layers": init_block(gen, cfg, lead=(n_groups, n_self)),
+        "cross_layers": _init_cross_block(gen, cfg, pd, lead=(n_groups,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=pd)
+    return params
+
+
+def _init_cross_block(gen, cfg, pd, lead: tuple = ()):
+    """A gated cross-attention layer; both tanh gates start at zero, as in
+    the reference, so at init the layer passes its input through."""
+    device = "meta" if gen is None else gen.device
+    return {
+        "ln1": init_rmsnorm(gen, cfg.d_model, pd, lead),
+        "xattn": init_cross_attn(gen, cfg, cfg.d_model, pd, lead),
+        "gate_attn": torch.zeros(lead, dtype=pd, device=device),
+        "ln2": init_rmsnorm(gen, cfg.d_model, pd, lead),
+        "mlp": init_mlp(gen, cfg, cfg.d_ff, pd, lead),
+        "gate_mlp": torch.zeros(lead, dtype=pd, device=device),
+    }
+
+
+def _cross_block_fwd(p, x, memory, cfg):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = cross_attn_fwd(p["xattn"], h, memory, cfg)
+    x = x + torch.tanh(p["gate_attn"].to(h.dtype)) * h
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = mlp_fwd(p["mlp"], h, cfg.mlp)
+    return x + torch.tanh(p["gate_mlp"].to(h.dtype)) * h
+
+
+def _vlm_trunk(params, x, cfg, positions, memory, caches=None,
+               cache_pos=None):
+    """Each group's self-attention layers (the stack's (n_groups, n_self)
+    axes in order; with caches, each layer's own KV cache), then the
+    group's cross layer over ``memory``."""
+    n_groups, n_self = params["self_layers"]["ln1"]["scale"].shape[:2]
+    remat = caches is None and _remat(cfg)
+    self_layers = _layers(params["self_layers"], 2)
+    cross_layers = _layers(params["cross_layers"], 1)
+    for g in range(n_groups):
+        for i in range(n_self):
+            lp = self_layers[g * n_self + i]
+            if caches is None:
+                x, _ = _apply(_block_out, remat, lp, x, cfg, positions,
+                              False, True, True)
+            else:
+                x, _, _ = block_fwd(
+                    lp, x, cfg, positions,
+                    cache=tree_map(lambda t: t[g, i], caches["self"]),
+                    cache_pos=cache_pos)
+        x = _apply(_cross_block_fwd, remat, cross_layers[g], x, memory, cfg)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
+# ===========================================================================
+# Encoder-decoder audio (whisper)
+# ===========================================================================
+
+def _init_whisper(gen, cfg: ModelConfig):
+    pd = _pdtype(cfg)
+    params = {
+        "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, pd),
+        "final_norm": init_rmsnorm(gen, cfg.d_model, pd),
+        "enc_layers": init_block(gen, cfg, lead=(cfg.encoder.n_layers,)),
+        "enc_norm": init_rmsnorm(gen, cfg.d_model, pd),
+        "dec_layers": _init_decdec_block(gen, cfg, pd,
+                                         lead=(cfg.n_layers,)),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
+                                       dtype=pd)
+    return params
+
+
+def _init_decdec_block(gen, cfg, pd, lead: tuple = ()):
+    """A decoder block: causal self-attention, cross-attention over the
+    encoder's output, MLP."""
+    return {
+        "ln1": init_rmsnorm(gen, cfg.d_model, pd, lead),
+        "attn": init_gqa(gen, cfg, pd, lead),
+        "ln_x": init_rmsnorm(gen, cfg.d_model, pd, lead),
+        "xattn": init_cross_attn(gen, cfg, cfg.d_model, pd, lead),
+        "ln2": init_rmsnorm(gen, cfg.d_model, pd, lead),
+        "mlp": init_mlp(gen, cfg, cfg.d_ff, pd, lead),
+    }
+
+
+def _decdec_block_fwd(p, x, memory, cfg, positions, cache=None,
+                      cache_pos=None):
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h, nc = gqa_fwd(p["attn"], h, cfg, positions, cache=cache,
+                    cache_pos=cache_pos, causal=True)
+    x = x + h
+    h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
+    x = x + cross_attn_fwd(p["xattn"], h, memory, cfg)
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp_fwd(p["mlp"], h, cfg.mlp), nc
+
+
+def _decdec_out(p, x, memory, cfg, positions):
+    return _decdec_block_fwd(p, x, memory, cfg, positions)[0]
+
+
+def _sinusoid(n: int, d: int, dtype, device=None) -> torch.Tensor:
+    pos = torch.arange(n, device=device, dtype=torch.float32)[:, None]
+    i = torch.arange(d // 2, device=device, dtype=torch.float32)[None, :]
+    ang = pos / torch.pow(torch.tensor(10_000.0, device=device), 2 * i / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def whisper_encode(params, frames, cfg: ModelConfig):
+    """frames: (B, F, d_model) precomputed conv/mel embeddings (the
+    frontend is stubbed, as in the reference) -> the encoder's output (B,
+    F, d_model) in the compute dtype. Full, non-causal self-attention
+    without RoPE (``_sdpa``), sinusoidal positions added to the frames."""
+    B, F, _ = frames.shape
+    cd = _cdtype(cfg)
+    x = frames.to(cd) + _sinusoid(F, cfg.d_model, cd, frames.device)
+    positions = torch.arange(F, device=frames.device).expand(B, F)
+    x, _, _ = _scan_blocks(params["enc_layers"], x, cfg, positions,
+                           causal=False, rope=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _whisper_trunk(params, x, cfg, positions, memory, caches=None,
+                   cache_pos=None):
+    """The decoder blocks over the encoder's output ``memory``; with
+    caches, each block's own self-attention KV cache."""
+    remat = caches is None and _remat(cfg)
+    for i, lp in enumerate(_layers(params["dec_layers"], 1)):
+        if caches is None:
+            x = _apply(_decdec_out, remat, lp, x, memory, cfg, positions)
+        else:
+            x, _ = _decdec_block_fwd(
+                lp, x, memory, cfg, positions,
+                cache=tree_map(lambda t: t[i], caches["self"]),
+                cache_pos=cache_pos)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
+
+
 _INITS = {"decoder": _init_decoder, "hybrid": _init_zamba,
-          "xlstm": _init_xlstm}
+          "xlstm": _init_xlstm, "vision": _init_vlm,
+          "encoder": _init_whisper}
 _TRUNKS = {"decoder": _decoder_trunk, "hybrid": _zamba_trunk,
-           "xlstm": _xlstm_trunk}
+           "xlstm": _xlstm_trunk, "vision": _vlm_trunk,
+           "encoder": _whisper_trunk}
+# the families whose trunk attends to a memory (frames, patches)
+_MEMORY = ("encoder", "vision")
 
 
 # ===========================================================================
@@ -455,16 +630,46 @@ def _leaf_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
+def memory_of(params, batch, cfg: ModelConfig):
+    """The memory the decoder attends to, as ``forward`` builds it: whisper
+    encodes ``batch["frames"]`` (B, n_frames, d_model); the vision decoder
+    projects ``batch["patches"]`` (B, n_patches, d_vision) in the compute
+    dtype. None for the other families."""
+    family = _family(cfg)
+    if family == "encoder":
+        return whisper_encode(params, batch["frames"], cfg)
+    if family == "vision":
+        cd = _cdtype(cfg)
+        return batch["patches"].to(cd) @ params["vision_proj"].to(cd)
+    return None
+
+
+def _memory_arg(family: str, memory) -> tuple:
+    """The trunk's memory argument: (memory,) for whisper and the vision
+    decoder, () for the other families."""
+    if family not in _MEMORY:
+        return ()
+    if memory is None:
+        raise ValueError(f"the {family} family attends to a memory: pass "
+                         f"frames or patches to forward, memory= to "
+                         f"decode_step")
+    return (memory,)
+
+
 def forward(params, batch, cfg: ModelConfig):
     """Training / prefill forward. batch: tokens (B, S) [+ labels (B, S),
-    which add the MTP loss to the aux loss where the config has MTP]."""
+    which add the MTP loss to the aux loss where the config has MTP;
+    whisper's frames (B, n_frames, d_model), the vision decoder's patches
+    (B, n_patches, d_vision)]."""
     _check_ported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params["embed"], tokens, _cdtype(cfg))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     family = _family(cfg)
-    x, aux, _ = _TRUNKS[family](params, x, cfg, positions)
+    x, aux, _ = _TRUNKS[family](
+        params, x, cfg, positions,
+        *_memory_arg(family, memory_of(params, batch, cfg)))
     if family == "decoder" and cfg.mtp_depth and "labels" in batch:
         aux = aux + _mtp_loss(params, x, batch, cfg, positions)
     return _logits(params, x, cfg), aux
@@ -494,10 +699,22 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     layers' conv windows and states, (n_groups, every) stacks in f32, and
     the shared block's KV cache of each group in ``dtype``; xLSTM: the
     mLSTM and sLSTM states, f32 (m at -1e9). The recurrent states are f32
-    whatever ``dtype`` is, as in the reference."""
+    whatever ``dtype`` is, as in the reference. whisper: each decoder
+    block's KV cache, of min(length, max_decoder_len) positions; the
+    vision decoder: each self-attention layer's, stacked (n_groups,
+    cross_attn_every - 1). Cross-attention keeps no cache: each step
+    projects the memory again, as in the reference."""
     _check_ported(cfg)
     dev = resolve_device(device)
     family = _family(cfg)
+    if family == "encoder":
+        L = min(length, cfg.encoder.max_decoder_len)
+        return {"self": _stacked_cache(cfg, cfg.n_layers, batch, L, dev,
+                                       dtype)}
+    if family == "vision":
+        init = init_mla_cache if cfg.attention == "mla" else init_gqa_cache
+        return {"self": init(cfg, batch, length, dtype=dtype, device=dev,
+                             lead=_vlm_groups(cfg))}
     if family == "hybrid":
         every = cfg.hybrid.shared_attn_every
         n_groups = cfg.n_layers // every
@@ -521,16 +738,23 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     return out
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig):
-    """tokens: (B, 1); pos: int — the current write index. Writes the step's
-    keys and values (and the recurrent states) into ``cache`` in place.
-    Returns (logits (B,1,V), cache)."""
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, memory=None):
+    """tokens: (B, 1); pos: int — the current write index; ``memory``: the
+    encoder's output or the projected patches (``memory_of``), for whisper
+    and the vision decoder. Writes the step's keys and values (and the
+    recurrent states) into ``cache`` in place. whisper writes at
+    min(pos, max_decoder_len - 1) while its RoPE positions run on, as in
+    the reference. Returns (logits (B,1,V), cache)."""
     _check_ported(cfg)
     B = tokens.shape[0]
     x = embed(params["embed"], tokens, _cdtype(cfg))
     positions = torch.full((B, 1), int(pos), device=tokens.device)
-    x, _, nc = _TRUNKS[_family(cfg)](params, x, cfg, positions, caches=cache,
-                                     cache_pos=pos)
+    family = _family(cfg)
+    cache_pos = (min(int(pos), cfg.encoder.max_decoder_len - 1)
+                 if family == "encoder" else pos)
+    x, _, nc = _TRUNKS[family](params, x, cfg, positions,
+                               *_memory_arg(family, memory), caches=cache,
+                               cache_pos=cache_pos)
     return _logits(params, x, cfg), nc
 
 

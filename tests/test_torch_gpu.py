@@ -1200,3 +1200,123 @@ def test_recurrent_decode_on_card_matches_cpu(cuda, arch):
                 out.append(nxt.cpu())
             tokens[dev] = torch.cat(out, 1)
     assert torch.equal(tokens[cuda], tokens["cpu"])
+
+
+# -- the cross-attention families (whisper, the vision decoder) -------------
+
+# the flash kernel at whisper-medium's decoder self-attention (the Hopper
+# kernel's <64, 64>) and llama-3.2-vision-11b's self layers (GQA 4:1, <128,
+# 128>), as chip_smoke.py's phase 7d runs them
+CROSS_FAMILY_FLASH = [(8, 16, 16, 448, 64), (4, 32, 8, 4096, 128)]
+
+
+@pytest.mark.parametrize("shape", CROSS_FAMILY_FLASH)
+def test_flash_at_the_cross_families_shapes(cuda, shape):
+    q, k, v = _qkv(cuda, *shape, torch.bfloat16, seed=shape[3])
+    out = fa.flash_attention_bhsd(q, k, v, causal=True)
+    plain = fa.flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert torch.equal(out, fa.flash_attention_bhsd(q, k, v, causal=True))
+
+
+def _cross_cfg(arch, dtype):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).reduced()
+    if cfg.vision is not None:          # two groups, not one
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    return dataclasses.replace(cfg, dtype=dtype)
+
+
+def _cross_model(arch, dtype, seed):
+    """Reduced weights on the CPU with both gates of every cross layer
+    nonzero (at their zero init a cross layer adds nothing), and the
+    memory's inputs."""
+    from repro_torch.models import transformer as T
+    cfg = _cross_cfg(arch, dtype)
+    host = T.init_model(torch.Generator().manual_seed(seed), cfg)
+    if "cross_layers" in host:
+        host["cross_layers"]["gate_attn"].fill_(0.5)
+        host["cross_layers"]["gate_mlp"].fill_(-0.7)
+    gen = torch.Generator().manual_seed(seed + 1)
+    if cfg.encoder is not None:
+        extra = {"frames": torch.randn((2, cfg.encoder.n_frames, cfg.d_model),
+                                       generator=gen)}
+    else:
+        extra = {"patches": torch.randn(
+            (2, cfg.vision.n_patches, cfg.vision.d_vision), generator=gen)}
+    return cfg, host, extra
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_family_forward_on_card_matches_cpu(cuda, arch):
+    """The reduced whisper and vision decoder's forward over 48 tokens and
+    their memory on the card against the CPU from the same weights: f32
+    within 1e-4, bf16 within 2e-2; the flash kernel once a causal
+    self-attention layer (never in the encoder or a cross-attention); a
+    second card call equal bit for bit."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.models import transformer as T
+    tokens = torch.randint(0, 512, (2, 48),
+                           generator=torch.Generator().manual_seed(2))
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 2e-2)):
+        cfg, host, extra = _cross_model(arch, dtype, 1)
+        card = tree_map(lambda t: t.to(cuda), host)
+        n_self = (cfg.n_layers if cfg.encoder else cfg.n_layers
+                  // cfg.vision.cross_attn_every
+                  * (cfg.vision.cross_attn_every - 1))
+        batch = {"tokens": tokens, **extra}
+        on_card = {k: t.to(cuda) for k, t in batch.items()}
+        before = fa.flash_attention_bhsd.launches
+        with torch.inference_mode():
+            got, _ = T.forward(card, on_card, cfg)
+            again, _ = T.forward(card, on_card, cfg)
+            want, _ = T.forward(host, batch, cfg)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bhsd.launches == before + 2 * n_self
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_family_decode_on_card_matches_cpu(cuda, arch):
+    """f32 compute and caches over the memory: eight teacher-forced decode
+    steps (logits within 1e-4), then a 4-token prompt and greedy tokens
+    through ``make_serve_step`` (whisper's 66, past its 64-position cache):
+    the same tokens on the card as on the CPU."""
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.core.pod import make_serve_step
+    from repro_torch.models import transformer as T
+    cfg, host, extra = _cross_model(arch, "float32", 3)
+    params = {"cpu": host, cuda: tree_map(lambda t: t.to(cuda), host)}
+    tok = torch.randint(0, cfg.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(4))
+    serve = make_serve_step(cfg)
+    steps = 66 if cfg.encoder else 6
+    tokens = {}
+    with torch.inference_mode():
+        memory = {dev: T.memory_of(params[dev], {
+            k: t.to(dev) for k, t in extra.items()}, cfg) for dev in params}
+        caches = {dev: T.init_cache(cfg, 2, 16, device=dev,
+                                    dtype=torch.float32) for dev in params}
+        for i in range(8):
+            got, _ = T.decode_step(params[cuda], caches[cuda],
+                                   tok[:, i:i + 1].to(cuda), i, cfg,
+                                   memory=memory[cuda])
+            want, _ = T.decode_step(host, caches["cpu"], tok[:, i:i + 1], i,
+                                    cfg, memory=memory["cpu"])
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        for dev in params:
+            cache = T.init_cache(cfg, 2, 4 + steps, device=dev,
+                                 dtype=torch.float32)
+            for i in range(4):
+                nxt, cache = serve(params[dev], cache,
+                                   tok[:, i:i + 1].to(dev), i, memory[dev])
+            out = []
+            for i in range(steps):
+                nxt, cache = serve(params[dev], cache, nxt, 4 + i,
+                                   memory[dev])
+                out.append(nxt.cpu())
+            tokens[dev] = torch.cat(out, 1)
+    assert torch.equal(tokens[cuda], tokens["cpu"])

@@ -368,12 +368,19 @@ def test_train_batches_have_the_reference_shapes(reference):
     assert b["tokens"].shape == (3, 7) and b["tokens"].dtype == torch.int32
     assert int(b["tokens"].max()) < tc.vocab_size
     np.testing.assert_array_equal(b["labels"][:, :-1], b["tokens"][:, 1:])
+    # an encoder config adds the frames, as in the reference (since the
+    # encoder family is ported): bf16 specs, f32 draws, f32 zeros
     enc = dataclasses.replace(tc, encoder=EncoderConfig())
-    for fn in (synthetic.train_batch_shapes, lambda *a: synthetic.
-               make_train_batch(torch.Generator(), *a), lambda *a: synthetic.
-               learnable_sequence_batch(torch.Generator(), *a)):
-        with pytest.raises(NotImplementedError, match="encoder"):
-            fn(enc, 2, 4)
+    jenc = dataclasses.replace(jc, encoder=reference.base.EncoderConfig())
+    spec = reference.synthetic.train_batch_shapes(jenc, 2, 4)["frames"]
+    for fn, dtype in ((synthetic.train_batch_shapes, torch.bfloat16),
+                      (lambda *a: synthetic.make_train_batch(
+                          torch.Generator(), *a), torch.float32),
+                      (lambda *a: synthetic.learnable_sequence_batch(
+                          torch.Generator(), *a), torch.float32)):
+        frames = fn(enc, 2, 4)["frames"]
+        assert tuple(frames.shape) == spec.shape == (2, 1500, tc.d_model)
+        assert frames.dtype == dtype
 
 
 # -- the trainer -------------------------------------------------------------
