@@ -86,6 +86,20 @@ Phases, each fatal on failure:
      falls over 15 rounds), ``launch/resource_optimization.run()`` and
      ``launch/train_fl_video_caching.run(steps=20)`` at its ~100M config
      (the loss falls; steady step time and peak memory);
+  6j. the pod engine over client rows (one ``torch.distributed`` rank a
+     row): two gloo ranks spawned on the card after the kernels are
+     built, each on its 128 of the 256 clients (its rows of the FIFO
+     buffer and of the (U, N) contribution buffer, its ``scored_reduce``
+     launch at (128, N) once an OSAFL round), run OSAFL on exact_tp at
+     ``global_lr=1`` (within 1e-5 of 6i's stacked run, participants
+     exact; at 16 a split sum rounds like a one-ulp change of the
+     weights, which ``tools/pod_mesh_probe.py`` reads) and FedAvg (within
+     1e-5 of the grid's); every rank's history the same; while they
+     start, this process checks the kernel at (128, N) f32 against its
+     plain version, timed beside its bound, and, the one rank of an NCCL
+     group, runs OSAFL on exact_tp, bit for bit phase 5's run. Per rank:
+     each round's own seconds and seconds in collectives, peak memory and
+     the launches;
   6h. the fused round, each segment of ``rounds_per_dispatch`` rounds one
      captured CUDA graph replayed once: the main path's configuration
      with stacked requests and the f32 solve in 3-round segments over 6
@@ -400,6 +414,15 @@ POD_SMALL_RUNS = (
     + [("fedavg", dict(POD_SMALL, pod_engine="fedavg"))])
 POD_RESUME = dict(POD_SMALL, rounds=4, pod_engine="exact_tp")
 POD_LR1 = dict(MAIN_RUN, global_lr=1.0)
+# phase 6j: the pod engine over client rows, each row one process of a
+# torch.distributed group: two gloo ranks sharing the card (U/2 = 128
+# clients each) and one NCCL rank; (label, alg, pod engine, config)
+MESH_RANKS = 2
+MESH_GLOO_RUNS = (
+    ("osafl exact_tp global_lr=1", "osafl", "exact_tp", POD_LR1),
+    # the grid's FedAvg run (2 rounds)
+    ("fedavg fedavg", "fedavg", "fedavg", dict(MAIN_RUN, rounds=2)))
+MESH_NCCL_RUNS = (("osafl exact_tp", "osafl", "exact_tp", MAIN_RUN),)
 # the three FL examples at their own sizes: the quickstart's 15 rounds and
 # 20 steps of the ~100M h2o-danube-3 example (its sliding window keeps its
 # attention on _sdpa's mask: no flash launch)
@@ -1367,9 +1390,9 @@ def checkpoint_phase() -> dict:
         writers.append(make_writer(*args))
         return writers[-1]
 
-    def timed_load(path):
+    def timed_load(path, **kw):
         t0 = time.perf_counter()
-        out = load(path)
+        out = load(path, **kw)
         loads.append({"path": str(path),
                       "seconds": time.perf_counter() - t0})
         return out
@@ -1673,6 +1696,207 @@ def pod_phase(main: dict, grid: list) -> dict:
     examples = examples_phase()
     return {"runs": runs, "small": small, "resume": resume,
             "examples": examples}
+
+
+def _rank_runs(runs) -> list:
+    """Each of ``runs`` through ``run(..., mesh=make_host_mesh(device=
+    "cuda:0"))`` on this rank of the running process group, with the
+    launch counts and peak memory reset just before and read just after,
+    the rank's own seconds of each round (before the ranks agree on the
+    slowest) and the seconds its ``all_gather``s took inside each round (a
+    synchronize either side; the setup's are left out). Returns one row a
+    run."""
+    import torch.distributed as dist
+
+    import repro_torch.harness.experiments as tex
+    from repro_torch.harness import ExperimentConfig, run
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import scored_reduce as sr
+    from repro_torch.launch.mesh import make_host_mesh
+    spent = {"s": 0.0, "calls": 0}
+    gather, agree, draws = dist.all_gather, tex._round_times, \
+        tex._draw_round_inputs
+    own, opened, rows = [], [], []
+
+    def timed_gather(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = gather(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent["s"] += time.perf_counter() - t0
+        spent["calls"] += 1
+        return result
+
+    def round_opens(*args, **kwargs):
+        opened.append(dict(spent))
+        return draws(*args, **kwargs)
+
+    def own_times(mesh, device, req_s, round_s):
+        start = opened[len(own)]
+        own.append({"round_s": round_s,
+                    "collective_s": spent["s"] - start["s"],
+                    "collective_calls": spent["calls"] - start["calls"]})
+        return agree(mesh, device, req_s, round_s)
+    dist.all_gather, tex._round_times = timed_gather, own_times
+    tex._draw_round_inputs = round_opens
+    try:
+        for label, alg, engine, kw in runs:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sr.scored_reduce.launches = 0
+            fa.flash_attention_bhsd.launches = 0
+            own.clear()
+            opened.clear()
+            t0 = time.perf_counter()
+            hist = run(alg, ExperimentConfig(**kw), eval_samples=MAIN_EVAL,
+                       mesh=make_host_mesh(device="cuda:0"),
+                       pod_engine=engine)
+            rows.append({
+                "label": label, "alg": alg, "config": kw,
+                "rank": dist.get_rank(), "ranks": dist.get_world_size(),
+                "backend": dist.get_backend(),
+                "wall_s": time.perf_counter() - t0,
+                "launches": {
+                    "scored_reduce": sr.scored_reduce.launches,
+                    "flash_attention": fa.flash_attention_bhsd.launches},
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "own_rounds": list(own),
+                "rounds": [{k: h.get(k) for k in (
+                    "round", "test_loss", "test_acc", "participants",
+                    "round_s", "request_gen_s")} for h in hist]})
+    finally:
+        dist.all_gather, tex._round_times = gather, agree
+        tex._draw_round_inputs = draws
+    return rows
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_rank(rank: int, ranks: int, port: int, backend: str, runs,
+               out: str) -> None:
+    """One rank of phase 6j, in its own process: joins the ``backend``
+    group of ``ranks`` ranks on card 0, runs ``_rank_runs(runs)`` and
+    writes one JSON file a run into ``out``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=ranks, rank=rank)
+    try:
+        for row in _rank_runs(runs):
+            with open(Path(out) / f"{row['label']} rank{rank}.json",
+                      "w") as f:
+                json.dump(row, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_ranks(ranks: int, backend: str, runs, meanwhile=None) -> tuple:
+    """``ranks`` processes of a ``backend`` group on the card, started
+    together, and ``meanwhile()`` called here while they run; a rank that
+    fails fails the phase. Returns ``({label: [each rank's row]}, what
+    meanwhile returned)``."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        ctx = mp.start_processes(
+            _mesh_rank, args=(ranks, _free_port(), backend, runs, str(out)),
+            nprocs=ranks, join=False, start_method="spawn")
+        done = meanwhile() if meanwhile is not None else None
+        while not ctx.join():
+            pass
+        rows = {}
+        for label, *_ in runs:
+            rows[label] = []
+            for r in range(ranks):
+                with open(out / f"{label} rank{r}.json") as f:
+                    rows[label].append(json.load(f))
+        return rows, done
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def nccl_one_rank(runs) -> dict:
+    """``runs`` in this process as the one rank of an NCCL group (the
+    group is made for them and destroyed after)."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", world_size=1, rank=0,
+                            init_method=f"tcp://localhost:{_free_port()}")
+    try:
+        return {row["label"]: [row] for row in _rank_runs(runs)}
+    finally:
+        dist.destroy_process_group()
+
+
+def pod_mesh_phase(main: dict, pods: dict, grid: list) -> dict:
+    """Phase 6j (module docstring): two gloo ranks on the card, and here,
+    while they start, the kernel at each rank's (128, N) block and one
+    NCCL rank. Gates: ``scored_reduce`` once an OSAFL round on each rank
+    and never for FedAvg, no flash launch; every rank's rounds the same;
+    OSAFL at ``global_lr=1`` within 1e-5 of 6i's stacked run and FedAvg
+    of the grid's, participants exact; the NCCL rank's rounds phase 5's
+    bit for bit. Returns the kernel's row and the runs."""
+    from repro_torch.harness import ExperimentConfig
+
+    def meanwhile():
+        row = check_scored_reduce(MAIN_U // MESH_RANKS, buffer_n("fcn"),
+                                  torch.float32, timed=True)
+        torch.cuda.empty_cache()
+        return row, nccl_one_rank(MESH_NCCL_RUNS)
+    gloo, (block, nccl) = mesh_ranks(MESH_RANKS, "gloo", MESH_GLOO_RUNS,
+                                     meanwhile=meanwhile)
+    fedavg = next(g for g in grid if g["alg"] == "fedavg"
+                  and g["config"]["model"] == MAIN_RUN["model"])
+    gates = {}
+    for group, rows in (("gloo", gloo), ("nccl", nccl)):
+        for label, ranks_rows in rows.items():
+            first = ranks_rows[0]
+            want = len(first["rounds"]) * scored_launches(
+                first["alg"], ExperimentConfig(**first["config"]))
+            gates[f"{group} {label} launches"] = all(
+                r["launches"] == {"scored_reduce": want,
+                                  "flash_attention": 0}
+                for r in ranks_rows)
+            gates[f"{group} {label} every rank's rounds the same"] = all(
+                r["rounds"] == ranks_rows[0]["rounds"] for r in ranks_rows)
+    gates["gloo osafl exact_tp global_lr=1 within 1e-5 of 6i's stacked"] = (
+        _same_rounds(gloo["osafl exact_tp global_lr=1"][0],
+                     pods["runs"]["stacked global_lr=1"], POD_TOL))
+    gates["gloo fedavg within 1e-5 of the grid's"] = _same_rounds(
+        gloo["fedavg fedavg"][0], fedavg, POD_TOL)
+    gates["nccl osafl exact_tp bit for bit phase 5's"] = _same_rounds(
+        nccl["osafl exact_tp"][0], main)
+    gaps = {"two ranks vs stacked, global_lr=1": _loss_gaps(
+                gloo["osafl exact_tp global_lr=1"][0],
+                pods["runs"]["stacked global_lr=1"]),
+            "fedavg two ranks vs grid": _loss_gaps(
+                gloo["fedavg fedavg"][0], fedavg)}
+    per_rank = {f"{group} {label} rank{r['rank']}": {
+        "own_round_s": [x["round_s"] for x in r["own_rounds"]],
+        "collective_s": [x["collective_s"] for x in r["own_rounds"]],
+        "collective_calls": [x["collective_calls"]
+                             for x in r["own_rounds"]],
+        "round_s": [x["round_s"] for x in r["rounds"]],
+        "max_memory_allocated": r["max_memory_allocated"],
+        "wall_s": r["wall_s"], "launches": r["launches"]}
+        for group, rows in (("gloo", gloo), ("nccl", nccl))
+        for label, ranks_rows in rows.items() for r in ranks_rows}
+    say("pod mesh phase " + json.dumps({
+        "gates": gates, "test_loss_gaps": gaps, "per_rank": per_rank,
+        "scored_reduce_block": block}))
+    if not all(gates.values()):
+        raise AssertionError(f"pod mesh phase gates failed: {gates}")
+    return {"block": block, "gloo": gloo, "nccl": nccl}
 
 
 def _clock() -> float:
@@ -3222,6 +3446,7 @@ def main() -> int:
           dict(MAIN_RUN, request_backend="stacked"))
     cohorts = timed("6g cohorts", cohort_phase)
     pods = timed("6i pod", pod_phase, main, grid)
+    mesh = timed("6j pod mesh", pod_mesh_phase, main, pods, grid)
     fused = timed("6h fused", fused_phase)
     serving = timed("7 serving", serving_phase)
     moe_serving = timed("7b moe serving", moe_serving_phase)
@@ -3285,6 +3510,10 @@ def main() -> int:
         by_path[k]["pod_resume"] = [r["launches"][k]
                                     for r in pods["resume"]["runs"]]
         by_path[k]["fl_examples"] = pods["examples"]["launches"][k]
+        for group in ("gloo", "nccl"):
+            for label, rows in mesh[group].items():
+                by_path[k][f"pod_mesh {group} {label}"] = [
+                    r["launches"][k] for r in rows]
     by_path["scored_reduce"]["pod_small"] = pods["small"]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
@@ -3298,7 +3527,14 @@ def main() -> int:
         "max_abs_err": max(m["max_abs_err"].values()),
         "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
         "bound_by": m["bound_by"], "library_ms": m["library_ms"],
-        "in_graph_ms": fused["in_graph"]["graph_ms"]}, {
+        "in_graph_ms": fused["in_graph"]["graph_ms"],
+        "mesh_block_shape": {
+            "launches_per_rank": by_path["scored_reduce"][
+                "pod_mesh gloo osafl exact_tp global_lr=1"],
+            **{key: mesh["block"][key] for key in (
+                "U", "N", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

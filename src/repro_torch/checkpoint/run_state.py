@@ -29,7 +29,7 @@ import json
 import os
 import zipfile
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +85,34 @@ def set_generator_state(rng: np.random.Generator, state: dict) -> None:
 # nested-tree codec
 # ---------------------------------------------------------------------------
 
+class RowShard(NamedTuple):
+    """An array leaf split over client rows: ``data`` holds rows
+    ``[start, start + len(data))`` of a leaf of ``rows`` rows, the other
+    rows living in other processes. A state dict of a run over R > 1
+    client rows marks its sharded leaves so (``row_leaf``); a v2 snapshot
+    writes each process's rows as its own shard file
+    (``checkpoint/streaming.py``)."""
+    data: Any
+    start: int
+    rows: int
+
+
+def row_leaf(t, lo: int, rows: int):
+    """The state-dict leaf of ``t``, rows ``lo:`` of a leaf of ``rows``
+    rows: ``t`` itself when it holds them all, else a ``RowShard``."""
+    if lo == 0 and int(t.shape[0]) == rows:
+        return t
+    return RowShard(t, lo, rows)
+
+
+def own_rows(a, lo: int, hi: int, rows: int):
+    """Rows ``lo:hi`` of a snapshot leaf of ``rows`` rows that was read
+    whole, or the leaf as it is when it holds just those rows (a rank's
+    read, ``load_run_state(..., block=)``)."""
+    a = np.asarray(a)
+    return a[lo:hi] if a.ndim and a.shape[0] == rows != hi - lo else a
+
+
 def _host_array(obj, path: str, copy_host: bool) -> np.ndarray:
     """An array leaf as a numpy array the caller may keep. A tensor on the
     card is copied to the host (``.cpu()`` waits for the work queued before
@@ -122,6 +150,10 @@ def _encode(obj, arrays: Dict[str, Any], path: str,
         return float(obj)
     if isinstance(obj, np.bool_):
         return bool(obj)
+    if isinstance(obj, RowShard):
+        arrays[path] = obj._replace(
+            data=_host_array(obj.data, path, copy_host))
+        return {_ARRAY_KEY: path}
     if isinstance(obj, (torch.Tensor, np.ndarray)) or (
             hasattr(obj, "__array__") and hasattr(obj, "dtype")):
         arrays[path] = _host_array(obj, path, copy_host)
@@ -244,6 +276,12 @@ def save_run_state(path, state, metadata: dict = None) -> None:
     publish a new array file beside a stale sidecar."""
     arrays: Dict[str, Any] = {}
     tree = _encode(state, arrays, "s")
+    split = [k for k, a in arrays.items() if isinstance(a, RowShard)]
+    if split:
+        raise CheckpointError(
+            f"a v1 snapshot is one file of whole arrays; {split[0]!r} holds "
+            "one process's client rows (a run over several rows writes v2 "
+            "snapshots, checkpoint_async=True)")
     save_id = f"{np.random.SeedSequence().entropy:032x}"
     arrays[_SAVE_ID_KEY] = np.asarray(save_id)
     npz = _npz_path(path)
@@ -254,15 +292,17 @@ def save_run_state(path, state, metadata: dict = None) -> None:
          "save_id": save_id, "tree": tree, "metadata": metadata or {}})))
 
 
-def load_run_state(path):
+def load_run_state(path, block: Optional[Tuple[int, int]] = None):
     """Read a run-state snapshot back into nested plain structures (dicts,
     lists, scalars, numpy arrays). A snapshot directory is the v2 layout
     (``checkpoint/streaming.py``), a ``.npz`` + sidecar pair is v1. A
     mismatched pair, a truncated archive or a corrupt file raises
-    ``CheckpointError`` naming it."""
+    ``CheckpointError`` naming it. ``block=(lo, hi)`` reads only client
+    rows ``lo:hi`` of the leaves a v2 snapshot records as split over client
+    rows (one rank's resume); every other leaf comes back whole."""
     if Path(str(path).removesuffix(".npz")).is_dir():
         from repro_torch.checkpoint import streaming
-        return streaming.load_run_state_v2(path)
+        return streaming.load_run_state_v2(path, block=block)
     meta = read_sidecar(path)
     check_version(meta, path, expect_kind="run_state")
     npz = _npz_path(path)

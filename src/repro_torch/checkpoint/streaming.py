@@ -8,14 +8,24 @@ A v2 snapshot is a directory:
       manifest.json                       tree skeleton + shard table
       COMMIT.json                         commit marker, written last
 
-  * Each array leaf is one ``.npy`` file (the port holds no mesh, so every
-    leaf is one shard covering the whole array; the reference's multi-shard
-    snapshots still load). The bytes are ``np.save``'s, written straight
-    to the file while their crc32 is taken, so a 3.9 GB leaf is never
-    held twice in memory.
+  * Each array leaf is one ``.npy`` file per shard. A run on one client
+    row writes every leaf as one shard covering the whole array. A run
+    over R > 1 rows (one process each) marks the leaves split over client
+    rows (``run_state.RowShard``): each rank writes its rows of them as
+    shard ``a<i>.s<rank>.npy`` with their index extents, as the
+    reference's v2 format writes one shard per addressable device, and
+    rank 0 writes the leaves every rank holds alike. The bytes are
+    ``np.save``'s, written straight to the file while their crc32 is
+    taken, so a 3.9 GB leaf is never held twice in memory.
   * ``manifest.json`` carries the JSON tree skeleton (the v1 codec's
     ``__array__`` markers) and, per leaf, the dtype, shape and every
     shard's file name, index extents, byte length and crc32.
+  * Over R > 1 ranks each rank but 0 writes its manifest entries to
+    ``part.r<rank>.json``; rank 0 waits for all of them (a barrier through
+    the snapshot directory, off the round loop), writes the manifest and
+    commits. ``load_run_state_v2(path, block=(lo, hi))`` reads one rank's
+    rows of the split leaves (a resume on R ranks); without ``block`` a
+    snapshot is read whole, in one process, whatever wrote it.
   * ``COMMIT.json`` (save id + the manifest's sha256) is written atomically
     last: a snapshot is complete or invisible. Readers refuse a missing or
     garbled marker, a manifest that does not hash to the committed sha and
@@ -50,12 +60,13 @@ import threading
 import time
 import zlib
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.checkpoint.run_state import (CheckpointError, _decode,
-                                              _encode, _npz_path,
+from repro_torch.checkpoint.run_state import (CheckpointError, RowShard,
+                                              _decode, _encode, _npz_path,
                                               atomic_write, check_version,
                                               find_sidecar, save_run_state)
 
@@ -63,6 +74,9 @@ V2_FORMAT = 2
 MANIFEST_NAME = "manifest.json"
 COMMIT_NAME = "COMMIT.json"
 CLAIM_PREFIX = "SERVING-"
+PART_PREFIX = "part.r"
+# how long rank 0 waits for the other ranks' shards of one snapshot
+PART_WAIT_S = 1800.0
 
 # test seam: called after each shard file hits disk (the crash tests die
 # inside it); never set in production code
@@ -103,29 +117,95 @@ def _write_npy(fname: Path, data: np.ndarray) -> Tuple[int, int]:
     return sink.crc & 0xFFFFFFFF, sink.nbytes
 
 
-def _write_v2(path, tree, arrays: Dict[str, np.ndarray],
-              metadata: dict) -> None:
-    """Write one committed v2 snapshot directory from host arrays.
-    Overwriting an existing snapshot unlinks its commit marker first, so a
-    crash mid-rewrite can never leave a stale marker beside new files."""
-    d = _stem(path)
-    d.mkdir(parents=True, exist_ok=True)
-    (d / COMMIT_NAME).unlink(missing_ok=True)
-    (d / MANIFEST_NAME).unlink(missing_ok=True)
-    for old in d.glob("*.npy"):
-        old.unlink()
-    save_id = f"{np.random.SeedSequence().entropy:032x}"
+class RankPart(NamedTuple):
+    """One rank's share of a snapshot written by R > 1 ranks: ``token``
+    names the writer's run (the same on every rank) and ``seq`` the
+    snapshot within it, so rank 0 never merges a part left by another
+    save."""
+    rank: int
+    ranks: int
+    token: int
+    seq: int
+
+
+def _write_shards(d: Path, arrays: Dict[str, Any], rank: int) -> dict:
+    """Write this process's shard files of ``arrays`` into ``d``: every
+    leaf on rank 0, only its rows of the split leaves on another rank.
+    Returns their manifest entries."""
     entries = {}
     for i, (key, data) in enumerate(arrays.items()):
-        fname = f"a{i:05d}.s00.npy"
-        crc, nbytes = _write_npy(d / fname, data)
+        split = isinstance(data, RowShard)
+        if rank and not split:
+            continue
+        arr = data.data if split else data
+        fname = f"a{i:05d}.s{rank:02d}.npy"
+        crc, nbytes = _write_npy(d / fname, arr)
         if _POST_SHARD_HOOK is not None:
             _POST_SHARD_HOOK()
-        shape = [int(n) for n in data.shape]
-        entries[key] = {"dtype": str(data.dtype), "shape": shape,
-                        "shards": [{"file": fname,
-                                    "index": [[0, n] for n in shape],
+        index = [[0, int(n)] for n in arr.shape]
+        shape = [int(n) for n in arr.shape]
+        if split:
+            index[0] = [data.start, data.start + shape[0]]
+            shape[0] = data.rows
+        entries[key] = {"dtype": str(arr.dtype), "shape": shape,
+                        "shards": [{"file": fname, "index": index,
                                     "crc32": crc, "nbytes": nbytes}]}
+        if split:
+            entries[key]["split"] = "rows"
+    return entries
+
+
+def _rank_parts(d: Path, part: RankPart) -> List[dict]:
+    """The other ranks' manifest entries of this snapshot, in rank order,
+    once every one of them has written its part file."""
+    want = {"token": part.token, "seq": part.seq}
+    got: Dict[int, dict] = {}
+    deadline = time.monotonic() + PART_WAIT_S
+    while len(got) < part.ranks - 1:
+        for r in range(1, part.ranks):
+            f = d / f"{PART_PREFIX}{r:03d}.json"
+            if r in got or not f.exists():
+                continue
+            doc = json.loads(f.read_text())
+            if {k: doc.get(k) for k in want} == want:
+                got[r] = doc["entries"]
+        if len(got) < part.ranks - 1:
+            if time.monotonic() > deadline:
+                late = sorted(set(range(1, part.ranks)) - set(got))
+                raise CheckpointError(
+                    f"snapshot {d}: ranks {late} wrote no shards within "
+                    f"{PART_WAIT_S:.0f} s")
+            time.sleep(0.02)
+    return [got[r] for r in range(1, part.ranks)]
+
+
+def _write_v2(path, tree, arrays: Dict[str, Any], metadata: dict,
+              part: Optional[RankPart] = None) -> None:
+    """Write one committed v2 snapshot directory from host arrays.
+    Overwriting an existing snapshot unlinks its commit marker first, so a
+    crash mid-rewrite can never leave a stale marker beside new files.
+    With ``part`` (a run over R > 1 ranks) this rank writes its shards;
+    rank 0 then merges every rank's entries and commits."""
+    d = _stem(path)
+    d.mkdir(parents=True, exist_ok=True)
+    rank = 0 if part is None else part.rank
+    if rank == 0:
+        (d / COMMIT_NAME).unlink(missing_ok=True)
+        (d / MANIFEST_NAME).unlink(missing_ok=True)
+    for old in d.glob("*.npy" if part is None else f"*.s{rank:02d}.npy"):
+        old.unlink()
+    entries = _write_shards(d, arrays, rank)
+    if rank:
+        doc = json.dumps({"token": part.token, "seq": part.seq,
+                          "entries": entries})
+        atomic_write(d / f"{PART_PREFIX}{rank:03d}.json",
+                     lambda t: t.write_text(doc))
+        return
+    if part is not None:
+        for other in _rank_parts(d, part):
+            for key, ent in other.items():
+                entries[key]["shards"] += ent["shards"]
+    save_id = f"{np.random.SeedSequence().entropy:032x}"
     manifest = {"format_version": V2_FORMAT, "kind": "run_state",
                 "save_id": save_id, "tree": tree, "metadata": metadata,
                 "arrays": entries}
@@ -134,6 +214,9 @@ def _write_v2(path, tree, arrays: Dict[str, np.ndarray],
     atomic_write(d / COMMIT_NAME, lambda t: t.write_text(json.dumps(
         {"format_version": V2_FORMAT, "save_id": save_id,
          "manifest_sha256": hashlib.sha256(mbytes).hexdigest()})))
+    if part is not None:
+        for r in range(1, part.ranks):
+            (d / f"{PART_PREFIX}{r:03d}.json").unlink(missing_ok=True)
 
 
 def save_run_state_v2(path, state, metadata: dict = None) -> None:
@@ -204,11 +287,24 @@ def _parse_npy(payload: bytearray) -> np.ndarray:
     return arr.reshape(shape, order="F" if fortran else "C")
 
 
-def _read_leaf(d: Path, key: str, ent: dict) -> np.ndarray:
+def _read_leaf(d: Path, key: str, ent: dict, rows=None) -> np.ndarray:
+    """One leaf of a snapshot, every shard it reads length- and
+    crc-verified: the whole leaf, or with ``rows=(lo, hi)`` only those
+    rows of its leading dimension (only the shards that hold them are
+    read)."""
     dtype = np.dtype(ent["dtype"])
     shape = tuple(int(n) for n in ent["shape"])
+    if rows is not None:
+        lo, hi = rows
+        if not 0 <= lo <= hi <= shape[0]:
+            raise CheckpointError(
+                f"snapshot {d} array {key!r} has {shape[0]} rows; rows "
+                f"{lo}:{hi} were asked for")
     pieces = []
     for shard in ent["shards"]:
+        idx = tuple((int(a), int(b)) for a, b in shard["index"])
+        if rows is not None and (idx[0][1] <= lo or idx[0][0] >= hi):
+            continue
         f = d / shard["file"]
         if not f.exists():
             raise CheckpointError(
@@ -231,13 +327,18 @@ def _read_leaf(d: Path, key: str, ent: dict) -> np.ndarray:
             raise CheckpointError(
                 f"snapshot {d} array {key!r}: shard file {f.name} is not "
                 f"a readable npy: {e}") from e
-        idx = tuple((int(a), int(b)) for a, b in shard["index"])
         want = tuple(b - a for a, b in idx)
         if arr.shape != want or arr.dtype != dtype:
             raise CheckpointError(
                 f"snapshot {d} array {key!r}: shard file {f.name} holds "
                 f"{arr.dtype}{arr.shape}, manifest says {dtype}{want}")
+        if rows is not None:
+            a, b = max(idx[0][0], lo), min(idx[0][1], hi)
+            arr = arr[a - idx[0][0]:b - idx[0][0]]
+            idx = ((a - lo, b - lo),) + idx[1:]
         pieces.append((idx, arr))
+    if rows is not None:
+        shape = (hi - lo,) + shape[1:]
     if len(pieces) == 1 and pieces[0][0] == tuple((0, n) for n in shape):
         return pieces[0][1]          # one shard holds the whole leaf
     full = np.empty(shape, dtype)
@@ -252,13 +353,16 @@ def _read_leaf(d: Path, key: str, ent: dict) -> np.ndarray:
     return full
 
 
-def load_run_state_v2(path):
+def load_run_state_v2(path, block=None):
     """Reassemble a committed v2 snapshot into nested plain structures.
-    Every shard is length- and crc-verified; arrays come back as whole host
-    arrays, which ``load_state_dict`` moves to the run's device."""
+    Every shard read is length- and crc-verified; arrays come back as host
+    arrays, which ``load_state_dict`` moves to the run's device. With
+    ``block=(lo, hi)`` a leaf split over client rows comes back as its
+    rows ``lo:hi`` (one rank's share); every other leaf whole."""
     d = _stem(path)
     manifest = read_manifest(d)
-    data = {key: _read_leaf(d, key, ent)
+    data = {key: _read_leaf(d, key, ent, block if block is not None
+                            and ent.get("split") == "rows" else None)
             for key, ent in manifest["arrays"].items()}
     return _decode(manifest["tree"], data)
 
@@ -435,9 +539,25 @@ class AsyncCheckpointWriter:
 
     A failed write is re-raised on the next ``submit``/``drain``/``close``;
     ``close()`` is the harness's drain barrier at exit. ``shutdown()`` is
-    the ``finally``-safe variant (never raises)."""
+    the ``finally``-safe variant (never raises).
 
-    def __init__(self, keep_last: int = None, queue_size: int = 2):
+    Given the ``mesh`` of a run over R > 1 client rows (every rank makes
+    its own writer, in the same order, and submits the same snapshots),
+    each rank's worker writes its shards and rank 0's commits and prunes;
+    the ranks agree on a token through one ``all_gather`` on ``device``
+    here, on the round loop."""
+
+    def __init__(self, keep_last: int = None, queue_size: int = 2,
+                 mesh=None, device=None):
+        from repro_torch.core.shmap import (client_row, client_rows,
+                                            grouped, row_max)
+        self._part = None
+        if mesh is not None and grouped() and client_rows(mesh) > 1:
+            mine = np.random.SeedSequence().entropy & ((1 << 62) - 1)
+            token = row_max(torch.tensor([mine], dtype=torch.int64,
+                                         device=device), mesh)
+            self._part = RankPart(client_row(mesh), client_rows(mesh),
+                                  int(token.item()), 0)
         self.keep_last = keep_last
         self.queue_size = int(queue_size)
         self.stats: List[dict] = []
@@ -465,7 +585,8 @@ class AsyncCheckpointWriter:
         except BaseException:
             self._slots.release()
             raise
-        nbytes = sum(int(a.nbytes) for a in arrays.values())
+        nbytes = sum(int(getattr(a, "data", a).nbytes)
+                     for a in arrays.values())
         with self._lock:
             self.held_bytes += nbytes
             self.peak_held_bytes = max(self.peak_held_bytes,
@@ -473,8 +594,11 @@ class AsyncCheckpointWriter:
         row = {"path": str(path), "bytes": nbytes,
                "submit_s": time.perf_counter() - t0}
         self.stats.append(row)
+        part = self._part
+        if part is not None:
+            self._part = part._replace(seq=part.seq + 1)
         self._q.put((_stem(path), tree, arrays, dict(metadata or {}), row,
-                     time.perf_counter()))
+                     time.perf_counter(), part))
 
     def drain(self) -> None:
         """Block until every submitted snapshot is committed (or failed)."""
@@ -512,11 +636,14 @@ class AsyncCheckpointWriter:
             try:
                 if item is None:
                     return
-                path, tree, arrays, metadata, row, t_queued = item
+                path, tree, arrays, metadata, row, t_queued, part = item
                 try:
-                    _write_v2(path, tree, arrays, metadata)
+                    if part is None:
+                        _write_v2(path, tree, arrays, metadata)
+                    else:
+                        _write_v2(path, tree, arrays, metadata, part)
                     row["write_s"] = time.perf_counter() - t_queued
-                    if self.keep_last:
+                    if self.keep_last and (part is None or part.rank == 0):
                         prune_checkpoints(path.parent, self.keep_last)
                 finally:
                     with self._lock:

@@ -22,6 +22,13 @@ reference does; a stacked round aggregates with one (U,) @ (U, N)
 product (their two-tier forms, ``core/hierarchy.py``, one per cluster
 block). Their ``state_dict``s are the reference's, key for key.
 ``make_server`` also builds the sparse-cohort server (``core/cohort.py``).
+
+Over a mesh of R > 1 client rows (``mesh=``, one process per row) a
+stacked server's buffer holds this rank's rows; the host metadata stays
+whole (U,) on every rank, fed from the buffer's gathered sizes and
+histograms, so FedNova's and FedDisco's weights are computed whole and
+sliced. The aggregation is each rank's product over its rows, summed
+across ranks in rank order (``core/shmap.row_sum``).
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.run_state import own_rows, row_leaf
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
                                       tree_map)
@@ -37,6 +45,7 @@ from repro_torch.core.osafl import (ClientUpdate, OSAFLServer,
                                     StackedOSAFLServer, _tree_to)
 from repro_torch.core.scores import (tree_add, tree_scale, tree_sub,
                                      tree_zeros_like)
+from repro_torch.core.shmap import client_rows, client_sharding, row_sum
 from repro_torch.device import owned_tensor, resolve_device
 
 
@@ -171,14 +180,18 @@ class _StackedBufferedServer:
     buffers_hold_weights = True      # False => buffers hold normalized grads d
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, mesh=None):
         dev = resolve_device(device)
         self.fl = fl
         self.U = num_clients
+        self.mesh = mesh
+        self.rows = (0, num_clients) if mesh is None else \
+            client_sharding(mesh).bounds(num_clients)
         self.codec: FlatCodec = make_codec(params)
         self.w = self.codec.flatten(params).to(dev)
         self.participated = np.zeros(num_clients, bool)
-        self.buffer = self.init_row()[None, :].repeat(num_clients, 1)
+        self.buffer = self.init_row()[None, :].repeat(
+            self.rows[1] - self.rows[0], 1)
         self.sizes = np.ones(num_clients)        # loop default: size 1
         self.kappas = np.ones(num_clients)
         self.hists = None                        # lazily sized (U, C)
@@ -210,7 +223,7 @@ class _StackedBufferedServer:
                     self.hists = np.zeros((self.U, len(up.label_hist)))
                 self.hists[up.uid] = up.label_hist
                 self.has_hist[up.uid] = True
-        self._ingest_stacked(d_new, active)
+        self._ingest_stacked(d_new[self.rows[0]:self.rows[1]], active)
 
     def round(self, updates: Sequence[ClientUpdate]) -> dict:
         self._ingest(updates)
@@ -224,27 +237,34 @@ class _StackedBufferedServer:
 
     def _ingest_stacked(self, d_new: torch.Tensor, active) -> None:
         """Write back the active rows and refresh the never-participated
-        ones, in place: at U=256 clients of the FCN the buffer is 3.9 GB."""
+        ones, in place: at U=256 clients of the FCN the buffer is 3.9 GB.
+        ``d_new`` holds the buffer's rows, ``active`` the whole cohort."""
         active = np.asarray(active, bool)
         self.participated |= active
+        lo, hi = self.rows
         dev = self.buffer.device
-        rows = torch.as_tensor(np.flatnonzero(active), device=dev)
+        rows = torch.as_tensor(np.flatnonzero(active[lo:hi]), device=dev)
         self.buffer.index_copy_(0, rows, d_new.index_select(0, rows))
-        stale = torch.as_tensor(np.flatnonzero(~self.participated),
+        stale = torch.as_tensor(np.flatnonzero(~self.participated[lo:hi]),
                                 device=dev)
         self.buffer.index_copy_(
             0, stale, self.init_row()[None, :].expand(stale.numel(), -1))
 
     def _weighted(self, ws) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ws), dtype=torch.float32,
-                               device=self.buffer.device) @ self.buffer
+        """``ws @ buffer`` for whole-cohort (U,) weights ``ws``: this
+        rank's rows' product, summed over the client rows."""
+        lo, hi = self.rows
+        return row_sum(torch.as_tensor(
+            np.asarray(ws)[lo:hi], dtype=torch.float32,
+            device=self.buffer.device) @ self.buffer, self.mesh)
 
     # -- checkpointing -------------------------------------------------------
     def state_dict(self) -> dict:
         """The flat weights, the (U, N) buffer, participation flags and the
         sticky metadata arrays. The leaves are live: the round writes the
         buffer and the metadata in place, so a writer copies them."""
-        return {"w": self.w, "buffer": self.buffer,
+        return {"w": self.w,
+                "buffer": row_leaf(self.buffer, self.rows[0], self.U),
                 "participated": self.participated,
                 "sizes": self.sizes, "kappas": self.kappas,
                 "hists": self.hists, "has_hist": self.has_hist}
@@ -252,7 +272,8 @@ class _StackedBufferedServer:
     def load_state_dict(self, sd: dict) -> None:
         dev = self.w.device
         self.w = owned_tensor(sd["w"], dev)
-        self.buffer = owned_tensor(sd["buffer"], dev)
+        self.buffer = owned_tensor(own_rows(sd["buffer"], *self.rows,
+                                            self.U), dev)
         self.participated = np.array(sd["participated"], bool)
         self.sizes = np.array(sd["sizes"], float)
         self.kappas = np.array(sd["kappas"], float)
@@ -353,7 +374,7 @@ SERVERS = {
 
 
 def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
-                device=None):
+                device=None, mesh=None):
     """The server of ``fl.algorithm`` on ``fl.engine``, as the reference's
     ``make_server`` picks it (without a mesh): with ``cohort_size > 0`` the
     sparse-cohort server (``core/cohort.py``, stacked engine only); on
@@ -363,11 +384,19 @@ def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
     ``SERVERS``. Any other engine raises: the pod harness's servers are
     the stacked ones (its ``FLConfig`` says ``engine="stacked"``), and the
     reference's ``make_server`` hands an ``engine="pod"`` config the loop
-    servers, which no harness asks for."""
+    servers, which no harness asks for. ``mesh`` lays a flat stacked
+    server's buffer over its client rows; the sparse-cohort and two-tier
+    servers do not run over more than one row yet."""
     if fl.engine not in ("stacked", "loop"):
         raise NotImplementedError(
             f"not ported to repro_torch yet: engine={fl.engine!r} (ported: "
             "the stacked and loop servers)")
+    if mesh is not None and client_rows(mesh) > 1 and (
+            fl.cohort_size or fl.num_clusters >= 1):
+        raise NotImplementedError(
+            "sparse cohorts (cohort_size > 0) and edge clusters "
+            "(num_clusters >= 1) over more than one client row are "
+            "ROADMAP.md A6's second half")
     if fl.cohort_size:
         from repro_torch.core.cohort import SparseCohortServer
         if fl.engine != "stacked":
@@ -388,5 +417,8 @@ def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
                 "num_clusters>=1 needs the stacked engine (the loop servers "
                 f"are flat per-user oracles; got engine={fl.engine!r})")
         servers = {"osafl": OSAFLServer, **SERVERS}
+    if mesh is not None and fl.engine == "stacked":
+        return servers[fl.algorithm](params, fl, num_clients, seed=seed,
+                                     device=device, mesh=mesh)
     return servers[fl.algorithm](params, fl, num_clients, seed=seed,
                                  device=device)

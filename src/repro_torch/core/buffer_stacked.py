@@ -13,6 +13,17 @@ sequential insert loop:
     overflow ``max(size + n - cap, 0)``.
 
 A sparse-cohort admission reassigns rows to new clients (``reset_rows``).
+
+Over a mesh of R > 1 client rows (``create(..., mesh=)`` or ``shard``),
+one process per row, the (U, D, *feat) storage and every (U, ...) leaf
+hold only this rank's U / R rows. ``stage`` takes the whole cohort's
+arrivals (every rank draws them all) and keeps its rows; stage and commit
+stay row-local. ``sizes``, ``heads``, ``capacities`` and
+``label_histograms()`` give the whole (U,) answer on every rank through
+an ``all_gather``, so ``sample_slots`` draws the host RNG as one process
+does and returns every client's slots; ``gather`` and the pod steps read
+this rank's rows of them. ``state_dict`` gives this rank's rows (marked
+``RowShard``) and ``load_state_dict`` takes them.
 ``stage_in_place`` and ``commit_in_place`` are the fixed-shape forms of
 ``stage`` and ``commit`` that the fused round's CUDA graphs hold (the
 reference's ``_stage_impl`` and ``_commit_impl``, written in place).
@@ -25,12 +36,13 @@ only that documented int32 -> int64 pair.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.shmap import client_sharding, row_cat
 from repro_torch.device import owned_tensor, resolve_device
 
 
@@ -117,17 +129,22 @@ class StackedOnlineBuffer:
     state: BufState
     num_classes: int
     last_hist: Optional[np.ndarray] = None    # the shift-proxy memory
+    mesh: Optional[object] = None             # set by shard(); None: all rows
+    rows: Tuple[int, int, int] = field(default=None, repr=False)
 
     @classmethod
     def create(cls, capacities, feature_shape: tuple, num_classes: int,
                stage_capacity: Optional[int] = None, dtype=np.float32,
                label_dtype=np.int64, depth: Optional[int] = None,
-               device=None) -> "StackedOnlineBuffer":
+               device=None, mesh=None) -> "StackedOnlineBuffer":
         """``depth`` overrides the storage depth D (default: the largest
-        capacity)."""
+        capacity). With ``mesh``, only this rank's rows are allocated
+        (``shard``)."""
         dev = resolve_device(device)
         caps = np.asarray(capacities, np.int32)
         U, D = caps.shape[0], int(depth if depth is not None else caps.max())
+        lo, hi = (0, U) if mesh is None else client_sharding(mesh).bounds(U)
+        caps, whole, U = caps[lo:hi], U, hi - lo
         if int(caps.max()) > D:
             raise ValueError(
                 f"storage depth {D} is smaller than the largest initial "
@@ -146,18 +163,36 @@ class StackedOnlineBuffer:
             staged_x=torch.zeros((U, S) + feat, dtype=xdt, device=dev),
             staged_y=torch.zeros((U, S), dtype=ydt, device=dev),
             staged_n=torch.zeros(U, **i32))
-        return cls(state=state, num_classes=num_classes)
+        buf = cls(state=state, num_classes=num_classes)
+        if mesh is not None:
+            buf.mesh, buf.rows = mesh, (lo, hi, whole)
+        return buf
+
+    def shard(self, mesh) -> "StackedOnlineBuffer":
+        """Keep only this rank's rows of every (U, ...) leaf (copies, so
+        the whole arrays can go); U must be a multiple of the mesh's client
+        rows. Returns ``self``."""
+        U = int(self.state.y.shape[0])
+        lo, hi = client_sharding(mesh).bounds(U)
+        self.state = BufState(*(t[lo:hi].clone() for t in self.state))
+        self.mesh, self.rows = mesh, (lo, hi, U)
+        return self
 
     @property
     def device(self) -> torch.device:
         return self.state.y.device
+
+    def _mine(self, x):
+        """This rank's rows of a whole-cohort (U, ...) array."""
+        return x if self.rows is None else x[self.rows[0]:self.rows[1]]
 
     # -- staging (within-round arrivals go to the temp buffer) ---------------
     def stage(self, x_new, y_new, counts) -> None:
         """x_new (U, A, *feat) / y_new (U, A) padded rows; counts (U,) valid
         prefixes. Total staged per client must fit the stage capacity."""
         st = self.state
-        counts = np.asarray(counts)
+        x_new, y_new = self._mine(x_new), self._mine(y_new)
+        counts = self._mine(np.asarray(counts))
         S = st.staged_y.shape[1]
         staged = st.staged_n.cpu().numpy() + counts
         if staged.max(initial=0) > S:
@@ -177,7 +212,9 @@ class StackedOnlineBuffer:
         self.state = st._replace(staged_n=st.staged_n + cnt)
 
     def commit(self) -> int:
-        """Apply staged arrivals FIFO. Returns the cohort's #ingested."""
+        """Apply staged arrivals FIFO. Returns the #ingested of the
+        buffer's rows (over client rows, this rank's: commit is
+        row-local)."""
         st = self.state
         U, S = st.staged_y.shape
         n, c, h, s = st.staged_n, st.cap, st.head, st.size
@@ -208,6 +245,10 @@ class StackedOnlineBuffer:
         rows = np.asarray(rows, np.int64).ravel()
         if rows.size == 0:
             return
+        if self.rows is not None:
+            raise NotImplementedError(
+                "reset_rows seats sparse-cohort clients, which do not run "
+                "over client rows yet (ROADMAP.md A6, second half)")
         caps = np.asarray(capacities, np.int32).ravel()
         if caps.shape != rows.shape:
             raise ValueError(
@@ -229,28 +270,41 @@ class StackedOnlineBuffer:
             staged_n=st.staged_n.index_copy(0, idx, zero))
 
     # -- views ----------------------------------------------------------------
+    def _pointers(self) -> np.ndarray:
+        """(3, U) capacities, heads and sizes of the whole cohort."""
+        st = self.state
+        return row_cat(torch.stack([st.cap, st.head, st.size], dim=1),
+                       self.mesh).T.cpu().numpy()
+
     @property
     def sizes(self) -> np.ndarray:
-        return self.state.size.cpu().numpy()
+        return self._pointers()[2]
 
     @property
     def heads(self) -> np.ndarray:
-        return self.state.head.cpu().numpy()
+        return self._pointers()[1]
 
     @property
     def capacities(self) -> np.ndarray:
-        return self.state.cap.cpu().numpy()
+        return self._pointers()[0]
 
     def dataset(self, u: int) -> Tuple[np.ndarray, np.ndarray]:
-        """Client u's live samples in FIFO order."""
-        h, s, c = (int(self.heads[u]), int(self.sizes[u]),
-                   int(self.capacities[u]))
+        """Client u's live samples in FIFO order (over client rows, u must
+        be one of this rank's)."""
+        if self.rows is not None:
+            lo, hi, _ = self.rows
+            if not lo <= u < hi:
+                raise IndexError(f"client {u} lives on another rank (this "
+                                 f"rank holds clients {lo}:{hi})")
+            u -= lo
+        st = self.state
+        h, s, c = int(st.head[u]), int(st.size[u]), int(st.cap[u])
         idx = (h + np.arange(s)) % c
-        return (self.state.x[u].cpu().numpy()[idx],
-                self.state.y[u].cpu().numpy()[idx])
+        return (st.x[u].cpu().numpy()[idx], st.y[u].cpu().numpy()[idx])
 
     def label_histograms(self) -> np.ndarray:
-        """(U, C) normalized label histograms over each live window."""
+        """(U, C) normalized label histograms over each live window (the
+        whole cohort's on every rank)."""
         st = self.state
         D = st.y.shape[1]
         p = torch.arange(D, dtype=torch.int32, device=self.device)[None, :]
@@ -260,24 +314,28 @@ class StackedOnlineBuffer:
                                              self.num_classes).float()
         hist = torch.sum(onehot * live[..., None], dim=1)
         hist = hist / torch.clamp(hist.sum(dim=1, keepdim=True), min=1.0)
-        return hist.cpu().numpy()
+        return row_cat(hist, self.mesh).cpu().numpy()
 
     # -- batch sampling -------------------------------------------------------
     def sample_slots(self, rng: np.random.Generator, sample_shape: tuple
                      ) -> np.ndarray:
         """(U, *sample_shape) storage slots, uniform over each client's live
         window (empty buffers fall back to slot head). Consumes ``rng``
-        exactly as the reference does."""
-        size = np.maximum(self.sizes, 1)
+        exactly as the reference does (over client rows every rank draws
+        every client's slots)."""
+        cap, head, size = self._pointers()
+        size = np.maximum(size, 1)
         U = size.shape[0]
         lead = (U,) + (1,) * len(sample_shape)
         j = rng.integers(0, size.reshape(lead),
                          size=(U,) + tuple(sample_shape))
-        return (self.heads.reshape(lead) + j) % self.capacities.reshape(lead)
+        return (head.reshape(lead) + j) % cap.reshape(lead)
 
     def gather(self, slots: np.ndarray) -> dict:
         """Gather sampled slots -> batch tree {x, y} with leaves
-        (U, *sample_shape, ...) for the vmapped local trainer."""
+        (U, *sample_shape, ...) for the vmapped local trainer (over client
+        rows, this rank's rows of them)."""
+        slots = self._mine(slots)
         U = slots.shape[0]
         uu = torch.arange(U, device=self.device).reshape(
             (U,) + (1,) * (slots.ndim - 1))
@@ -290,11 +348,15 @@ class StackedOnlineBuffer:
         capacity/head/size pointers, staged-but-uncommitted arrivals and
         the shift-proxy memory, everything a bit-identical mid-stream
         resume needs. The leaves are the live tensors (a writer copies
-        them), int64 ones as int32 copies, the reference's dtype."""
+        them), int64 ones as int32 copies, the reference's dtype; over
+        client rows, this rank's rows of them as ``RowShard``s."""
+        from repro_torch.checkpoint.run_state import row_leaf
+        lo, _, whole = self.rows or (0, 0, int(self.state.y.shape[0]))
         out = {}
         for k, t in self.state._asdict().items():
             dt = _SNAPSHOT_DTYPES.get(t.dtype)
-            out[k] = t if dt is None else t.cpu().numpy().astype(dt)
+            out[k] = row_leaf(t if dt is None
+                              else t.cpu().numpy().astype(dt), lo, whole)
         out["num_classes"] = int(self.num_classes)
         out["last_hist"] = self.last_hist
         return out
@@ -304,8 +366,9 @@ class StackedOnlineBuffer:
         arrivals resume where they were). Each array is checked against
         the live buffer's shape and dtype: a snapshot fits only the cohort
         shape it came from. An int32 leaf loads into an int64 one (the
-        reference's stored dtype); any other dtype mismatch raises."""
-        from repro_torch.checkpoint.run_state import CheckpointError
+        reference's stored dtype); any other dtype mismatch raises. Over
+        client rows a leaf may hold the whole cohort or this rank's rows."""
+        from repro_torch.checkpoint.run_state import CheckpointError, own_rows
         cur = self.state._asdict()
         missing = sorted(set(cur) - set(sd))
         if missing:
@@ -314,6 +377,8 @@ class StackedOnlineBuffer:
         loaded = {}
         for k, want in cur.items():
             got = np.asarray(sd[k])
+            if self.rows is not None:
+                got = own_rows(got, *self.rows)
             if tuple(got.shape) != tuple(want.shape):
                 raise CheckpointError(
                     f"buffer snapshot {k!r} has shape {tuple(got.shape)}; "

@@ -13,6 +13,16 @@ of the contributions, whose signs come from the server's ``sketch_key``
 (``seed_key``, ``scores.sketch_signs_int8``).
 ``repro/core/osafl.py`` is the reference. Both servers' ``state_dict``s
 are the reference's, key for key.
+
+Over a mesh of R > 1 client rows (``StackedOSAFLServer(..., mesh=)``, one
+process per row) the server round runs on this rank's row block: its
+rows of ``d_buffer``, ``participated`` and ``alphas``; the mean is the
+rank-ordered sum of each rank's partial sum, over U; ``scored_reduce``
+scores the local (U/R, N) block against that mean; the lambdas are
+gathered to (U,) for ``last_scores`` and the stale carry; and the eq. 17
+step is the rank-ordered sum of each rank's ``(alphas lambda)_loc @
+buf_loc``, so every rank holds the same w. On one row the arithmetic is
+the one-process round's, bit for bit.
 """
 from __future__ import annotations
 
@@ -22,12 +32,15 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.run_state import own_rows, row_leaf
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.flatten import (FlatCodec, make_codec, scatter_updates,
                                       tree_map)
 from repro_torch.core.scores import (lambda_scores, lambda_scores_sketched,
                                      sketch_stacked, sketch_tree, tree_add,
                                      tree_scale, tree_sub, tree_zeros_like)
+from repro_torch.core.shmap import (client_sharding, row_cat, row_mean,
+                                    row_sum)
 from repro_torch.device import owned_tensor, resolve_device
 from repro_torch.kernels.ref import scored_reduce_reference
 from repro_torch.kernels.scored_reduce import scored_reduce
@@ -53,13 +66,16 @@ def _check_sketch_dim(fl: FLConfig) -> None:
                          f"scores), got {fl.score_sketch_dim}")
 
 
-def make_scores_fn(fl: FLConfig):
+def make_scores_fn(fl: FLConfig, mesh=None):
     """``scores_of(rows, key)``: the eq. 19-21 lambda scores of a (n, N)
     row block against its own mean, the stacked round's scoring. Exact
     scores reduce through the CUDA kernel (``score_backend="kernel"``,
     which takes its plain version for CPU tensors) or the plain-torch
     oracle (``"reference"``); with ``score_sketch_dim > 0`` the rows are
-    count-sketched first under ``key`` and nothing launches the kernel."""
+    count-sketched first under ``key`` and nothing launches the kernel.
+    With the ``mesh`` of R > 1 client rows, ``rows`` is this rank's block
+    and the mean is the whole block's (``shmap.row_mean``); the scores
+    are this rank's."""
     _check_sketch_dim(fl)
     if fl.score_backend == "kernel":
         reduce = scored_reduce
@@ -72,12 +88,12 @@ def make_scores_fn(fl: FLConfig):
     def scores_of(rows, key):
         if fl.score_sketch_dim:
             sk = sketch_stacked(rows, key, fl.score_sketch_dim)
-            mean = torch.mean(sk, dim=0)
+            mean = row_mean(sk, mesh)
             dots = sk @ mean
             norms = torch.sum(sk * sk, dim=1)
             msq = torch.sum(mean * mean)
         else:
-            mean = torch.mean(rows, dim=0)
+            mean = row_mean(rows, mesh)
             dots, norms, msq = reduce(rows, mean)
         cos = dots / torch.clamp(torch.sqrt(norms) * torch.sqrt(msq),
                                  min=1e-12)
@@ -118,7 +134,8 @@ def write_back_masked(fl: FLConfig, w, buf, part_prev, d_new, active):
     return part
 
 
-def make_stacked_round_body(fl: FLConfig, fixed_shape: bool = False):
+def make_stacked_round_body(fl: FLConfig, fixed_shape: bool = False,
+                            mesh=None):
     """The stacked OSAFL round as one function
 
         rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None)
@@ -131,17 +148,20 @@ def make_stacked_round_body(fl: FLConfig, fixed_shape: bool = False):
     ``sketch_key``); the mean and the final weighted sum are plain torch
     ops, as the reference leaves them outside its kernel. ``fixed_shape``
     takes ``write_back_masked`` (the fused round's, which a CUDA graph can
-    hold) for ``write_back``."""
-    scores_of = make_scores_fn(fl)
+    hold) for ``write_back``. With the ``mesh`` of R > 1 client rows,
+    ``buf``, ``part_prev``, ``d_new``, ``active`` and ``alphas`` are this
+    rank's rows, ``lam_prev`` and the returned scores the whole (U,)."""
+    scores_of = make_scores_fn(fl, mesh)
     update = write_back_masked if fixed_shape else write_back
+    block = (lambda x: x) if mesh is None else client_sharding(mesh).block
 
     def rnd(w, buf, part_prev, lam_prev, d_new, active, alphas, key=None):
         part = update(fl, w, buf, part_prev, d_new, active)
-        lam = scores_of(buf, key)
+        lam = row_cat(scores_of(buf, key), mesh)
         # stale_scores: weight THIS round's buffer with the PREVIOUS
         # round's scores
         lam_use = lam_prev if fl.stale_scores else lam
-        step = (alphas * lam_use) @ buf
+        step = row_sum((alphas * block(lam_use)) @ buf, mesh)
         w = w - fl.global_lr * fl.local_lr * step
         return w, buf, part, lam_use, lam
 
@@ -242,27 +262,34 @@ class StackedOSAFLServer:
     """Algorithm 2 on a (U, N) contribution buffer. ``round_stacked(d_new,
     active)`` takes a dense (U, N) update matrix (from
     ``client.make_vmapped_local_train``) and a participation mask;
-    ``round(updates)`` takes the loop server's list of ``ClientUpdate``s."""
+    ``round(updates)`` takes the loop server's list of ``ClientUpdate``s.
+    With ``mesh`` (R client rows, one process each) the buffer,
+    ``participated`` and ``alphas`` hold this rank's rows, and
+    ``round_stacked`` takes this rank's rows of the updates with the whole
+    (U,) mask (module docstring)."""
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
                  alphas: Optional[np.ndarray] = None, seed: int = 0,
-                 device=None):
+                 device=None, mesh=None):
         dev = resolve_device(device)
         self.fl = fl
         self.U = num_clients
+        self.rows = (0, num_clients) if mesh is None else \
+            client_sharding(mesh).bounds(num_clients)
+        lo, hi = self.rows
         self.codec: FlatCodec = make_codec(params)
         self.alphas = torch.as_tensor(
             np.full(num_clients, 1.0 / num_clients) if alphas is None
-            else alphas, dtype=torch.float32, device=dev)
+            else alphas, dtype=torch.float32, device=dev)[lo:hi]
         self.w = self.codec.flatten(params).to(dev)
-        self.d_buffer = self.init_row()[None, :].repeat(num_clients, 1)
-        self.participated = torch.zeros(num_clients, dtype=torch.bool,
+        self.d_buffer = self.init_row()[None, :].repeat(hi - lo, 1)
+        self.participated = torch.zeros(hi - lo, dtype=torch.bool,
                                         device=dev)
         self.last_scores = np.ones(num_clients)
         self._lam_prev = torch.ones(num_clients, dtype=torch.float32,
                                     device=dev)
         self._sketch_key = seed_key(seed)
-        self._round_fn = make_stacked_round_body(fl)
+        self._round_fn = make_stacked_round_body(fl, mesh=mesh)
 
     @property
     def params(self) -> dict:
@@ -275,9 +302,11 @@ class StackedOSAFLServer:
                 else torch.zeros_like(self.w))
 
     def round_stacked(self, d_new: torch.Tensor, active) -> torch.Tensor:
-        """d_new: (U, N) f32 update matrix; active: (U,) bool mask. Returns
-        the new flat global weights (``.params`` gives the tree view)."""
-        active = torch.as_tensor(np.asarray(active, bool),
+        """d_new: (U, N) f32 update matrix (over client rows, this rank's
+        rows of it); active: (U,) bool mask. Returns the new flat global
+        weights (``.params`` gives the tree view)."""
+        lo, hi = self.rows
+        active = torch.as_tensor(np.asarray(active, bool)[lo:hi],
                                  device=self.w.device)
         (self.w, self.d_buffer, self.participated, lam_use,
          self._lam_prev) = self._round_fn(
@@ -289,7 +318,7 @@ class StackedOSAFLServer:
     def round(self, updates: Sequence[ClientUpdate]) -> dict:
         d_new, active = scatter_updates(self.codec, updates, self.U,
                                         device=self.w.device)
-        self.round_stacked(d_new, active)
+        self.round_stacked(d_new[self.rows[0]:self.rows[1]], active)
         return self.params
 
     # -- checkpointing -------------------------------------------------------
@@ -298,18 +327,21 @@ class StackedOSAFLServer:
         flags and both score vectors (current and stale carry). The leaves
         are the live tensors; the round writes ``d_buffer`` in place, so a
         writer must copy them before the next round (both writers do)."""
-        return {"w": self.w, "d_buffer": self.d_buffer,
-                "participated": self.participated,
+        lo = self.rows[0]
+        return {"w": self.w, "d_buffer": row_leaf(self.d_buffer, lo, self.U),
+                "participated": row_leaf(self.participated, lo, self.U),
                 "last_scores": np.asarray(self.last_scores),
                 "lam_prev": self._lam_prev,
                 "sketch_key": self._sketch_key}
 
     def load_state_dict(self, sd: dict) -> None:
         dev = self.w.device
+        lo, hi = self.rows
         self.w = owned_tensor(sd["w"], dev)
-        self.d_buffer = owned_tensor(sd["d_buffer"], dev)
-        self.participated = owned_tensor(
-            np.asarray(sd["participated"], bool), dev)
+        self.d_buffer = owned_tensor(
+            own_rows(sd["d_buffer"], lo, hi, self.U), dev)
+        self.participated = owned_tensor(own_rows(
+            np.asarray(sd["participated"], bool), lo, hi, self.U), dev)
         self.last_scores = np.asarray(sd["last_scores"])
         self._lam_prev = owned_tensor(sd["lam_prev"], dev)
         self._sketch_key = np.asarray(sd["sketch_key"])

@@ -1,20 +1,26 @@
 """Pod-scale OSAFL train steps and the serving steps of the transformer zoo
-(``repro/core/pod.py``), on one card.
+(``repro/core/pod.py``), one process per client row.
 
 The reference maps clients onto the client axes ('pod', 'data') of a TPU
-mesh. On one card those axes hold one device: every ``psum`` over them is
-the identity, and the tensor-parallel engine runs one client row (U = 1).
-The stationary-batch engines are ported as the reference computes them:
+mesh. Here each client row is one rank of the default
+``torch.distributed`` process group (``launch/mesh.make_host_mesh``), and
+its ``psum``s and ``pmax``es are ``core/shmap``'s rank-ordered
+collectives; with one row and no group they are the identity. Each rank
+passes its own block of the batch (``shmap.client_sharding``). The
+stationary-batch engines are ported as the reference computes them:
 
-exact_tp    one client row: its gradient d, cos(d, d_mean) with d_mean =
-            d, lambda = (chi + cos) / (chi + 1) and the update lambda d (a
-            count-sketch cosine with ``sketch_dim``).
-recompute   clients in sequence, two backwards: pass 1 sums d_u, pass 2
-            recomputes each d_u, scores it against d_mean and sums lambda_u
-            d_u; f32 accumulators (bf16 with ``REPRO_ACCUM_BF16=1``).
+exact_tp    one client per row: its gradient d, d_mean = psum(d) / U,
+            cos(d, d_mean), lambda = (chi + cos) / (chi + 1) and the
+            update psum(lambda d) / U, the two-phase scored all-reduce (a
+            count-sketch cosine against the psum of the sketches with
+            ``sketch_dim``).
+recompute   each row's clients in sequence, two backwards: pass 1 sums d_u
+            (summed across rows), pass 2 recomputes each d_u, scores it
+            against d_mean and sums lambda_u d_u (summed across rows); f32
+            accumulators (bf16 with ``REPRO_ACCUM_BF16=1``).
 stale       one backward: round t is weighted by round t-1's lambdas, and
             this round's count sketches give round t+1's.
-fedavg      the unscored data-parallel step.
+fedavg      the unscored data-parallel step (the rows' gradients averaged).
 
 Each step returns new parameters and leaves its inputs alone; the
 accumulators of a step are summed in place (they are the step's own).
@@ -26,17 +32,19 @@ minibatches from the client's own storage row (``make_pod_batch_fn``) and
 runs the paper's masked kappa_u-step local SGD
 (``client.make_local_train_body``) for each client:
 ``step(params, bx, by, slots, kappas) -> (d, w)``, stacked over the
-clients. exact_tp, stale and fedavg run every client under one
-``torch.func.vmap``; recompute runs them one at a time and writes each
-client's ``d_u``/``w_u`` into preallocated (U, ...) trees, so no U-wide
-SGD state is live. Aggregation stays with the stacked servers
-(``repro_torch.harness.run`` on the pod engine; stale's one-round score lag
-is the server's ``FLConfig.stale_scores``).
+clients. Over R rows each rank passes its rows of the storage, slots and
+kappas and gets its (U/R, ...) rows back; the step is row-local. exact_tp,
+stale and fedavg run the rank's clients under one ``torch.func.vmap``;
+recompute runs them one at a time and writes each client's ``d_u``/``w_u``
+into preallocated (U/R, ...) trees, so no U-wide SGD state is live.
+Aggregation stays with the stacked servers (``repro_torch.harness.run`` on
+the pod engine; stale's one-round score lag is the server's
+``FLConfig.stale_scores``).
 
-A layout of more than one client row raises: client rows across cards come
-with ``torch.distributed`` (ROADMAP.md A6). The count-sketch signs are the
-port's (``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to
-the reference's ``PRNGKey(17)`` signs only in distribution.
+A mesh of R > 1 rows needs a process group of R ranks (``ValueError``
+otherwise). The count-sketch signs are the port's
+(``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to the
+reference's ``PRNGKey(17)`` signs only in distribution.
 """
 from __future__ import annotations
 
@@ -50,7 +58,9 @@ from repro_torch.core.client import make_local_train_body
 from repro_torch.core.flatten import (tree_from_leaves, tree_get, tree_map,
                                       tree_paths)
 from repro_torch.core.scores import sketch_tree, tree_dot, tree_norm
-from repro_torch.core.shmap import client_rows
+from repro_torch.core.shmap import (check_ranks, client_rows,
+                                    client_sharding, row_cat, row_max,
+                                    row_mean, row_min, row_sum, shard_map)
 from repro_torch.models.transformer import decode_step, forward, loss_fn
 
 # the (2,) uint32 words of the reference's PRNGKey(17)
@@ -58,21 +68,29 @@ SKETCH_KEY = (0, 17)
 
 
 def num_pod_clients(mesh=None) -> int:
-    """Client rows of the layout: 1 on one card."""
-    _one_row(mesh)
-    return 1
+    """Client rows of the layout (clients of exact_tp, one a row): the
+    mesh's R, 1 with no mesh."""
+    if mesh is None:
+        return 1
+    if not hasattr(mesh, "axis_names"):
+        raise TypeError(f"{mesh!r} is not a mesh; pass "
+                        "repro_torch.launch.mesh.make_host_mesh()")
+    return client_rows(mesh)
 
 
-def _one_row(mesh) -> None:
-    """Accept one client row: ``None``, ``1`` or a mesh whose client axes
-    hold one device (``launch/mesh.make_host_mesh``)."""
-    if mesh is None or mesh == 1 or (hasattr(mesh, "axis_names")
-                                     and client_rows(mesh) == 1):
-        return
-    raise NotImplementedError(
-        f"repro_torch runs the pod engines on one card, one client row; "
-        f"got the layout {mesh!r}. Client rows across cards come with "
-        f"torch.distributed (ROADMAP.md A6)")
+def _rows(mesh) -> int:
+    """The layout's client rows, each a rank of the process group."""
+    R = num_pod_clients(mesh)
+    if mesh is not None:
+        check_ranks(mesh)
+    return R
+
+
+def _block(mesh, U: int) -> tuple:
+    """This row's ``(lo, hi)`` of U clients, each a rank of the process
+    group."""
+    _rows(mesh)
+    return (0, U) if mesh is None else client_sharding(mesh).bounds(U)
 
 
 # ---------------------------------------------------------------------------
@@ -115,8 +133,9 @@ def _make_online_step(fl: FLConfig, mesh, batch_fn: Callable,
     ``torch.func.vmap``; ``scan=True`` (recompute) runs one client at a
     time and writes its outputs into preallocated (U, ...) trees. Both run
     ``client.make_local_train_body``'s masked local SGD, so kappa_u = 0
-    stragglers give d_u = 0 and the forms agree to rounding."""
-    _one_row(mesh)
+    stragglers give d_u = 0 and the forms agree to rounding. Over R rows
+    the step takes and returns this rank's rows: it needs no collective."""
+    _rows(mesh)
     one_client = make_local_train_body(grad_fn, fl.local_lr, fl.kappa_max,
                                        prox_mu=prox_mu)
 
@@ -140,21 +159,22 @@ def _make_online_step(fl: FLConfig, mesh, batch_fn: Callable,
 
     many = torch.func.vmap(one_client, in_dims=(None, 0, 0))
 
-    def step(params, bx, by, slots, kappas):
+    def body(params, bx, by, slots, kappas):
         return many(params, batch_fn(bx, by, slots), kappas)
-    return step
+    return shard_map(body, mesh=mesh)
 
 
 def _lambda(chi, cos):
     return (chi + cos) / (chi + 1.0)
 
 
-def _scored_metrics(lam, loss, U: int) -> dict:
-    """The reference's metrics from the client rows' lambdas and losses
-    (psums and pmaxes over the rows; one row on one card)."""
-    lam, loss = torch.atleast_1d(lam), torch.atleast_1d(loss)
-    return {"loss": loss.sum() / U, "lambda_mean": lam.sum() / U,
-            "lambda_min": lam.min(), "lambda_max": lam.max()}
+def _scored_metrics(lam, loss, mesh, U: int) -> dict:
+    """The reference's metrics from each row's lambda and loss: psums over
+    the rows / U, and pmin, pmax."""
+    return {"loss": row_sum(loss, mesh) / U,
+            "lambda_mean": row_sum(lam, mesh) / U,
+            "lambda_min": row_min(lam, mesh),
+            "lambda_max": row_max(lam, mesh)}
 
 
 def _loss_and_grad(params, batch, cfg: ModelConfig):
@@ -165,6 +185,14 @@ def _loss_and_grad(params, batch, cfg: ModelConfig):
         loss, _ = loss_fn(tree_from_leaves(paths, leaves), batch, cfg)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_from_leaves(paths, grads)
+
+
+def _check_clients(batch: dict, n: int) -> None:
+    """A stationary step's batch holds this row's n clients."""
+    got = {int(x.shape[0]) for x in batch.values()}
+    if got != {n}:
+        raise ValueError(f"the batch's leading (client) dimension is "
+                         f"{sorted(got)}; this row runs {n} clients")
 
 
 def _apply(params, update, lr_eff: float):
@@ -181,23 +209,23 @@ def _add_(acc, tree, scale=None) -> None:
 
 
 # ---------------------------------------------------------------------------
-# exact_tp (one client row on one card)
+# exact_tp (one client a row, the two-phase scored all-reduce)
 # ---------------------------------------------------------------------------
 
 def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
                        sketch_dim: int = 0, batch_fn: Callable = None,
                        grad_fn: Callable = None,
                        prox_mu: float = 0.0) -> Callable:
-    """``step(params, batch) -> (new params, metrics)`` on one client row:
-    the whole batch is the row's; ``kappa_max`` > 1 splits it into that
-    many microbatches whose gradients are averaged. With ``batch_fn``, the
-    online step (module docstring)."""
+    """``step(params, batch) -> (new params, metrics)``, each row's
+    ``batch`` its own block of the global batch (its client's data);
+    ``kappa_max`` > 1 splits it into that many microbatches whose
+    gradients are averaged. With ``batch_fn``, the online step (module
+    docstring)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
                                  _online_grad_fn(grad_fn, cfg),
                                  prox_mu=prox_mu)
-    _one_row(mesh)
-    U = 1
+    U = _rows(mesh)
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
 
@@ -221,17 +249,18 @@ def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
         loss, g = local_update(params, batch)
         if sketch_dim:
             sk = sketch_tree(g, SKETCH_KEY, sketch_dim)
-            sk_mean = sk / U
+            sk_mean = row_sum(sk, mesh) / U
             cos = torch.vdot(sk, sk_mean) / torch.clamp(
                 torch.linalg.vector_norm(sk)
                 * torch.linalg.vector_norm(sk_mean), min=1e-12)
         else:
-            d_mean = tree_map(lambda x: x / U, g)
+            d_mean = tree_map(lambda x: row_sum(x, mesh) / U, g)
             cos = tree_dot(g, d_mean) / torch.clamp(
                 tree_norm(g) * tree_norm(d_mean), min=1e-12)
         lam = _lambda(chi, cos)
-        update = tree_map(lambda x: lam * x / U, g)
-        return _apply(params, update, lr_eff), _scored_metrics(lam, loss, U)
+        update = tree_map(lambda x: row_sum(lam * x, mesh) / U, g)
+        return (_apply(params, update, lr_eff),
+                _scored_metrics(lam, loss, mesh, U))
     return step
 
 
@@ -245,9 +274,10 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
                               grad_fn: Callable = None,
                               prox_mu: float = 0.0) -> Callable:
     """``step(params, batch) -> (new params, metrics)``, batch leaves
-    (U, b, ...). ``grad_specs`` (the reference's sharding pins) is taken
-    and has nothing to pin on one card. With ``batch_fn``, the online step
-    in its one-client-at-a-time form (module docstring)."""
+    (U / R, b, ...): this row's clients. ``grad_specs`` (the reference's
+    sharding pins) is taken and has nothing to pin: each rank holds whole
+    parameters. With ``batch_fn``, the online step in its
+    one-client-at-a-time form (module docstring)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
                                  _online_grad_fn(grad_fn, cfg),
@@ -255,6 +285,8 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
+    lo, hi = _block(mesh, U)
+    n_loc = hi - lo
     acc_dtype = (torch.bfloat16 if os.environ.get("REPRO_ACCUM_BF16") == "1"
                  else torch.float32)
 
@@ -266,16 +298,17 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
         return {k: x[u] for k, x in batch.items()}
 
     def step(params, batch):
+        _check_clients(batch, n_loc)
         sum_d, losses = zeros(params), []
-        for u in range(U):                       # pass 1: sum of d_u
+        for u in range(n_loc):                   # pass 1: sum of d_u
             loss, g = _loss_and_grad(params, client(batch, u), cfg)
             _add_(sum_d, g)
             losses.append(loss)
-        d_mean = tree_map(lambda x: x * (1.0 / U), sum_d)
+        d_mean = tree_map(lambda x: row_sum(x, mesh) * (1.0 / U), sum_d)
         del sum_d
         nm = tree_norm(d_mean)
         wsum, lams = zeros(params), []
-        for u in range(U):                       # pass 2: lambda_u d_u
+        for u in range(n_loc):                   # pass 2: lambda_u d_u
             _, g = _loss_and_grad(params, client(batch, u), cfg)
             g = tree_map(lambda x: x.to(acc_dtype), g)
             cos = tree_dot(g, d_mean) / torch.clamp(tree_norm(g) * nm,
@@ -283,11 +316,12 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
             lam = _lambda(chi, cos)
             _add_(wsum, g, lam)
             lams.append(lam)
-        update = tree_map(lambda x: x * (1.0 / U), wsum)
+        update = tree_map(lambda x: row_sum(x, mesh) * (1.0 / U), wsum)
         lams = torch.stack(lams)
-        metrics = {"loss": torch.stack(losses).mean(),
-                   "lambda_mean": lams.mean(), "lambda_min": lams.min(),
-                   "lambda_max": lams.max()}
+        metrics = {"loss": row_mean(torch.stack(losses), mesh),
+                   "lambda_mean": row_mean(lams, mesh),
+                   "lambda_min": row_min(lams.min(), mesh),
+                   "lambda_max": row_max(lams.max(), mesh)}
         return _apply(params, update, lr_eff), metrics
     return step
 
@@ -302,10 +336,10 @@ def make_stale_score_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
                                 batch_fn: Callable = None,
                                 grad_fn: Callable = None,
                                 prox_mu: float = 0.0) -> Callable:
-    """``step(params, lam_prev (U,), batch) -> (new params, lam_next,
-    metrics)``, batch leaves (U, b, ...). With ``batch_fn``, exact_tp's
-    online step: the one-round score lag is the server's
-    (``FLConfig.stale_scores``)."""
+    """``step(params, lam_prev (U,), batch) -> (new params, lam_next (U,),
+    metrics)``, batch leaves (U / R, b, ...): this row's clients. With
+    ``batch_fn``, exact_tp's online step: the one-round score lag is the
+    server's (``FLConfig.stale_scores``)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
                                  _online_grad_fn(grad_fn, cfg),
@@ -313,26 +347,28 @@ def make_stale_score_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
+    lo, hi = _block(mesh, U)
 
     def step(params, lam_prev, batch):
+        _check_clients(batch, hi - lo)
         wsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                               device=p.device), params)
         losses, sketches = [], []
-        for u in range(U):
+        for u in range(hi - lo):
             loss, g = _loss_and_grad(params, {k: x[u] for k, x in
                                               batch.items()}, cfg)
             g = tree_map(lambda x: x.float(), g)
             sketches.append(sketch_tree(g, SKETCH_KEY, sketch_dim))
-            _add_(wsum, g, lam_prev[u])
+            _add_(wsum, g, lam_prev[lo + u])
             losses.append(loss)
-        update = tree_map(lambda x: x * (1.0 / U), wsum)
+        update = tree_map(lambda x: row_sum(x, mesh) * (1.0 / U), wsum)
         sketches = torch.stack(sketches)
-        mean_sk = sketches.mean(0)
+        mean_sk = row_mean(sketches, mesh)
         cos = (sketches @ mean_sk) / torch.clamp(
             torch.linalg.vector_norm(sketches, dim=1)
             * torch.linalg.vector_norm(mean_sk), min=1e-12)
-        lam_next = _lambda(chi, cos)
-        metrics = {"loss": torch.stack(losses).mean(),
+        lam_next = row_cat(_lambda(chi, cos), mesh)
+        metrics = {"loss": row_mean(torch.stack(losses), mesh),
                    "lambda_mean": lam_next.mean(),
                    "lambda_min": lam_next.min(),
                    "lambda_max": lam_next.max()}
@@ -349,16 +385,21 @@ def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
                            grad_fn: Callable = None,
                            prox_mu: float = 0.0) -> Callable:
     """``step(params, batch) -> (new params, {"loss"})``: the unscored
-    baseline. With ``batch_fn``, exact_tp's online step: unscored
-    averaging is the stacked FedAvg server's."""
+    baseline, each row's ``batch`` its block of the global batch and the
+    gradient the rows' mean. With ``batch_fn``, exact_tp's online step:
+    unscored averaging is the stacked FedAvg server's."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
                                  _online_grad_fn(grad_fn, cfg),
                                  prox_mu=prox_mu)
     lr_eff = fl.global_lr * fl.local_lr
+    R = _rows(mesh)
 
     def step(params, batch):
         loss, g = _loss_and_grad(params, batch, cfg)
+        if R > 1:
+            g = tree_map(lambda x: row_sum(x, mesh) / R, g)
+            loss = row_sum(loss, mesh) / R
         return _apply(params, g, lr_eff), {"loss": loss}
     return step
 

@@ -3,9 +3,10 @@
 ``RULES`` is the reference's matrix (``repro/harness/compat.py``), copied
 rule for rule in its order; its ``fused-*`` and ``scenario-fused`` rules
 alone decide which fused rounds run. ``PORT_RULES`` then rejects, in the
-same uniform form, what the port does not run yet: a mesh of more than one
-client row. ``resolve()`` evaluates both lists in order and raises on the
-first match:
+same uniform form, what the port does not run yet: a sparse cohort or edge
+clusters on a mesh of more than one client row (ROADMAP.md A6, second
+half). ``resolve()`` evaluates both lists in order and raises on the first
+match:
 
     invalid experiment configuration [rule-key]: why
 """
@@ -210,19 +211,22 @@ RULES = (
 
 
 def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet (the port runs every "
-            "engine of the reference on one card: the stacked dispatch "
-            "round, the fused round, the per-client loop oracle, the genie "
-            "and the pod engine on one client row, the mesh of "
-            "repro_torch.launch.mesh.make_host_mesh(); client rows across "
-            "cards come with torch.distributed, ROADMAP.md A6)")
+    return (f"{what} is not ported to repro_torch yet (the pod engine runs "
+            "over the client rows of repro_torch.launch.mesh."
+            "make_host_mesh(), one torch.distributed rank a row, with the "
+            "dense buffer and the flat servers; sparse cohorts and edge "
+            "clusters across rows are ROADMAP.md A6's second half)")
 
 
 #: What the port does not run yet, checked after ``RULES``.
 PORT_RULES = (
     Rule("port-mesh",
-         lambda p: p.mesh_rows > 1,
-         lambda p: _not_ported(f"a mesh of {p.mesh_rows} client rows")),
+         lambda p: p.mesh_rows > 1 and (p.cohort_size > 0
+                                        or p.num_clusters >= 1),
+         lambda p: _not_ported(
+             ("a sparse cohort (cohort_size > 0)" if p.cohort_size
+              else f"edge clusters (num_clusters={p.num_clusters})")
+             + f" on a mesh of {p.mesh_rows} client rows")),
 )
 
 

@@ -28,10 +28,17 @@ stacked round with the local SGD of ``core/pod.py``'s online steps, which
 gather each client's minibatches from its own storage row: ``exact_tp``,
 ``stale`` and ``fedavg`` vmapped over the clients, ``recompute`` one
 client at a time; ``stale`` weights round t with round t-1's scores
-(``FLConfig.stale_scores``). Its mesh is one client row on one card
-(``launch/mesh.make_host_mesh``), where it matches the stacked engine
-metric for metric; its snapshots are tagged ``"pod"`` and record the
-engine flavour and the mesh's axes and shape.
+(``FLConfig.stale_scores``). Its mesh (``launch/mesh.make_host_mesh``)
+holds one client row per rank of the ``torch.distributed`` process group,
+one row with none, where it matches the stacked engine metric for metric.
+Over R > 1 rows every rank draws the host RNG for all U clients, as one
+process does, and keeps its U/R rows of the FIFO buffer and of the
+server's contribution buffer; the server round's sums run across the
+ranks in rank order, every rank holds the same weights, evaluates them
+and returns the same history (``round_s`` the slowest rank's). Its
+snapshots are tagged ``"pod"`` and record the engine flavour and the
+mesh's axes and shape; over R rows each rank writes its rows as shard
+files of one v2 snapshot, and a resume on R ranks reads each rank's.
 
 The stacked and pod engines also run the sparse cohort (``cohort_size``,
 ``participation``: only C slots of round state exist, a sample of the
@@ -78,7 +85,8 @@ from repro_torch.core.resource import (NetworkConfig, make_clients,
                                        optimize_round)
 from repro_torch.core.resource_stacked import (optimize_round_batched,
                                                stack_clients)
-from repro_torch.core.shmap import client_rows
+from repro_torch.core.shmap import (check_ranks, client_rows,
+                                    client_sharding, grouped, row_max)
 from repro_torch.core.round_fused import FusedEngine
 from repro_torch.data.online import (binomial_arrivals_batched,
                                      dataset_layout, draw_arrival_batch,
@@ -126,15 +134,23 @@ def _validate_ckpt_args(save_every_k, checkpoint_dir,
                 f"keep_last must be a positive int, got {keep_last!r}")
 
 
-def _make_ckpt_writer(save_every_k, checkpoint_async: bool, keep_last):
+def _make_ckpt_writer(save_every_k, checkpoint_async: bool, keep_last,
+                      mesh=None, device=None):
     """The run's checkpoint writer, or None when checkpointing is off: the
     async v2 writer (``submit`` copies the state to the host, a thread
-    writes it; ``close()`` at exit is the drain barrier) or the blocking
-    v1 writer."""
+    writes it; ``close()`` at exit is the drain barrier), over the client
+    rows of ``mesh`` one shard file per rank, or the blocking v1 writer
+    (one process's whole arrays)."""
     if not save_every_k:
         return None
     if checkpoint_async:
-        return checkpoint.AsyncCheckpointWriter(keep_last=keep_last)
+        return checkpoint.AsyncCheckpointWriter(keep_last=keep_last,
+                                                mesh=mesh, device=device)
+    if mesh is not None and client_rows(mesh) > 1:
+        raise ValueError(
+            "checkpoint_async=False writes v1 snapshots, one file of whole "
+            f"arrays; a run over {client_rows(mesh)} client rows writes "
+            "v2 snapshots, one shard file per rank (checkpoint_async=True)")
     return checkpoint.BlockingCheckpointWriter(keep_last=keep_last)
 
 
@@ -201,17 +217,18 @@ def _draw(stream, n, dataset):
 
 
 def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
-                   device: torch.device,
-                   stale_scores: bool = False) -> SimpleNamespace:
+                   device: torch.device, stale_scores: bool = False,
+                   mesh=None) -> SimpleNamespace:
     """Deterministic run setup of the stacked and pod engines: the scenario
     (bound to the population), population and request streams,
     capacities, the server (with the sparse cohort's initial residents
     seated), the FIFO buffers' initial fill (residents only), the eval set
     and the client system parameters, drawing the host RNG in the
     reference's order. ``stale_scores`` (the pod stale engine's one-round
-    score lag) goes to the server's ``FLConfig`` and touches no RNG. The
-    reference's ``mesh`` argument shards the buffer over client rows; on
-    one row it changes no draw and no layout, so it is not taken here."""
+    score lag) goes to the server's ``FLConfig`` and touches no RNG.
+    ``mesh`` lays the FIFO buffer and the server's contribution buffer
+    over its client rows (this rank's rows of each); every draw stays the
+    whole cohort's, so it changes none."""
     stacked_req = xc.request_backend == "stacked"
     model, U = xc.model, xc.num_clients
     sparse = xc.cohort_size > 0
@@ -246,7 +263,7 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
                   score_sketch_dim=xc.score_sketch_dim,
                   stale_scores=stale_scores)
     server = make_server(init_small(xc.seed, model, device), fl, U,
-                         seed=xc.seed, device=device)
+                         seed=xc.seed, device=device, mesh=mesh)
     if sparse:
         # the first C users (under the hierarchy the first C/K members of
         # each cluster), arange(C) at K <= 1: the parity anchors
@@ -256,7 +273,7 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
         caps[cohort0] if sparse else caps, feat_shape, 100,
         stage_capacity=arr_width, dtype=dtype, device=device,
         # slot storage must fit any later-admitted resident's capacity
-        depth=int(caps.max()) if sparse else None)
+        depth=int(caps.max()) if sparse else None, mesh=mesh)
     # initial fill (residents only): FIFO commits compose, so ingest the
     # cap_u seed samples in arrival-width chunks through the staging area
     if stacked_req:
@@ -458,21 +475,40 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _round_times(mesh, device, req_s: float, round_s: float) -> tuple:
+    """``(request_gen_s, round_s)`` every rank reports: the slowest rank's
+    (the gather is the round's closing barrier); a run without a process
+    group reports its own."""
+    if mesh is None or not grouped():
+        return req_s, round_s
+    both = row_max(torch.tensor([req_s, round_s], dtype=torch.float64,
+                                device=device), mesh)
+    return tuple(float(x) for x in both.cpu())
+
+
 def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
                 device: torch.device, s: SimpleNamespace, local_sgd,
                 engine: str, shape: dict, save_every_k, checkpoint_dir,
-                resume_from, checkpoint_async: bool, keep_last) -> list:
+                resume_from, checkpoint_async: bool, keep_last,
+                mesh=None) -> list:
     """The dispatch round of the stacked and pod engines over the setup
     ``s``; ``local_sgd(slots, kappas) -> (d, w)`` is the engine's local
     SGD. One history row per round, and a snapshot tagged ``engine`` after
     every ``save_every_k``-th round. ``shape`` holds the engine's run-shape
     keys outside ``ExperimentConfig`` (the pod engine's flavour and mesh):
     they go into the snapshot's config, its metadata takes the flavour,
-    and a resume compares them."""
-    writer = _make_ckpt_writer(save_every_k, checkpoint_async, keep_last)
+    and a resume compares them. Over the client rows of ``mesh`` each rank
+    writes and resumes its rows, and each round's times are the slowest
+    rank's."""
+    writer = _make_ckpt_writer(save_every_k, checkpoint_async, keep_last,
+                               mesh, device)
+    many = mesh is not None and client_rows(mesh) > 1
     history, start_round = [], 0
     if resume_from is not None:
-        snap = checkpoint.load_run_state(resume_from)
+        # over rows each rank reads its own rows of the sharded leaves
+        rows = ({"block": client_sharding(mesh).bounds(xc.num_clients)}
+                if many else {})
+        snap = checkpoint.load_run_state(resume_from, **rows)
         _check_snapshot(snap, engine, alg, xc, eval_samples, extra=shape)
         history, start_round = _resume_stacked(s, snap)
         del snap
@@ -488,7 +524,8 @@ def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
             del upd
             loss, m = small_loss(s.server.params, s.test_batch, s.model)
             _synchronize(device)     # round_s covers all of the round's work
-            round_s = time.perf_counter() - t_start
+            req_s, round_s = _round_times(mesh, device, req_s,
+                                          time.perf_counter() - t_start)
             history.append({"round": t, "test_loss": float(loss),
                             "test_acc": float(m["accuracy"]),
                             "participants": int(active.sum()),
@@ -510,6 +547,8 @@ def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
                               **meta})
         if writer is not None:
             writer.close()          # drain barrier: all snapshots committed
+            if many:                # ... by rank 0, for every rank
+                row_max(torch.zeros(1, device=device), mesh)
     finally:
         if writer is not None:
             writer.shutdown()
@@ -560,10 +599,13 @@ def _run_pod(alg: str, xc: ExperimentConfig, pod_engine: str,
     ``pod_engine`` flavour's online step. ``mesh=None`` is
     ``make_host_mesh()`` on ``device``. ``xc.num_clients``, and
     ``xc.cohort_size`` and ``xc.num_clusters`` (K > 1) where set, must be
-    multiples of the mesh's client rows, as in the reference."""
+    multiples of the mesh's client rows, as in the reference. A mesh of R
+    > 1 rows runs as R ranks of the process group, each on its rows of
+    the buffers, slots and kappas."""
     if mesh is None:
         mesh = make_host_mesh(device=device)
     rows = client_rows(mesh)
+    check_ranks(mesh)
     if xc.num_clients % rows:
         raise ValueError(
             f"num_clients {xc.num_clients} is not divisible by the mesh's "
@@ -581,18 +623,21 @@ def _run_pod(alg: str, xc: ExperimentConfig, pod_engine: str,
             "whole cluster slot blocks (K=1 spans shards exactly like the "
             "flat buffer and is exempt)")
     s = _stacked_setup(alg, xc, eval_samples, device,
-                       stale_scores=pod_engine == "stale")
+                       stale_scores=pod_engine == "stale", mesh=mesh)
     pod_step = _make_pod_step(pod_engine, s, mesh)
 
     def local_sgd(slots, kappas):
+        # every rank drew every client's slots and kappas; it trains its own
+        slots = torch.as_tensor(slots, device=device)
         return pod_step(s.server.params, s.sbuf.state.x, s.sbuf.state.y,
-                        torch.as_tensor(slots, device=device), kappas)
+                        client_sharding(mesh, slots.dim()).block(slots),
+                        client_sharding(mesh).block(kappas))
     shape = {"pod_engine": pod_engine,
              "mesh_axes": list(mesh.axis_names),
              "mesh_shape": [int(mesh.shape[a]) for a in mesh.axis_names]}
     return _run_rounds(alg, xc, eval_samples, device, s, local_sgd, "pod",
                        shape, save_every_k, checkpoint_dir, resume_from,
-                       checkpoint_async, keep_last)
+                       checkpoint_async, keep_last, mesh)
 
 
 def build_fused_engine(alg: str, xc: ExperimentConfig,
@@ -843,8 +888,10 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
     card) or on the per-client loop oracle (``xc.engine="loop"``), or
     ``"centralized"`` (or ``xc.engine="centralized"``) for the pooled-data
     genie. The whole configuration is validated up front
-    (``repro_torch.harness.compat``); a mesh of more than one client row
-    raises ``ExperimentConfigError``.
+    (``repro_torch.harness.compat``). A mesh of R > 1 client rows runs the
+    pod engine on R ranks of the ``torch.distributed`` process group, each
+    calling ``run`` with its ``make_host_mesh()``; a sparse cohort or edge
+    clusters on more than one row raise ``ExperimentConfigError``.
 
     ``save_every_k``/``checkpoint_dir`` write a RunState snapshot
     (``checkpoint_path(checkpoint_dir, t)``) after every k-th round;
@@ -852,7 +899,8 @@ def run(alg: str, xc: ExperimentConfig, *, eval_samples: int = 400,
     ``keep_last`` prunes all but the newest N committed snapshots. The
     stacked and pod engines write v2 snapshots on a background thread
     (``checkpoint_async=False``: blocking v1); the loop engine always
-    writes blocking v1. A ``"pod"`` snapshot resumes only into the same
+    writes blocking v1; a run over R > 1 rows writes v2 only, one shard
+    file per rank. A ``"pod"`` snapshot resumes only into the same
     ``pod_engine`` and mesh shape. The genie does not checkpoint."""
     plan = resolve(alg, xc, mesh=mesh, pod_engine=pod_engine)
     _LOG.info("resolved experiment plan: %s", plan.describe())

@@ -1,10 +1,18 @@
 """Config-driven trainer (``repro/launch/train.py``): runs the pod-scale
-OSAFL engines on one card, one client row.
+OSAFL engines on the host mesh, one client row per process.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-4b \\
       --steps 50 --engine exact_tp [--sketch 64] [--ckpt out.npz]
 
 ``--device cpu`` runs on the CPU; without it the run needs a CUDA card.
+Over R client rows start R processes, one a card, each of which joins
+the process group first:
+
+  torchrun --nproc-per-node R -m repro_torch.launch.train ... --distributed
+
+(``--distributed`` calls ``init_process_group`` with NCCL on the cards,
+gloo with ``--device cpu``). Every rank draws the whole batch from the
+same seed and trains on its block; rank 0 prints and writes ``--ckpt``.
 ``--full`` takes the full config (40 layers of qwen1.5-4b do not fit one
 card's memory with ``recompute``'s five parameter-sized trees; a caller
 cuts depth with ``dataclasses.replace`` and ``run(cfg=...)``).
@@ -22,9 +30,11 @@ from repro_torch.core.pod import (make_fedavg_train_step,
                                   make_recompute_train_step,
                                   make_stale_score_train_step,
                                   make_tp_train_step, num_pod_clients)
+from repro_torch.core.shmap import client_sharding, use_mesh
 from repro_torch.data.synthetic import (learnable_sequence_batch,
                                         make_train_batch)
 from repro_torch.device import clock, resolve_device
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import init_model, param_count
 
 ENGINES = ("exact_tp", "recompute", "stale", "fedavg")
@@ -37,30 +47,38 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
     """Train ``arch`` (or ``cfg``, which replaces it) for ``steps`` steps
     from weights drawn with ``seed``; returns ``(params, history)``, each
     entry of ``history`` the step's metrics plus ``step_s`` (wall seconds,
-    ending in a synchronize on the card)."""
+    ending in a synchronize on the card). The mesh is ``make_host_mesh``'s:
+    one client row per rank of the process group (one with none);
+    ``num_clients`` (of recompute and stale) defaults to its rows."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; known: {ENGINES}")
-    dev = resolve_device(device)
+    mesh = make_host_mesh(device=device)
+    dev = resolve_device(mesh.device if device is None else device)
     if cfg is None:
         cfg = get_config(arch)
         if reduced:
             cfg = cfg.reduced()
+    rows = num_pod_clients(mesh)
     fl = FLConfig(kappa_max=1, local_lr=lr, global_lr=global_lr,
-                  num_clients=num_clients or num_pod_clients(),
+                  num_clients=num_clients or rows,
                   score_sketch_dim=sketch)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     params = init_model(gen, cfg)
-    print(f"{cfg.name}: {param_count(params) / 1e6:.1f}M params, "
-          f"device={dev}, client rows=1, engine={engine}")
+    lead = mesh.row == 0
+    if lead:
+        print(f"{cfg.name}: {param_count(params) / 1e6:.1f}M params, "
+              f"device={dev}, client rows={rows}, engine={engine}")
 
-    if engine == "exact_tp":
-        step = make_tp_train_step(cfg, fl, sketch_dim=sketch)
-    elif engine == "recompute":
-        step = make_recompute_train_step(cfg, fl, None, fl.num_clients)
-    elif engine == "stale":
-        step = make_stale_score_train_step(cfg, fl, None, fl.num_clients)
-    else:
-        step = make_fedavg_train_step(cfg, fl)
+    with use_mesh(mesh):
+        if engine == "exact_tp":
+            step = make_tp_train_step(cfg, fl, mesh, sketch_dim=sketch)
+        elif engine == "recompute":
+            step = make_recompute_train_step(cfg, fl, mesh, fl.num_clients)
+        elif engine == "stale":
+            step = make_stale_score_train_step(cfg, fl, mesh,
+                                               fl.num_clients)
+        else:
+            step = make_fedavg_train_step(cfg, fl, mesh)
     lam = torch.ones((fl.num_clients,), dtype=torch.float32, device=dev)
     draw = learnable_sequence_batch if learnable else make_train_batch
     history = []
@@ -69,6 +87,9 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
         if engine in ("recompute", "stale"):
             b = {k: x.reshape((fl.num_clients, -1) + tuple(x.shape[1:]))
                  for k, x in b.items()}
+        # every rank drew the whole batch; it trains on its block
+        b = {k: client_sharding(mesh, x.dim()).block(x)
+             for k, x in b.items()}
         t0 = clock(dev)
         if engine == "stale":
             params, lam, metrics = step(params, lam, b)
@@ -77,12 +98,12 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["step_s"] = clock(dev) - t0
         history.append(metrics)
-        if t % log_every == 0 or t == steps - 1:
+        if lead and (t % log_every == 0 or t == steps - 1):
             lam_m = metrics.get("lambda_mean")
             print(f"step {t:4d} loss={metrics['loss']:.4f}"
                   + (f" lambda={lam_m:.4f}" if lam_m is not None else "")
                   + f" ({metrics['step_s']:.2f}s)")
-    if ckpt:
+    if ckpt and lead:
         checkpoint.save(ckpt, params, step=steps)
         print(f"saved checkpoint -> {ckpt}")
     return params, history
@@ -101,11 +122,21 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.1)
     ap.add_argument("--num-clients", type=int, default=None,
                     help="clients of recompute and stale (default: the "
-                         "one client row)")
+                         "mesh's client rows)")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the CUDA card)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group torchrun describes (one "
+                         "client row per process)")
     args = ap.parse_args(argv)
+    if args.distributed:
+        import os
+
+        import torch.distributed as dist
+        if args.device != "cpu":
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
     run(args.arch, reduced=not args.full, steps=args.steps,
         engine=args.engine, sketch=args.sketch, batch=args.batch,
         seq=args.seq, lr=args.lr, num_clients=args.num_clients,

@@ -4,8 +4,9 @@ over a grid of engine x request and round backend x ``cohort_size`` x
 raises, the port raises the same rule key; where it does not, the port
 resolves the same plan. The reference's side takes a stand-in mesh object
 (its ``resolve`` only asks whether one was passed), the port's its own
-one-row mesh (``make_host_mesh()``); a mesh of more than one client row is
-the port's one remaining ``port-*`` rule."""
+one-row mesh (``make_host_mesh()``); a sparse cohort or edge clusters on a
+mesh of more than one client row is the port's one remaining ``port-*``
+rule."""
 import dataclasses
 import itertools
 
@@ -30,17 +31,23 @@ ROUNDS = ("dispatch", "fused")
 
 
 def test_port_rules_are_pod_and_mesh():
-    """One rule is left: a mesh of more than one client row (ROADMAP A6);
-    the pod engine and a one-row mesh resolve."""
+    """One rule is left: a sparse cohort or edge clusters on a mesh of more
+    than one client row (ROADMAP A6's second half); the pod engine on a
+    one-row mesh and on a two-row one resolves."""
     assert [r.key for r in PORT_RULES] == ["port-mesh"]
     xc = ExperimentConfig(num_clients=8)
     assert resolve("osafl", xc, mesh=make_host_mesh()).engine == "pod"
     assert resolve("osafl", dataclasses.replace(xc, engine="pod")
                    ).pod_engine == "exact_tp"
     two = HostMesh(np.full((2, 1), None, dtype=object))
-    with pytest.raises(ExperimentConfigError, match="A6") as err:
-        resolve("osafl", xc, mesh=two)
-    assert err.value.key == "port-mesh"
+    plan = resolve("osafl", xc, mesh=two)
+    assert (plan.engine, plan.mesh_rows) == ("pod", 2)
+    for change in (dict(cohort_size=4), dict(num_clusters=2),
+                   dict(num_clusters=1)):
+        with pytest.raises(ExperimentConfigError,
+                           match="A6's second half") as err:
+            resolve("osafl", dataclasses.replace(xc, **change), mesh=two)
+        assert err.value.key == "port-mesh"
     with pytest.raises(TypeError, match="make_host_mesh"):
         resolve("osafl", xc, mesh=object())
 

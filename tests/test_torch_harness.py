@@ -104,15 +104,20 @@ def test_reference_rules_name_the_same_failure(reference, change):
     (dict(engine="pod", resource_backend="f32"), True),
 ])
 def test_port_rules_reject_what_is_not_ported(change, mesh):
-    """What the port does not run is a mesh of more than one client row
-    (``port-mesh``, naming ROADMAP A6); the same configuration resolves on
-    the one-row mesh or with none, the pod engine among them."""
+    """What the port does not run is a sparse cohort or edge clusters on a
+    mesh of more than one client row (``port-mesh``, naming ROADMAP A6's
+    second half); every other configuration resolves on two rows, and each
+    resolves on the one-row mesh or with none, the pod engine among
+    them."""
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
     two = HostMesh(np.full((2, 1), None, dtype=object))
-    with pytest.raises(ExperimentConfigError, match="not ported") as err:
-        resolve("osafl", xc, mesh=two)
-    assert err.value.key == "port-mesh"
-    assert "A6" in str(err.value)
+    if xc.cohort_size or xc.num_clusters:
+        with pytest.raises(ExperimentConfigError, match="not ported") as err:
+            resolve("osafl", xc, mesh=two)
+        assert err.value.key == "port-mesh"
+        assert "A6's second half" in str(err.value)
+    else:
+        assert resolve("osafl", xc, mesh=two).mesh_rows == 2
     assert [r.key for r in PORT_RULES] == ["port-mesh"]
     plan = resolve("osafl", xc, **(dict(mesh=make_host_mesh()) if mesh
                                    else {}))

@@ -240,28 +240,32 @@ def test_tp_microbatches_average_their_gradients(reference, mesh):
 
 
 def test_what_one_card_does_not_run_raises():
-    """One client row runs, stationary and online; more rows, a 'model'
-    axis or the production mesh raise naming ROADMAP A6."""
+    """One client row runs, stationary and online; a mesh of two rows
+    needs a torch.distributed group of two ranks (``ValueError`` without
+    one); a 'model' axis or the production mesh raise naming ROADMAP A7;
+    a layout that is not a mesh raises ``TypeError``."""
     cfg = get_config("qwen1.5-4b").reduced()
     fl = FLConfig(kappa_max=1)
     one = make_host_mesh()
     assert pod.num_pod_clients() == 1
     assert pod.num_pod_clients(one) == 1
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(TypeError, match="make_host_mesh"):
         pod.make_tp_train_step(cfg, fl, mesh=4)
     two = HostMesh(np.full((2, 1), None, dtype=object))
+    assert pod.num_pod_clients(two) == 2
     for make in (lambda m, **kw: pod.make_tp_train_step(cfg, fl, m, **kw),
                  lambda m, **kw: pod.make_fedavg_train_step(cfg, fl, m, **kw),
                  lambda m, **kw: pod.make_recompute_train_step(cfg, fl, m, 2,
                                                                **kw),
                  lambda m, **kw: pod.make_stale_score_train_step(cfg, fl, m,
                                                                  2, **kw)):
-        with pytest.raises(NotImplementedError, match="A6"):
-            make(two, batch_fn=pod.make_pod_batch_fn())
+        for kw in ({}, dict(batch_fn=pod.make_pod_batch_fn())):
+            with pytest.raises(ValueError, match="torch.distributed"):
+                make(two, **kw)
         assert callable(make(one, batch_fn=pod.make_pod_batch_fn()))
     for refused in (lambda: make_host_mesh(model_parallel=2),
                     make_production_mesh):
-        with pytest.raises(NotImplementedError, match="A6"):
+        with pytest.raises(NotImplementedError, match="A7"):
             refused()
 
 

@@ -175,13 +175,21 @@ def test_unknown_pod_engine_raises():
 
 
 def test_a_mesh_of_two_rows_raises_naming_a6():
+    """Two client rows run as two ranks of a process group (the cases of
+    ``test_torch_pod_mesh.py``): with none, the run and the online step
+    raise ``ValueError``; a sparse cohort on two rows raises ``port-mesh``
+    naming ROADMAP A6's second half."""
     two = HostMesh(np.array([[None], [None]], dtype=object))
     assert two.shape == {"data": 2, "model": 1}
-    with pytest.raises(ExperimentConfigError, match="A6") as err:
+    with pytest.raises(ValueError, match="torch.distributed"):
         run("osafl", ExperimentConfig(**SMALL), eval_samples=EVAL,
             device="cpu", mesh=two)
+    with pytest.raises(ExperimentConfigError, match="A6") as err:
+        run("osafl", ExperimentConfig(**SMALL, cohort_size=8,
+                                      participation=0.5),
+            eval_samples=EVAL, device="cpu", mesh=two)
     assert err.value.key == "port-mesh"
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(ValueError, match="torch.distributed"):
         pod.make_tp_train_step(None, FLConfig(), two,
                                batch_fn=pod.make_pod_batch_fn(),
                                grad_fn=lambda p, b: p)
