@@ -4,7 +4,12 @@
 
 Phases, each fatal on failure:
   1. the card: its name and power limit (nvidia-smi) and torch's view;
-  2. the build: every CUDA kernel of the port, compiled in parallel;
+  2. the build: every CUDA kernel of the port, one ``nvcc`` each, all
+     started together; the script waits for ``scored_reduce``'s alone and
+     runs the FL phases (3's ``scored_reduce`` checks, 4's small runs and
+     precision check, 5-6j, 6h) while the flash kernels' builds finish,
+     then waits for those before the phases that launch them (3's flash
+     checks, 4's small transformer, 7-8);
   3. the kernels: each kernel against its plain PyTorch version on the card
      at its path's shapes and at ragged ones, with times (CUDA events)
      beside the least time the card could take and one PyTorch library
@@ -76,8 +81,9 @@ Phases, each fatal on failure:
      the four pod engines and FedAvg on the fedavg engine, launch counts and
      peak memory reset just before each run and read just after; exact_tp
      and OSAFL on fedavg equal phase 5's rounds bit for bit, recompute
-     with phase 5's participants and, at ``global_lr=1`` against a stacked
-     run there, within 1e-5 (its gap at 16 printed beside that of the
+     (host-bound; its two runs cut to 2 rounds) with phase 5's
+     participants and, at ``global_lr=1`` against a stacked run there,
+     within 1e-5 (its gap at 16 printed beside that of the
      stacked run with its weights moved one ulp), stale finite and unlike
      exact_tp, FedAvg equal to the grid's FedAvg run; small pod runs card
      against CPU (each engine, both
@@ -97,8 +103,16 @@ Phases, each fatal on failure:
      1e-5 of the grid's); every rank's history the same; while they
      start, this process checks the kernel at (128, N) f32 against its
      plain version, timed beside its bound, and, the one rank of an NCCL
-     group, runs OSAFL on exact_tp, bit for bit phase 5's run. Per rank:
-     each round's own seconds and seconds in collectives, peak memory and
+     group, runs OSAFL on exact_tp, bit for bit phase 5's run. The ranks
+     also run 6g's hierarchical run (K=8: 4 cluster blocks of 32 slots a
+     rank) and its sparse hierarchical run under churn, flash crowds and
+     cluster moves (U=1024 behind C=256 slots, K=8) at ``global_lr=1``,
+     each within 1e-5 of the same run in one process here, participants
+     exact, with ``scored_reduce`` launched K/R + 1 = 5 times a round on
+     each rank; here the kernel is also checked and timed at the ranks'
+     (32, N) block and (8, N) tier-2 shapes. Per rank: each
+     round's own seconds, seconds and calls in collectives (the sparse
+     cohort's table gathers at admission counted apart), peak memory and
      the launches;
   6h. the fused round, each segment of ``rounds_per_dispatch`` rounds one
      captured CUDA graph replayed once: the main path's configuration
@@ -414,14 +428,27 @@ POD_SMALL_RUNS = (
     + [("fedavg", dict(POD_SMALL, pod_engine="fedavg"))])
 POD_RESUME = dict(POD_SMALL, rounds=4, pod_engine="exact_tp")
 POD_LR1 = dict(MAIN_RUN, global_lr=1.0)
+# recompute is host-bound (one client at a time, ~4-6 s a round at full
+# width), so its two runs are cut to 2 of the main path's 3 rounds; its
+# gates compare the rounds it ran
+POD_RECOMPUTE_ROUNDS = 2
 # phase 6j: the pod engine over client rows, each row one process of a
 # torch.distributed group: two gloo ranks sharing the card (U/2 = 128
 # clients each) and one NCCL rank; (label, alg, pod engine, config)
 MESH_RANKS = 2
+# 6g's hierarchical run (U=256, K=8: each rank 4 blocks of 32 slots) and its
+# run of everything together (U=1024 behind C=256 slots, K=8, churn, flash
+# crowds and cluster moves; each rank 128 slots, 4 blocks) at global_lr=1,
+# on the two gloo ranks and, in the parent, in one process
+MESH_CLUSTER_RUNS = tuple(
+    (f"{name} global_lr=1", "osafl", "exact_tp",
+     dict(dict(COHORT_RUNS)[name], global_lr=1.0))
+    for name in ("hier", "combined"))
 MESH_GLOO_RUNS = (
     ("osafl exact_tp global_lr=1", "osafl", "exact_tp", POD_LR1),
     # the grid's FedAvg run (2 rounds)
-    ("fedavg fedavg", "fedavg", "fedavg", dict(MAIN_RUN, rounds=2)))
+    ("fedavg fedavg", "fedavg", "fedavg", dict(MAIN_RUN, rounds=2)),
+    *MESH_CLUSTER_RUNS)
 MESH_NCCL_RUNS = (("osafl exact_tp", "osafl", "exact_tp", MAIN_RUN),)
 # the three FL examples at their own sizes: the quickstart's 15 rounds and
 # 20 steps of the ~100M h2o-danube-3 example (its sliding window keeps its
@@ -568,16 +595,32 @@ def card() -> tuple:
     return name, smi
 
 
-def build() -> dict:
-    """Build every kernel library (one nvcc each, in parallel) and print
-    ptxas's report; returns ptxas's lines for each instantiation of the
-    backward's Hopper kernel, by its D bucket ("bwd"), and of the
-    forward's, by its (DQK, DV) buckets ("fwd")."""
-    from repro_torch.kernels.build import KERNELS
+FLASH_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def start_flash_build():
+    """The flash kernels' builds (one ``nvcc`` each) started on a thread
+    of their own: returns a future of ``build_kernels(FLASH_KERNELS)``."""
+    import concurrent.futures
+
+    from repro_torch.kernels.build import build as build_kernels
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    future = pool.submit(build_kernels, FLASH_KERNELS)
+    pool.shutdown(wait=False)
+    return future
+
+
+def build(names=("scored_reduce",)) -> dict:
+    """Build the ``names`` kernel libraries (one nvcc each, in parallel)
+    and print ptxas's report; returns the build's ``{name: info}``."""
     from repro_torch.kernels.build import build as build_kernels
     t0 = time.perf_counter()
-    out = build_kernels(KERNELS)
-    say(f"build: {len(out)} kernel(s) in {time.perf_counter() - t0:.3f} s")
+    return report_build(build_kernels(names), time.perf_counter() - t0)
+
+
+def report_build(out: dict, seconds: float) -> dict:
+    """Print a build's libraries and ptxas's report; returns ``out``."""
+    say(f"build: {len(out)} kernel(s) in {seconds:.3f} s")
     for name, info in out.items():
         say(f"  {name}: {info['seconds']:.3f} s -> {info['path'].name}"
             + ("" if info["seconds"] else " (built before; its report:)"))
@@ -588,6 +631,16 @@ def build() -> dict:
             if any(w in line for w in ("registers", "Compiling", "spill",
                                        "Function properties", "arning")):
                 say(f"    {line.strip()}")
+    return out
+
+
+def flash_build(future) -> dict:
+    """Wait for ``start_flash_build``'s builds and print them; returns
+    ptxas's lines for each instantiation of the backward's Hopper kernel,
+    by its D bucket ("bwd"), and of the forward's, by its (DQK, DV)
+    buckets ("fwd")."""
+    out = future.result()
+    report_build(out, max(info["seconds"] for info in out.values()))
     return {"bwd": hopper_bwd_report(out["flash_attention_bwd"]["log"]),
             "fwd": hopper_fwd_report(out["flash_attention"]["log"])}
 
@@ -874,15 +927,16 @@ def small_transformer_phase() -> None:
                              f"CPU run: {err}")
 
 
-def scored_launches(alg: str, xc) -> int:
+def scored_launches(alg: str, xc, rows: int = 1) -> int:
     """``scored_reduce`` launches a round should make: one in the stacked
     OSAFL round, K + 1 in its K > 1 cluster tier (one per block and one for
     the (K, N) aggregates), none with sketched scores, in the loop oracle
     (whose scores are the independent implementation the kernel is held
-    against), a baseline or the genie."""
+    against), a baseline or the genie. Over ``rows`` client rows, each
+    rank's: one, or K/rows + 1 (its blocks, and the aggregates)."""
     if alg != "osafl" or xc.engine == "loop" or xc.score_sketch_dim:
         return 0
-    return xc.num_clusters + 1 if xc.num_clusters > 1 else 1
+    return xc.num_clusters // rows + 1 if xc.num_clusters > 1 else 1
 
 
 def small_key(kw: dict) -> str:
@@ -1641,8 +1695,10 @@ def pod_phase(main: dict, grid: list) -> dict:
     runs = {}
     for alg, engine in [("osafl", e) for e in POD_ENGINES] + [
             ("fedavg", "fedavg")]:
+        kw = (dict(MAIN_RUN, rounds=POD_RECOMPUTE_ROUNDS)
+              if engine == "recompute" else MAIN_RUN)
         runs[f"{alg} {engine}"] = fl_run(
-            f"pod phase {alg} {engine}", alg, MAIN_RUN, MAIN_EVAL,
+            f"pod phase {alg} {engine}", alg, kw, MAIN_EVAL,
             mesh=make_host_mesh(), pod_engine=engine)
     with _one_ulp_moved_weights():
         runs["stacked one-ulp"] = fl_run(
@@ -1651,8 +1707,9 @@ def pod_phase(main: dict, grid: list) -> dict:
     runs["stacked global_lr=1"] = fl_run(
         "pod phase stacked osafl global_lr=1", "osafl", POD_LR1, MAIN_EVAL)
     runs["osafl recompute global_lr=1"] = fl_run(
-        "pod phase osafl recompute global_lr=1", "osafl", POD_LR1,
-        MAIN_EVAL, mesh=make_host_mesh(), pod_engine="recompute")
+        "pod phase osafl recompute global_lr=1", "osafl",
+        dict(POD_LR1, rounds=POD_RECOMPUTE_ROUNDS), MAIN_EVAL,
+        mesh=make_host_mesh(), pod_engine="recompute")
     fedavg = next(g for g in grid if g["alg"] == "fedavg"
                   and g["config"]["model"] == MAIN_RUN["model"])
     gates = {f"osafl {e} bit for bit": _same_rounds(runs[f"osafl {e}"], main)
@@ -1704,18 +1761,22 @@ def _rank_runs(runs) -> list:
     launch counts and peak memory reset just before and read just after,
     the rank's own seconds of each round (before the ranks agree on the
     slowest) and the seconds its ``all_gather``s took inside each round (a
-    synchronize either side; the setup's are left out). Returns one row a
-    run."""
+    synchronize either side; the setup's are left out), those of the
+    sparse cohort's table gathers at admission counted apart from the
+    rest. Returns one row a run."""
     import torch.distributed as dist
 
     import repro_torch.harness.experiments as tex
+    from repro_torch.core.cohort import CohortTables
     from repro_torch.harness import ExperimentConfig, run
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import scored_reduce as sr
     from repro_torch.launch.mesh import make_host_mesh
-    spent = {"s": 0.0, "calls": 0}
+    spent = {"s": 0.0, "calls": 0, "table_s": 0.0, "table_calls": 0,
+             "in_tables": False}
     gather, agree, draws = dist.all_gather, tex._round_times, \
         tex._draw_round_inputs
+    table_gather = CohortTables.gather
     own, opened, rows = [], [], []
 
     def timed_gather(*args, **kwargs):
@@ -1723,9 +1784,17 @@ def _rank_runs(runs) -> list:
         t0 = time.perf_counter()
         result = gather(*args, **kwargs)
         torch.cuda.synchronize()
-        spent["s"] += time.perf_counter() - t0
-        spent["calls"] += 1
+        part = "table_" if spent["in_tables"] else ""
+        spent[f"{part}s"] += time.perf_counter() - t0
+        spent[f"{part}calls"] += 1
         return result
+
+    def tables_gather(self, users):
+        spent["in_tables"] = True
+        try:
+            return table_gather(self, users)
+        finally:
+            spent["in_tables"] = False
 
     def round_opens(*args, **kwargs):
         opened.append(dict(spent))
@@ -1733,12 +1802,17 @@ def _rank_runs(runs) -> list:
 
     def own_times(mesh, device, req_s, round_s):
         start = opened[len(own)]
-        own.append({"round_s": round_s,
-                    "collective_s": spent["s"] - start["s"],
-                    "collective_calls": spent["calls"] - start["calls"]})
+        own.append({
+            "round_s": round_s,
+            "collective_s": spent["s"] - start["s"],
+            "collective_calls": spent["calls"] - start["calls"],
+            "table_gather_s": spent["table_s"] - start["table_s"],
+            "table_gather_calls": spent["table_calls"]
+            - start["table_calls"]})
         return agree(mesh, device, req_s, round_s)
     dist.all_gather, tex._round_times = timed_gather, own_times
     tex._draw_round_inputs = round_opens
+    CohortTables.gather = tables_gather
     try:
         for label, alg, engine, kw in runs:
             torch.cuda.empty_cache()
@@ -1767,6 +1841,7 @@ def _rank_runs(runs) -> list:
     finally:
         dist.all_gather, tex._round_times = gather, agree
         tex._draw_round_inputs = draws
+        CohortTables.gather = table_gather
     return rows
 
 
@@ -1840,21 +1915,35 @@ def nccl_one_rank(runs) -> dict:
 
 def pod_mesh_phase(main: dict, pods: dict, grid: list) -> dict:
     """Phase 6j (module docstring): two gloo ranks on the card, and here,
-    while they start, the kernel at each rank's (128, N) block and one
-    NCCL rank. Gates: ``scored_reduce`` once an OSAFL round on each rank
-    and never for FedAvg, no flash launch; every rank's rounds the same;
-    OSAFL at ``global_lr=1`` within 1e-5 of 6i's stacked run and FedAvg
-    of the grid's, participants exact; the NCCL rank's rounds phase 5's
-    bit for bit. Returns the kernel's row and the runs."""
+    while they start, the kernel at each rank's (128, N) block and at its
+    cluster blocks' (32, N) and tier-2 (8, N) shapes, then one NCCL rank
+    and the cluster runs in one process. Gates: ``scored_reduce`` once an
+    OSAFL round on each rank (K/R + 1 with K > 1 clusters) and never for
+    FedAvg, no flash launch; every rank's rounds the same; OSAFL at
+    ``global_lr=1`` within 1e-5 of 6i's stacked run, FedAvg of the grid's
+    and each cluster run of its run in one process, participants exact;
+    the NCCL rank's rounds phase 5's bit for bit. Returns the kernel's
+    rows and the runs."""
     from repro_torch.harness import ExperimentConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    n = buffer_n("fcn")
 
     def meanwhile():
-        row = check_scored_reduce(MAIN_U // MESH_RANKS, buffer_n("fcn"),
-                                  torch.float32, timed=True)
+        shapes = {}
+        for U in (MAIN_U // MESH_RANKS, MAIN_U // CLUSTERS, CLUSTERS):
+            shapes[U] = check_scored_reduce(U, n, torch.float32, timed=True)
+            torch.cuda.empty_cache()
+        nccl = nccl_one_rank(MESH_NCCL_RUNS)
+        one = {label: fl_run(f"pod mesh phase one process {label}", alg, kw,
+                             MAIN_EVAL, mesh=make_host_mesh(),
+                             pod_engine=engine)
+               for label, alg, engine, kw in MESH_CLUSTER_RUNS}
         torch.cuda.empty_cache()
-        return row, nccl_one_rank(MESH_NCCL_RUNS)
-    gloo, (block, nccl) = mesh_ranks(MESH_RANKS, "gloo", MESH_GLOO_RUNS,
-                                     meanwhile=meanwhile)
+        return shapes, nccl, one
+    gloo, (shapes, nccl, one) = mesh_ranks(MESH_RANKS, "gloo",
+                                           MESH_GLOO_RUNS,
+                                           meanwhile=meanwhile)
+    block = shapes[MAIN_U // MESH_RANKS]
     fedavg = next(g for g in grid if g["alg"] == "fedavg"
                   and g["config"]["model"] == MAIN_RUN["model"])
     gates = {}
@@ -1862,7 +1951,8 @@ def pod_mesh_phase(main: dict, pods: dict, grid: list) -> dict:
         for label, ranks_rows in rows.items():
             first = ranks_rows[0]
             want = len(first["rounds"]) * scored_launches(
-                first["alg"], ExperimentConfig(**first["config"]))
+                first["alg"], ExperimentConfig(**first["config"]),
+                first["ranks"])
             gates[f"{group} {label} launches"] = all(
                 r["launches"] == {"scored_reduce": want,
                                   "flash_attention": 0}
@@ -1874,29 +1964,45 @@ def pod_mesh_phase(main: dict, pods: dict, grid: list) -> dict:
                      pods["runs"]["stacked global_lr=1"], POD_TOL))
     gates["gloo fedavg within 1e-5 of the grid's"] = _same_rounds(
         gloo["fedavg fedavg"][0], fedavg, POD_TOL)
+    for label in one:
+        gates[f"gloo {label} within 1e-5 of one process"] = _same_rounds(
+            gloo[label][0], one[label], POD_TOL)
     gates["nccl osafl exact_tp bit for bit phase 5's"] = _same_rounds(
         nccl["osafl exact_tp"][0], main)
     gaps = {"two ranks vs stacked, global_lr=1": _loss_gaps(
                 gloo["osafl exact_tp global_lr=1"][0],
                 pods["runs"]["stacked global_lr=1"]),
             "fedavg two ranks vs grid": _loss_gaps(
-                gloo["fedavg fedavg"][0], fedavg)}
+                gloo["fedavg fedavg"][0], fedavg),
+            **{f"{label} two ranks vs one process": _loss_gaps(
+                gloo[label][0], one[label]) for label in one}}
     per_rank = {f"{group} {label} rank{r['rank']}": {
         "own_round_s": [x["round_s"] for x in r["own_rounds"]],
         "collective_s": [x["collective_s"] for x in r["own_rounds"]],
         "collective_calls": [x["collective_calls"]
                              for x in r["own_rounds"]],
+        "table_gather_s": [x["table_gather_s"] for x in r["own_rounds"]],
+        "table_gather_calls": [x["table_gather_calls"]
+                               for x in r["own_rounds"]],
         "round_s": [x["round_s"] for x in r["rounds"]],
         "max_memory_allocated": r["max_memory_allocated"],
         "wall_s": r["wall_s"], "launches": r["launches"]}
         for group, rows in (("gloo", gloo), ("nccl", nccl))
         for label, ranks_rows in rows.items() for r in ranks_rows}
+    per_rank.update({f"one process {label}": {
+        "round_s": [x["round_s"] for x in row["rounds"]],
+        "max_memory_allocated": row["max_memory_allocated"],
+        "wall_s": row["wall_s"], "launches": row["launches"]}
+        for label, row in one.items()})
     say("pod mesh phase " + json.dumps({
         "gates": gates, "test_loss_gaps": gaps, "per_rank": per_rank,
-        "scored_reduce_block": block}))
+        "scored_reduce_block": block,
+        "scored_reduce_cluster_shapes": [shapes[MAIN_U // CLUSTERS],
+                                         shapes[CLUSTERS]]}))
     if not all(gates.values()):
         raise AssertionError(f"pod mesh phase gates failed: {gates}")
-    return {"block": block, "gloo": gloo, "nccl": nccl}
+    return {"block": block, "shapes": shapes, "gloo": gloo, "nccl": nccl,
+            "one": one}
 
 
 def _clock() -> float:
@@ -3419,11 +3525,11 @@ def timed(label: str, fn, *args):
 def main() -> int:
     kind, smi = card()
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    ptxas = timed("2 build", build)
+    # every nvcc starts now; the FL phases need only scored_reduce's build
+    flash_future = start_flash_build()
+    timed("2 build", build)
     kern = timed("3 kernels", kernels_phase)
-    flash = timed("3 flash", flash_phase, ptxas["fwd"])
     small_loop = timed("4 small runs", small_run_phase)
-    timed("4 small transformer", small_transformer_phase)
     timed("4 conv precision", conv_precision_phase)
     main = timed("5 main path", fl_run, "main path", "osafl", MAIN_RUN,
                  MAIN_EVAL)
@@ -3448,6 +3554,9 @@ def main() -> int:
     pods = timed("6i pod", pod_phase, main, grid)
     mesh = timed("6j pod mesh", pod_mesh_phase, main, pods, grid)
     fused = timed("6h fused", fused_phase)
+    ptxas = timed("2 flash build", flash_build, flash_future)
+    flash = timed("3 flash", flash_phase, ptxas["fwd"])
+    timed("4 small transformer", small_transformer_phase)
     serving = timed("7 serving", serving_phase)
     moe_serving = timed("7b moe serving", moe_serving_phase)
     recurrent = timed("7c recurrent serving", recurrent_serving_phase)
@@ -3514,6 +3623,8 @@ def main() -> int:
             for label, rows in mesh[group].items():
                 by_path[k][f"pod_mesh {group} {label}"] = [
                     r["launches"][k] for r in rows]
+        for label, row in mesh["one"].items():
+            by_path[k][f"pod_mesh one process {label}"] = row["launches"][k]
     by_path["scored_reduce"]["pod_small"] = pods["small"]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
@@ -3534,7 +3645,17 @@ def main() -> int:
             **{key: mesh["block"][key] for key in (
                 "U", "N", "max_abs_err", "bitwise_repeat", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "share_of_bound")}}}, {
+                "share_of_bound")}},
+        # each rank's cluster blocks and tier-2 aggregates over two rows
+        "mesh_cluster_shapes": {
+            "launches_per_rank": {
+                label: by_path["scored_reduce"][f"pod_mesh gloo {label}"]
+                for label, *_ in MESH_CLUSTER_RUNS},
+            **{f"({U}, N)": {key: mesh["shapes"][U][key] for key in (
+                "U", "N", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")} for U in (MAIN_U // CLUSTERS,
+                                             CLUSTERS)}}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",

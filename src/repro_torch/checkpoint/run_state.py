@@ -292,14 +292,15 @@ def save_run_state(path, state, metadata: dict = None) -> None:
          "save_id": save_id, "tree": tree, "metadata": metadata or {}})))
 
 
-def load_run_state(path, block: Optional[Tuple[int, int]] = None):
+def load_run_state(path, block=None):
     """Read a run-state snapshot back into nested plain structures (dicts,
     lists, scalars, numpy arrays). A snapshot directory is the v2 layout
     (``checkpoint/streaming.py``), a ``.npz`` + sidecar pair is v1. A
     mismatched pair, a truncated archive or a corrupt file raises
-    ``CheckpointError`` naming it. ``block=(lo, hi)`` reads only client
-    rows ``lo:hi`` of the leaves a v2 snapshot records as split over client
-    rows (one rank's resume); every other leaf comes back whole."""
+    ``CheckpointError`` naming it. ``block=client_sharding(mesh)`` reads
+    only this rank's rows of the leaves a v2 snapshot records as split
+    over client rows (one rank's resume), whatever each one's length;
+    every other leaf comes back whole."""
     if Path(str(path).removesuffix(".npz")).is_dir():
         from repro_torch.checkpoint import streaming
         return streaming.load_run_state_v2(path, block=block)

@@ -23,8 +23,8 @@ A v2 snapshot is a directory:
   * Over R > 1 ranks each rank but 0 writes its manifest entries to
     ``part.r<rank>.json``; rank 0 waits for all of them (a barrier through
     the snapshot directory, off the round loop), writes the manifest and
-    commits. ``load_run_state_v2(path, block=(lo, hi))`` reads one rank's
-    rows of the split leaves (a resume on R ranks); without ``block`` a
+    commits. ``load_run_state_v2(path, block=)`` reads one rank's rows of
+    the split leaves (a resume on R ranks); without ``block`` a
     snapshot is read whole, in one process, whatever wrote it.
   * ``COMMIT.json`` (save id + the manifest's sha256) is written atomically
     last: a snapshot is complete or invisible. Readers refuse a missing or
@@ -357,11 +357,14 @@ def load_run_state_v2(path, block=None):
     """Reassemble a committed v2 snapshot into nested plain structures.
     Every shard read is length- and crc-verified; arrays come back as host
     arrays, which ``load_state_dict`` moves to the run's device. With
-    ``block=(lo, hi)`` a leaf split over client rows comes back as its
-    rows ``lo:hi`` (one rank's share); every other leaf whole."""
+    ``block`` (a ``shmap.ClientSharding``) a leaf split over client rows
+    comes back as this rank's rows of it, ``block.bounds`` of the leaf's
+    own length (a sparse run splits (U,) per-user tables and (C,) slot
+    state alike); every other leaf whole."""
     d = _stem(path)
     manifest = read_manifest(d)
-    data = {key: _read_leaf(d, key, ent, block if block is not None
+    data = {key: _read_leaf(d, key, ent, block.bounds(int(ent["shape"][0]))
+                            if block is not None
                             and ent.get("split") == "rows" else None)
             for key, ent in manifest["arrays"].items()}
     return _decode(manifest["tree"], data)

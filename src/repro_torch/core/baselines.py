@@ -45,7 +45,7 @@ from repro_torch.core.osafl import (ClientUpdate, OSAFLServer,
                                     StackedOSAFLServer, _tree_to)
 from repro_torch.core.scores import (tree_add, tree_scale, tree_sub,
                                      tree_zeros_like)
-from repro_torch.core.shmap import client_rows, client_sharding, row_sum
+from repro_torch.core.shmap import client_sharding, row_sum
 from repro_torch.device import owned_tensor, resolve_device
 
 
@@ -384,19 +384,14 @@ def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
     ``SERVERS``. Any other engine raises: the pod harness's servers are
     the stacked ones (its ``FLConfig`` says ``engine="stacked"``), and the
     reference's ``make_server`` hands an ``engine="pod"`` config the loop
-    servers, which no harness asks for. ``mesh`` lays a flat stacked
-    server's buffer over its client rows; the sparse-cohort and two-tier
-    servers do not run over more than one row yet."""
+    servers, which no harness asks for. ``mesh`` lays a stacked server's
+    buffer over its client rows: the flat and the two-tier servers' (U, N)
+    buffer, and the sparse-cohort server's width-C inner server and
+    per-user tables."""
     if fl.engine not in ("stacked", "loop"):
         raise NotImplementedError(
             f"not ported to repro_torch yet: engine={fl.engine!r} (ported: "
             "the stacked and loop servers)")
-    if mesh is not None and client_rows(mesh) > 1 and (
-            fl.cohort_size or fl.num_clusters >= 1):
-        raise NotImplementedError(
-            "sparse cohorts (cohort_size > 0) and edge clusters "
-            "(num_clusters >= 1) over more than one client row are "
-            "ROADMAP.md A6's second half")
     if fl.cohort_size:
         from repro_torch.core.cohort import SparseCohortServer
         if fl.engine != "stacked":
@@ -404,12 +399,12 @@ def make_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
                 "cohort_size>0 needs the stacked engine (the loop servers "
                 f"are dense per-user oracles; got engine={fl.engine!r})")
         return SparseCohortServer(params, fl, num_clients, seed=seed,
-                                  device=device)
+                                  device=device, mesh=mesh)
     if fl.engine == "stacked":
         if fl.num_clusters >= 1:
             from repro_torch.core.hierarchy import make_hier_server
             return make_hier_server(params, fl, num_clients, seed=seed,
-                                    device=device)
+                                    device=device, mesh=mesh)
         servers = {"osafl": StackedOSAFLServer, **STACKED_SERVERS}
     else:
         if fl.num_clusters >= 1:

@@ -12,7 +12,8 @@ sequential insert loop:
   * ``size`` becomes ``min(size + n, cap)`` and ``head`` advances by the
     overflow ``max(size + n - cap, 0)``.
 
-A sparse-cohort admission reassigns rows to new clients (``reset_rows``).
+A sparse-cohort admission reassigns rows to new clients (``reset_rows``,
+over client rows on each rank's own block).
 
 Over a mesh of R > 1 client rows (``create(..., mesh=)`` or ``shard``),
 one process per row, the (U, D, *feat) storage and every (U, ...) leaf
@@ -241,14 +242,12 @@ class StackedOnlineBuffer:
         them from the live window, the histograms and the slot sampling)
         and are overwritten as the new resident's arrivals land. The four
         (U,) pointer tensors are replaced, not written in place, so a
-        snapshot taken before keeps its values."""
+        snapshot taken before keeps its values. ``rows`` are whole-cohort
+        indices: over client rows each rank resets those of its own block
+        and ignores the others."""
         rows = np.asarray(rows, np.int64).ravel()
         if rows.size == 0:
             return
-        if self.rows is not None:
-            raise NotImplementedError(
-                "reset_rows seats sparse-cohort clients, which do not run "
-                "over client rows yet (ROADMAP.md A6, second half)")
         caps = np.asarray(capacities, np.int32).ravel()
         if caps.shape != rows.shape:
             raise ValueError(
@@ -259,6 +258,12 @@ class StackedOnlineBuffer:
             raise ValueError(
                 f"reassigned capacities must lie in [1, {D}] (the allocated "
                 f"storage depth); got [{caps.min()}, {caps.max()}]")
+        if self.rows is not None:
+            lo, hi, _ = self.rows
+            mine = (rows >= lo) & (rows < hi)
+            rows, caps = rows[mine] - lo, caps[mine]
+            if rows.size == 0:
+                return
         st = self.state
         idx = torch.as_tensor(rows, device=self.device)
         zero = torch.zeros(rows.size, dtype=torch.int32, device=self.device)

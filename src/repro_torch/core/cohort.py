@@ -1,5 +1,5 @@
 """Sparse-cohort server state: a fixed-capacity pool of active slots in
-front of the stacked servers (``repro/core/cohort.py``, without the mesh).
+front of the stacked servers (``repro/core/cohort.py``).
 
 The dense engines hold a (U, N) contribution buffer and (U, D, ...) FIFO
 datasets for every registered user. This module decouples the registered
@@ -25,6 +25,19 @@ the dense stacked server, and the harness draws its host RNG in the dense
 order, so runs are bit-exact against the dense engines for every
 algorithm. With C < U the width-C aggregation renormalizes the weights
 over the sampled cohort (Dinh et al.'s partial-participation rule).
+
+Over a mesh of R > 1 client rows (``mesh=``, one process per row, as the
+pod engine runs) the inner width-C server lies on the row block: each
+rank holds C/R slots of its contribution buffer (under the hierarchy,
+K/R whole cluster blocks). The pool stays on the host and whole on every
+rank, since every rank draws the whole cohort from the same host RNG.
+``CohortTables`` split over the ranks by user, rank r holding users
+``[r*U/R, (r+1)*U/R)``: an admission brings the seated users' values to
+every rank in one ``all_gather`` (``shmap.row_take``) and each rank writes
+the newly seated slots of its own block; after a round each rank writes
+back the users it owns, from the whole (C,) participation flags, which
+one ``row_cat`` a round gathers. The non-OSAFL sticky metadata (sizes,
+kappas, histograms) is host numpy and whole on every rank.
 """
 from __future__ import annotations
 
@@ -34,11 +47,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.run_state import (CheckpointError,
+from repro_torch.checkpoint.run_state import (CheckpointError, own_rows,
+                                              row_leaf,
                                               validate_cohort_shapes)
 from repro_torch.configs.base import FLConfig
 from repro_torch.core.baselines import STACKED_SERVERS
 from repro_torch.core.osafl import StackedOSAFLServer
+from repro_torch.core.shmap import (client_rows, client_sharding, row_cat,
+                                    row_take)
 from repro_torch.device import owned_tensor, resolve_device
 
 
@@ -218,49 +234,91 @@ class SlotPool:
 class CohortTables:
     """Per-user (U,) tables on one device. ``gather`` pulls cohort rows
     into (C,) slot vectors (copies); ``scatter`` writes slot results back
-    in place."""
+    in place. With the ``mesh`` of R > 1 client rows each rank holds users
+    ``[r*U/R, (r+1)*U/R)`` of every table (the reference's tables split
+    over the client axes): ``gather`` returns every requested value on
+    every rank, through one ``all_gather`` for all tables, and ``scatter``
+    writes only the users this rank owns."""
 
-    def __init__(self, num_users: int, tables: dict, device=None):
+    def __init__(self, num_users: int, tables: dict, device=None,
+                 mesh=None):
         self.U = int(num_users)
         self.device = resolve_device(device)
-        self._tables = {k: torch.as_tensor(np.asarray(v), device=self.device)
+        self.mesh = mesh
+        if mesh is not None and self.U % client_rows(mesh):
+            raise ValueError(
+                f"user-table length {self.U} is not divisible by the mesh's "
+                f"{client_rows(mesh)} client rows")
+        self.rows = ((0, self.U) if mesh is None
+                     else client_sharding(mesh).bounds(self.U))
+        lo, hi = self.rows
+        self._tables = {k: torch.as_tensor(np.asarray(v)[lo:hi],
+                                           device=self.device)
                         for k, v in tables.items()}
 
     def keys(self):
         return self._tables.keys()
 
     def __getitem__(self, k):
+        """This rank's rows of table ``k`` (all U without a mesh)."""
         return self._tables[k]
 
-    def _index(self, users) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(users, np.int64),
-                               device=self.device)
-
     def gather(self, users) -> dict:
-        idx = self._index(users)
-        return {k: v.index_select(0, idx) for k, v in self._tables.items()}
+        users = np.asarray(users, np.int64).ravel()
+        lo, hi = self.rows
+        if (lo, hi) == (0, self.U):
+            idx = torch.as_tensor(users, device=self.device)
+            return {k: v.index_select(0, idx)
+                    for k, v in self._tables.items()}
+        # each rank reads the users it owns (row 0 stands in for the
+        # others) and every table's bytes travel in one gather
+        n = users.size
+        idx = torch.as_tensor(np.where((users >= lo) & (users < hi),
+                                       users - lo, 0), device=self.device)
+        local = [v.index_select(0, idx).reshape(n, -1)
+                 for v in self._tables.values()]
+        packed = torch.cat([t.view(torch.uint8) for t in local], dim=1)
+        whole = row_take(packed, users // (hi - lo), self.mesh)
+        out, at = {}, 0
+        for (k, v), t in zip(self._tables.items(), local):
+            width = t.shape[1] * t.element_size()
+            out[k] = whole[:, at:at + width].clone(
+                memory_format=torch.contiguous_format).view(v.dtype).reshape(
+                    (n,) + tuple(v.shape[1:]))
+            at += width
+        return out
 
     def scatter(self, users, values: dict) -> None:
-        idx = self._index(users)
+        """Write ``values`` (each aligned with ``users``) into the tables:
+        over client rows, the entries of the users this rank owns."""
+        users = np.asarray(users, np.int64).ravel()
+        lo, hi = self.rows
+        mine = np.flatnonzero((users >= lo) & (users < hi))
+        whole = mine.size == users.size
+        idx = torch.as_tensor(users[mine] - lo, device=self.device)
+        sel = torch.as_tensor(mine, device=self.device)
         for k, val in values.items():
             t = self._tables[k]
-            t.index_copy_(0, idx, torch.as_tensor(val, device=t.device)
-                          .to(t.dtype))
+            v = torch.as_tensor(val, device=t.device).to(t.dtype)
+            t.index_copy_(0, idx, v if whole else v.index_select(0, sel))
 
     # -- checkpointing -------------------------------------------------------
     def state_dict(self) -> dict:
         """The live tables (a writer copies them: ``scatter`` writes in
-        place)."""
-        return dict(self._tables)
+        place); over client rows this rank's rows, marked ``RowShard``."""
+        return {k: row_leaf(v, self.rows[0], self.U)
+                for k, v in self._tables.items()}
 
     def load_state_dict(self, sd: dict) -> None:
+        """Restore the tables from a snapshot's whole leaves or, over
+        client rows, from this rank's rows of them."""
         missing = sorted(set(self._tables) - set(sd))
         if missing:
             raise CheckpointError(
                 "cohort-table snapshot is missing keys: "
                 + ", ".join(missing))
         for k, cur in self._tables.items():
-            got = np.asarray(sd[k])
+            got = own_rows(sd[k], *self.rows, self.U)
             if tuple(got.shape) != tuple(cur.shape):
                 raise CheckpointError(
                     f"cohort table {k!r} has snapshot shape "
@@ -274,10 +332,12 @@ class SparseCohortServer:
     server (see the module docstring). ``round_stacked`` forwards to the
     inner server, whose round takes (C, N) updates and a (C,) active mask,
     both slot-indexed, and then copies the per-slot results back into the
-    per-user tables, so an eviction needs no write of its own."""
+    per-user tables, so an eviction needs no write of its own. With
+    ``mesh`` the inner server and the tables lie over its client rows
+    (module docstring)."""
 
     def __init__(self, params, fl: FLConfig, num_users: int, seed: int = 0,
-                 capacity: Optional[int] = None, device=None):
+                 capacity: Optional[int] = None, device=None, mesh=None):
         capacity = int(fl.cohort_size if capacity is None else capacity)
         if not 1 <= capacity <= num_users:
             raise ValueError(
@@ -287,6 +347,10 @@ class SparseCohortServer:
         self.fl = fl
         self.U = int(num_users)
         self.C = capacity
+        self.mesh = mesh
+        # this rank's block of the C slots (all of them without a mesh)
+        self.slots = ((0, capacity) if mesh is None
+                      else client_sharding(mesh).bounds(capacity))
         self.K = int(fl.num_clusters)
         self.is_osafl = fl.algorithm == "osafl"
         inner_fl = dataclasses.replace(fl, num_clients=capacity,
@@ -303,18 +367,18 @@ class SparseCohortServer:
                     f"num_clusters must divide cohort_size "
                     f"(got K={self.K}, C={capacity})")
             self.inner = make_hier_server(params, inner_fl, capacity,
-                                          seed=seed, device=dev)
+                                          seed=seed, device=dev, mesh=mesh)
             self.pool = ClusterSlotPool(self.U, capacity, self.assign,
                                         self.K)
         elif self.is_osafl:
             self.assign = None
             self.inner = StackedOSAFLServer(params, inner_fl, capacity,
-                                            seed=seed, device=dev)
+                                            seed=seed, device=dev, mesh=mesh)
             self.pool = SlotPool(num_users, capacity)
         elif fl.algorithm in STACKED_SERVERS:
             self.assign = None
             self.inner = STACKED_SERVERS[fl.algorithm](
-                params, inner_fl, capacity, seed=seed, device=dev)
+                params, inner_fl, capacity, seed=seed, device=dev, mesh=mesh)
             self.pool = SlotPool(num_users, capacity)
         else:
             raise ValueError(f"unknown algorithm {fl.algorithm!r}")
@@ -322,7 +386,7 @@ class SparseCohortServer:
         if self.is_osafl:
             tables["scores"] = np.ones(self.U, np.float32)
             tables["lam_prev"] = np.ones(self.U, np.float32)
-        self.tables = CohortTables(self.U, tables, device=dev)
+        self.tables = CohortTables(self.U, tables, device=dev, mesh=mesh)
         if not self.is_osafl:
             # sticky per-user metadata, on the host like the inner servers'
             self.sizes = np.ones(self.U)
@@ -354,10 +418,11 @@ class SparseCohortServer:
 
     @property
     def last_scores(self) -> np.ndarray:
-        """Per-user (U,) scores (OSAFL): the carried score table."""
+        """Per-user (U,) scores (OSAFL): the carried score table (over
+        client rows gathered from every rank, so every rank reads it)."""
         if not self.is_osafl:
             raise AttributeError("last_scores is OSAFL-only")
-        return self.tables["scores"].cpu().numpy()
+        return row_cat(self.tables["scores"], self.mesh).cpu().numpy()
 
     # -- admission -----------------------------------------------------------
     def initial_residents(self) -> np.ndarray:
@@ -396,8 +461,11 @@ class SparseCohortServer:
         """Seat ``users`` (FIFO-evicting as needed) and load each newly
         seated slot: the carried per-user state is gathered from the
         tables and the contribution row is reset to ``init_row`` in place
-        (the evicted resident's row is lost). The caller resets the same
-        slots of its dataset buffer (``StackedOnlineBuffer.reset_rows``)."""
+        (the evicted resident's row is lost). Over client rows each rank
+        resets the newly seated slots of its own block and writes the
+        whole-width state (the score carry, ``last_scores``) for all of
+        them. The caller resets the same slots of its dataset buffer
+        (``StackedOnlineBuffer.reset_rows``)."""
         res = self.pool.admit(users)
         ns = res.slots[res.newly]
         if ns.size == 0:
@@ -405,14 +473,19 @@ class SparseCohortServer:
         nu = np.asarray(users, np.int64).ravel()[res.newly]
         g = self.tables.gather(nu)
         inner = self.inner
-        idx = torch.as_tensor(ns.astype(np.int64), device=self.device)
-        rows = inner.init_row()[None, :].expand(ns.size, -1)
+        lo, hi = self.slots
+        mine = np.flatnonzero((ns >= lo) & (ns < hi))
+        idx = torch.as_tensor(ns[mine].astype(np.int64) - lo,
+                              device=self.device)
+        rows = inner.init_row()[None, :].expand(mine.size, -1)
         if self.is_osafl:
+            sel = torch.as_tensor(mine, device=self.device)
             inner.d_buffer.index_copy_(0, idx, rows)
             inner.participated = inner.participated.index_copy(
-                0, idx, g["participated"])
-            inner._lam_prev = inner._lam_prev.index_copy(0, idx,
-                                                         g["lam_prev"])
+                0, idx, g["participated"].index_select(0, sel))
+            inner._lam_prev = inner._lam_prev.index_copy(
+                0, torch.as_tensor(ns.astype(np.int64), device=self.device),
+                g["lam_prev"])
             ls = np.array(inner.last_scores)
             ls[ns] = g["scores"].cpu().numpy()
             inner.last_scores = ls
@@ -430,8 +503,9 @@ class SparseCohortServer:
 
     # -- the round -----------------------------------------------------------
     def round_stacked(self, d_new, active, **meta):
-        """Slot-indexed round: ``d_new`` (C, N), ``active`` (C,) and the
-        algorithm's metadata keywords, all in slot order. Runs the inner
+        """Slot-indexed round: ``d_new`` (C, N) (over client rows this
+        rank's (C/R, N) block), ``active`` (C,) and the algorithm's
+        metadata keywords, all in slot order. Runs the inner
         round unchanged, then copies the per-slot results back into the
         per-user tables."""
         out = self.inner.round_stacked(d_new, active, **meta)
@@ -446,9 +520,11 @@ class SparseCohortServer:
         cu = cohort[vs]
         inner = self.inner
         if self.is_osafl:
+            # the whole (C,) flags: one gather a round over client rows
+            part = row_cat(inner.participated, self.mesh)
             idx = torch.as_tensor(vs.astype(np.int64), device=self.device)
             self.tables.scatter(cu, {
-                "participated": inner.participated.index_select(0, idx),
+                "participated": part.index_select(0, idx),
                 "scores": np.asarray(inner.last_scores, np.float32)[vs],
                 "lam_prev": inner._lam_prev.index_select(0, idx)})
         else:

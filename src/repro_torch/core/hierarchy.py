@@ -17,6 +17,16 @@ Each block is a contiguous row view of the buffer, which the kernel reads
 in place: a round launches it K times for the blocks and once more for the
 (K, N) aggregates when K > 1.
 
+Over a mesh of R > 1 client rows (``mesh=``, one process per row) each
+rank holds K/R whole cluster blocks (K % R == 0 for K > 1, the
+reference's ``hier-mesh`` rule), so tier 1 stays rank-local: one launch a
+local block against the block's own mean and its local partial aggregate.
+The lambdas are gathered to the whole width (``row_cat``) and the (K/R, N)
+aggregates into the (K, N) matrix in cluster order; every rank then runs
+tier 2 alike, so it launches the kernel K/R + 1 times a round. K = 1 spans
+the ranks and runs the flat round's body over rows (the mean and the step
+summed across them).
+
 Anchors: ``num_clusters=1`` runs exactly the flat round's operations on
 the whole buffer, and the combine takes its exact limit (one aggregate's
 cosine with itself is 1, so the step is the aggregate), so K=1 is bit for
@@ -42,6 +52,8 @@ from repro_torch.core.baselines import STACKED_SERVERS
 from repro_torch.core.cohort import AdmitResult, SlotPool, sample_participants
 from repro_torch.core.osafl import (StackedOSAFLServer, make_scores_fn,
                                     write_back)
+from repro_torch.core.shmap import (client_rows, client_sharding, row_cat,
+                                    row_sum)
 from repro_torch.device import owned_tensor
 
 
@@ -234,7 +246,22 @@ class ClusterSlotPool:
         self.check()
 
 
-def make_hier_round_body(fl: FLConfig, num_clusters: int):
+def local_clusters(num_clusters: int, mesh=None) -> int:
+    """The cluster blocks each client row holds: K/R of the mesh's R rows
+    (K with no mesh); K = 1 spans the rows. Raises ``ValueError`` when a
+    K > 1 block would straddle two rows."""
+    K = int(num_clusters)
+    if K < 1:
+        raise ValueError(f"num_clusters must be >= 1, got {K}")
+    R = 1 if mesh is None else client_rows(mesh)
+    if K > 1 and K % R:
+        raise ValueError(
+            f"num_clusters {K} is not a multiple of the mesh's {R} client "
+            "rows: with K>1 each row must own whole cluster slot blocks")
+    return K // R if K > 1 else 1
+
+
+def make_hier_round_body(fl: FLConfig, num_clusters: int, mesh=None):
     """The two-tier OSAFL round as one function
 
         rnd(w, buf, part_prev, lam_prev, clam_prev, d_new, active, alphas,
@@ -248,28 +275,37 @@ def make_hier_round_body(fl: FLConfig, num_clusters: int):
     machinery (one more launch) and combined, ``step = clam_use @ g``;
     ``clam_prev`` is the cluster-level stale-score carry. At K=1 the body
     runs exactly the flat round's operations on the whole buffer and the
-    step is the single aggregate (its cosine with itself is 1)."""
+    step is the single aggregate (its cosine with itself is 1). With the
+    ``mesh`` of R > 1 client rows, ``buf``, ``part_prev``, ``d_new``,
+    ``active`` and ``alphas`` are this rank's rows (K/R whole blocks),
+    ``lam_prev`` and the returned lambdas the whole width, and tier 2 runs
+    alike on every rank on the gathered (K, N) aggregates (module
+    docstring)."""
     K = int(num_clusters)
-    if K < 1:
-        raise ValueError(f"num_clusters must be >= 1, got {K}")
-    scores_of = make_scores_fn(fl)
+    k_local = local_clusters(K, mesh)
+    # K = 1 is the flat body, over rows too; K > 1 scores rank-local blocks
+    scores_of = make_scores_fn(fl, mesh if K == 1 else None)
+    block = (lambda x: x) if mesh is None else client_sharding(mesh).block
 
     def rnd(w, buf, part_prev, lam_prev, clam_prev, d_new, active, alphas,
             key=None):
         part = write_back(fl, w, buf, part_prev, d_new, active)
         if K == 1:
-            lam = scores_of(buf, key)
+            lam = row_cat(scores_of(buf, key), mesh)
             lam_use = lam_prev if fl.stale_scores else lam
             clam = torch.ones(1, dtype=torch.float32, device=buf.device)
             clam_use = clam_prev if fl.stale_scores else clam
-            step = (alphas * lam_use) @ buf
+            step = row_sum((alphas * block(lam_use)) @ buf, mesh)
         else:
-            B = buf.shape[0] // K
-            blk = [slice(k * B, (k + 1) * B) for k in range(K)]
-            lam = torch.cat([scores_of(buf[b], key) for b in blk])
+            B = buf.shape[0] // k_local
+            blk = [slice(k * B, (k + 1) * B) for k in range(k_local)]
+            lam = row_cat(torch.cat([scores_of(buf[b], key) for b in blk]),
+                          mesh)
             lam_use = lam_prev if fl.stale_scores else lam
+            mine = block(lam_use)
             # each edge's scored partial aggregate, what it sends upstream
-            g = torch.stack([(alphas[b] * lam_use[b]) @ buf[b] for b in blk])
+            g = row_cat(torch.stack([(alphas[b] * mine[b]) @ buf[b]
+                                     for b in blk]), mesh)
             clam = scores_of(g, key)
             clam_use = clam_prev if fl.stale_scores else clam
             step = clam_use @ g
@@ -292,21 +328,23 @@ class HierStackedOSAFLServer(StackedOSAFLServer):
     """``StackedOSAFLServer`` with the two-tier round: the same state plus
     the (K,) cluster-level score carry ``clam_prev`` (in the snapshots) and
     the round's cluster scores in ``last_cluster_scores``. Rows are in
-    cluster-block order (slot ``k*B + i`` belongs to cluster k)."""
+    cluster-block order (slot ``k*B + i`` belongs to cluster k); with
+    ``mesh`` this rank holds K/R whole blocks of them."""
 
     def __init__(self, params, fl: FLConfig, num_clients: int,
-                 alphas=None, seed: int = 0, device=None):
+                 alphas=None, seed: int = 0, device=None, mesh=None):
         K = _check_width(fl, num_clients)
         super().__init__(params, fl, num_clients, alphas=alphas, seed=seed,
-                         device=device)
+                         device=device, mesh=mesh)
         self.K = K
         self._clam_prev = torch.ones(K, dtype=torch.float32,
                                      device=self.w.device)
         self.last_cluster_scores = np.ones(K)
-        self._round_fn = make_hier_round_body(fl, K)
+        self._round_fn = make_hier_round_body(fl, K, mesh)
 
     def round_stacked(self, d_new, active) -> torch.Tensor:
-        active = torch.as_tensor(np.asarray(active, bool),
+        lo, hi = self.rows
+        active = torch.as_tensor(np.asarray(active, bool)[lo:hi],
                                  device=self.w.device)
         (self.w, self.d_buffer, self.participated, lam_use, self._lam_prev,
          clam_use, self._clam_prev) = self._round_fn(
@@ -337,25 +375,31 @@ def _hier_baseline(base):
     ``ws @ buffer`` becomes per-cluster partial aggregates summed at the
     server. Every weighting rule composes unchanged (the blocked sum is the
     same linear combination, re-associated); at K=1 it is the flat
-    product itself."""
+    product itself. Over client rows each rank forms its K/R blocks'
+    aggregates, gathered into the (K, N) matrix in cluster order; at K=1
+    the flat product summed across the rows."""
 
     class Hier(base):
         def __init__(self, params, fl: FLConfig, num_clients: int,
-                     seed: int = 0, device=None):
+                     seed: int = 0, device=None, mesh=None):
             K = _check_width(fl, num_clients)
             super().__init__(params, fl, num_clients, seed=seed,
-                             device=device)
+                             device=device, mesh=mesh)
             self.K = K
+            self._k_local = local_clusters(K, mesh)
 
         def cluster_aggregates(self, ws) -> torch.Tensor:
-            """(K, N) per-cluster partial aggregates under weights ``ws``,
-            what the edge tier would send to the server."""
-            B = self.buffer.shape[0] // self.K
-            w32 = torch.as_tensor(np.asarray(ws), dtype=torch.float32,
+            """(K, N) per-cluster partial aggregates under whole-width
+            weights ``ws``, what the edge tier would send to the server
+            (every rank gets all K)."""
+            lo, hi = self.rows
+            B = self.buffer.shape[0] // self._k_local
+            w32 = torch.as_tensor(np.asarray(ws)[lo:hi],
+                                  dtype=torch.float32,
                                   device=self.buffer.device)
-            return torch.stack([
+            return row_cat(torch.stack([
                 w32[k * B:(k + 1) * B] @ self.buffer[k * B:(k + 1) * B]
-                for k in range(self.K)])
+                for k in range(self._k_local)]), self.mesh)
 
         def _weighted(self, ws) -> torch.Tensor:
             if self.K == 1:
@@ -372,14 +416,16 @@ HIER_SERVERS = {alg: _hier_baseline(cls)
 
 
 def make_hier_server(params, fl: FLConfig, num_clients: int, seed: int = 0,
-                     device=None):
+                     device=None, mesh=None):
     """The two-tier counterpart of ``baselines.make_server``'s stacked
     branch; ``num_clients`` is the stacked width (U dense, C as the
-    sparse cohort's inner server)."""
+    sparse cohort's inner server), laid over the client rows of
+    ``mesh``."""
     if fl.algorithm == "osafl":
         return HierStackedOSAFLServer(params, fl, num_clients, seed=seed,
-                                      device=device)
+                                      device=device, mesh=mesh)
     if fl.algorithm in HIER_SERVERS:
         return HIER_SERVERS[fl.algorithm](params, fl, num_clients,
-                                          seed=seed, device=device)
+                                          seed=seed, device=device,
+                                          mesh=mesh)
     raise ValueError(f"unknown algorithm {fl.algorithm!r}")

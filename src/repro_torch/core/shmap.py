@@ -17,6 +17,10 @@ group, which the caller starts (``torchrun``, or
 ``torch.multiprocessing.spawn`` with ``init_process_group``) with any
 backend: NCCL across cards, gloo on the CPU or for ranks sharing a card.
 
+``row_take`` brings rows owned by different ranks (the sparse cohort's
+per-user tables, split over the ranks by user) to every rank in one
+``all_gather``.
+
 Every cross-row reduction here runs in a fixed order: ``row_sum`` gathers
 each rank's partial (the list form of ``all_gather``) and adds them in
 rank order, so gloo and NCCL sum alike and reruns repeat bit for bit. On
@@ -163,6 +167,20 @@ def row_cat(x: torch.Tensor, mesh) -> torch.Tensor:
     order into the whole ``(U, ...)`` array."""
     parts = _parts(x, mesh)
     return x if parts is None else torch.cat(parts, dim=0)
+
+
+def row_take(x: torch.Tensor, owner, mesh) -> torch.Tensor:
+    """Rows that live on different ranks, brought to every rank with one
+    ``all_gather``: ``x`` is (n, ...) with row i filled by the rank
+    ``owner[i]`` (each rank fills the rows it owns, anything elsewhere);
+    returns row i of rank ``owner[i]``'s ``x``, the same bits on every
+    rank. ``x`` itself with no mesh or no process group."""
+    parts = _parts(x, mesh)
+    if parts is None:
+        return x
+    owner = torch.as_tensor(owner, dtype=torch.long, device=x.device)
+    stacked = torch.stack(parts)
+    return stacked[owner, torch.arange(x.shape[0], device=x.device)]
 
 
 def row_max(x: torch.Tensor, mesh) -> torch.Tensor:

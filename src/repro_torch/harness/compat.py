@@ -2,11 +2,14 @@
 
 ``RULES`` is the reference's matrix (``repro/harness/compat.py``), copied
 rule for rule in its order; its ``fused-*`` and ``scenario-fused`` rules
-alone decide which fused rounds run. ``PORT_RULES`` then rejects, in the
-same uniform form, what the port does not run yet: a sparse cohort or edge
-clusters on a mesh of more than one client row (ROADMAP.md A6, second
-half). ``resolve()`` evaluates both lists in order and raises on the first
-match:
+alone decide which fused rounds run. The port runs every configuration
+the matrix admits, on a mesh of any number of client rows too, so it
+adds no rule of its own. What a mesh's rows refuse is the reference's own
+and stays where the reference checks it, in the pod harness's
+``_run_pod``: ``num_clients`` or ``cohort_size`` not a multiple of the
+rows (``ValueError``) and ``num_clusters`` > 1 not a multiple of them
+(``hier-mesh``). ``resolve()`` evaluates the rules in order and raises on
+the first match:
 
     invalid experiment configuration [rule-key]: why
 """
@@ -210,26 +213,6 @@ RULES = (
 )
 
 
-def _not_ported(what: str) -> str:
-    return (f"{what} is not ported to repro_torch yet (the pod engine runs "
-            "over the client rows of repro_torch.launch.mesh."
-            "make_host_mesh(), one torch.distributed rank a row, with the "
-            "dense buffer and the flat servers; sparse cohorts and edge "
-            "clusters across rows are ROADMAP.md A6's second half)")
-
-
-#: What the port does not run yet, checked after ``RULES``.
-PORT_RULES = (
-    Rule("port-mesh",
-         lambda p: p.mesh_rows > 1 and (p.cohort_size > 0
-                                        or p.num_clusters >= 1),
-         lambda p: _not_ported(
-             ("a sparse cohort (cohort_size > 0)" if p.cohort_size
-              else f"edge clusters (num_clusters={p.num_clusters})")
-             + f" on a mesh of {p.mesh_rows} client rows")),
-)
-
-
 def mesh_rows(mesh) -> int:
     """The client rows of ``mesh`` (``core/shmap.client_rows``), 0 for no
     mesh. A mesh is an object with ``axis_names`` and a ``shape`` mapping
@@ -245,8 +228,8 @@ def mesh_rows(mesh) -> int:
 
 def resolve(alg: str, xc, mesh=None,
             pod_engine: Optional[str] = None) -> ResolvedPlan:
-    """Validate ``(alg, xc)`` against ``RULES`` and ``PORT_RULES`` and
-    return the resolved plan. ``engine="auto"`` resolves to ``"pod"`` when a
+    """Validate ``(alg, xc)`` against ``RULES`` and return the resolved
+    plan. ``engine="auto"`` resolves to ``"pod"`` when a
     mesh is passed and ``"stacked"`` otherwise (``alg="centralized"`` forces
     the genie). Raises ``ExperimentConfigError`` on the first matching
     rule; a malformed scenario spec raises ``ValueError`` first, as
@@ -272,7 +255,7 @@ def resolve(alg: str, xc, mesh=None,
         num_clusters=int(getattr(xc, "num_clusters", 0)),
         num_clients=int(xc.num_clients),
         scenario=xc.scenario, mesh_rows=mesh_rows(mesh), scn=scn)
-    for rule in RULES + PORT_RULES:
+    for rule in RULES:
         if rule.key == "rounds-per-dispatch":
             # placeholder in the reference's order: rpd is checked here
             if (plan.round_backend == "fused"

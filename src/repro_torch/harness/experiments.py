@@ -46,7 +46,11 @@ registered users is seated each round, ``core/cohort.py``), the edge
 cluster tier (``num_clusters``, ``core/hierarchy.py``), the scenario layer
 (``scenario``, ``repro_torch/scenarios/``) as the reference does, and
 sketched scores (``score_sketch_dim``), which the reference's harness does
-not pass on to its servers.
+not pass on to its servers. Over R > 1 rows each rank holds C/R slots of
+the FIFO buffer and of the inner server (K/R whole cluster blocks) and
+U/R users of the per-user tables, while the slot pool, the cluster map
+and every draw stay whole and alike on every rank; an admission or a
+cluster move resets the newly seated slots of each rank's own block.
 
 Checkpoints (``save_every_k`` + ``checkpoint_dir``, ``resume_from``,
 ``keep_last``, ``checkpoint_async``) write the reference's RunState
@@ -226,8 +230,9 @@ def _stacked_setup(alg: str, xc: ExperimentConfig, eval_samples: int,
     and the client system parameters, drawing the host RNG in the
     reference's order. ``stale_scores`` (the pod stale engine's one-round
     score lag) goes to the server's ``FLConfig`` and touches no RNG.
-    ``mesh`` lays the FIFO buffer and the server's contribution buffer
-    over its client rows (this rank's rows of each); every draw stays the
+    ``mesh`` lays the FIFO buffer, the server's contribution buffer and,
+    on the sparse path, the per-user tables over its client rows (this
+    rank's rows of each); every draw, the initial fill's too, stays the
     whole cohort's, so it changes none."""
     stacked_req = xc.request_backend == "stacked"
     model, U = xc.model, xc.num_clients
@@ -358,8 +363,8 @@ def _gather_sys(sysb, rows):
 
 def _admitted(s: SimpleNamespace, users, res) -> None:
     """Reset the dataset rows of the slots an admission newly seated to
-    the incoming users' capacities (the evicted residents' data is
-    lost)."""
+    the incoming users' capacities (the evicted residents' data is lost);
+    over client rows each rank resets the slots of its own block."""
     if res is not None and res.newly.any():
         s.sbuf.reset_rows(res.slots[res.newly],
                           s.caps[np.asarray(users)[res.newly]])
@@ -505,9 +510,9 @@ def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
     many = mesh is not None and client_rows(mesh) > 1
     history, start_round = [], 0
     if resume_from is not None:
-        # over rows each rank reads its own rows of the sharded leaves
-        rows = ({"block": client_sharding(mesh).bounds(xc.num_clients)}
-                if many else {})
+        # over rows each rank reads its own rows of the sharded leaves, of
+        # each leaf's width (U users, C slots)
+        rows = {"block": client_sharding(mesh)} if many else {}
         snap = checkpoint.load_run_state(resume_from, **rows)
         _check_snapshot(snap, engine, alg, xc, eval_samples, extra=shape)
         history, start_round = _resume_stacked(s, snap)

@@ -4,9 +4,8 @@ over a grid of engine x request and round backend x ``cohort_size`` x
 raises, the port raises the same rule key; where it does not, the port
 resolves the same plan. The reference's side takes a stand-in mesh object
 (its ``resolve`` only asks whether one was passed), the port's its own
-one-row mesh (``make_host_mesh()``); a sparse cohort or edge clusters on a
-mesh of more than one client row is the port's one remaining ``port-*``
-rule."""
+one-row mesh (``make_host_mesh()``); the port adds no rule of its own,
+on a mesh of more than one client row either."""
 import dataclasses
 import itertools
 
@@ -14,7 +13,8 @@ import numpy as np
 import pytest
 
 from repro_torch.harness import ExperimentConfig, ExperimentConfigError
-from repro_torch.harness.compat import PORT_RULES, resolve
+from repro_torch.harness import compat
+from repro_torch.harness.compat import resolve
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from test_torch_oracle import reference  # noqa: F401
 
@@ -31,10 +31,11 @@ ROUNDS = ("dispatch", "fused")
 
 
 def test_port_rules_are_pod_and_mesh():
-    """One rule is left: a sparse cohort or edge clusters on a mesh of more
-    than one client row (ROADMAP A6's second half); the pod engine on a
-    one-row mesh and on a two-row one resolves."""
-    assert [r.key for r in PORT_RULES] == ["port-mesh"]
+    """No port rule is left: the pod engine on a one-row mesh and on a
+    two-row one resolves, a sparse cohort, edge clusters (K = 1 and K = R)
+    and cluster churn on two rows among it (the rows' own refusals are the
+    reference's, in the pod harness)."""
+    assert not hasattr(compat, "PORT_RULES")
     xc = ExperimentConfig(num_clients=8)
     assert resolve("osafl", xc, mesh=make_host_mesh()).engine == "pod"
     assert resolve("osafl", dataclasses.replace(xc, engine="pod")
@@ -43,11 +44,13 @@ def test_port_rules_are_pod_and_mesh():
     plan = resolve("osafl", xc, mesh=two)
     assert (plan.engine, plan.mesh_rows) == ("pod", 2)
     for change in (dict(cohort_size=4), dict(num_clusters=2),
-                   dict(num_clusters=1)):
-        with pytest.raises(ExperimentConfigError,
-                           match="A6's second half") as err:
-            resolve("osafl", dataclasses.replace(xc, **change), mesh=two)
-        assert err.value.key == "port-mesh"
+                   dict(num_clusters=1),
+                   dict(cohort_size=4, num_clusters=2,
+                        scenario="cluster_churn(rate=0.3)")):
+        plan = resolve("osafl", dataclasses.replace(xc, **change), mesh=two)
+        assert (plan.engine, plan.mesh_rows) == ("pod", 2)
+        assert plan.cohort_size == change.get("cohort_size", 0)
+        assert plan.num_clusters == change.get("num_clusters", 0)
     with pytest.raises(TypeError, match="make_host_mesh"):
         resolve("osafl", xc, mesh=object())
 

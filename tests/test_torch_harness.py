@@ -10,7 +10,8 @@ import torch
 
 import repro_torch.harness.experiments as tex
 from repro_torch.harness import ExperimentConfig, ExperimentConfigError, run
-from repro_torch.harness.compat import ALL_ALGS, PORT_RULES, resolve
+from repro_torch.harness import compat
+from repro_torch.harness.compat import ALL_ALGS, resolve
 from repro_torch.launch.mesh import HostMesh, make_host_mesh
 from repro_torch.models.small import params_from_numpy
 from test_torch_oracle import reference, to_numpy_tree  # noqa: F401
@@ -104,21 +105,17 @@ def test_reference_rules_name_the_same_failure(reference, change):
     (dict(engine="pod", resource_backend="f32"), True),
 ])
 def test_port_rules_reject_what_is_not_ported(change, mesh):
-    """What the port does not run is a sparse cohort or edge clusters on a
-    mesh of more than one client row (``port-mesh``, naming ROADMAP A6's
-    second half); every other configuration resolves on two rows, and each
-    resolves on the one-row mesh or with none, the pod engine among
-    them."""
+    """The port rejects nothing the reference's matrix admits: every
+    configuration resolves on a mesh of two client rows, a sparse cohort
+    and edge clusters among them, and each resolves on the one-row mesh
+    or with none, the pod engine among them."""
     xc = dataclasses.replace(ExperimentConfig(num_clients=8), **change)
     two = HostMesh(np.full((2, 1), None, dtype=object))
-    if xc.cohort_size or xc.num_clusters:
-        with pytest.raises(ExperimentConfigError, match="not ported") as err:
-            resolve("osafl", xc, mesh=two)
-        assert err.value.key == "port-mesh"
-        assert "A6's second half" in str(err.value)
-    else:
-        assert resolve("osafl", xc, mesh=two).mesh_rows == 2
-    assert [r.key for r in PORT_RULES] == ["port-mesh"]
+    plan = resolve("osafl", xc, mesh=two)
+    assert plan.mesh_rows == 2
+    assert (plan.cohort_size, plan.num_clusters) == (xc.cohort_size,
+                                                     xc.num_clusters)
+    assert not hasattr(compat, "PORT_RULES")
     plan = resolve("osafl", xc, **(dict(mesh=make_host_mesh()) if mesh
                                    else {}))
     assert plan.engine == change["engine"]
@@ -158,8 +155,7 @@ def test_resolve_accepts_the_paper_presets_backends(reference, change):
     want = reference.harness.resolve("osafl", dataclasses.replace(
         reference.harness.ExperimentConfig(num_clients=8), **change))
     assert plan.describe() == want.describe()
-    assert not {"port-request-backend", "port-resource-backend",
-                "port-checkpoint"} & {r.key for r in PORT_RULES}
+    assert not hasattr(compat, "PORT_RULES")
 
 
 @pytest.mark.parametrize("engine", ["stacked", "loop"])

@@ -13,7 +13,7 @@
     and the one-client-at-a-time form), and the batch function against
     ``StackedOnlineBuffer.gather``.
   * Stale scores lag and differ from exact_tp; an unknown ``pod_engine``
-    raises; a mesh of two client rows raises naming ROADMAP A6.
+    raises; a mesh of two client rows without a process group raises.
   * ``"pod"`` snapshots: resume bit for bit, refuse another ``pod_engine``,
     engine or mesh shape, carry the reference's mesh fields, and a
     python-stream snapshot resumes in the other package both ways (1e-5).
@@ -176,19 +176,20 @@ def test_unknown_pod_engine_raises():
 
 def test_a_mesh_of_two_rows_raises_naming_a6():
     """Two client rows run as two ranks of a process group (the cases of
-    ``test_torch_pod_mesh.py``): with none, the run and the online step
-    raise ``ValueError``; a sparse cohort on two rows raises ``port-mesh``
-    naming ROADMAP A6's second half."""
+    ``test_torch_pod_mesh.py`` and, since ROADMAP A6's second half was
+    ported, of ``test_torch_pod_mesh_sparse.py`` for sparse cohorts and
+    clusters): with none, the dense run, a sparse or clustered one and the
+    online step raise ``ValueError`` naming the process group, and no
+    configuration is refused as not ported."""
     two = HostMesh(np.array([[None], [None]], dtype=object))
     assert two.shape == {"data": 2, "model": 1}
-    with pytest.raises(ValueError, match="torch.distributed"):
-        run("osafl", ExperimentConfig(**SMALL), eval_samples=EVAL,
-            device="cpu", mesh=two)
-    with pytest.raises(ExperimentConfigError, match="A6") as err:
-        run("osafl", ExperimentConfig(**SMALL, cohort_size=8,
-                                      participation=0.5),
-            eval_samples=EVAL, device="cpu", mesh=two)
-    assert err.value.key == "port-mesh"
+    for change in (dict(), dict(cohort_size=8, participation=0.5),
+                   dict(num_clusters=2)):
+        with pytest.raises(ValueError, match="torch.distributed") as err:
+            run("osafl", ExperimentConfig(**SMALL, **change),
+                eval_samples=EVAL, device="cpu", mesh=two)
+        assert not isinstance(err.value, ExperimentConfigError)
+        assert "A6" not in str(err.value)
     with pytest.raises(ValueError, match="torch.distributed"):
         pod.make_tp_train_step(None, FLConfig(), two,
                                batch_fn=pod.make_pod_batch_fn(),

@@ -39,11 +39,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(job: str, nprocs: int, payload: dict, out: Path, meanwhile=None):
-    """Run ``JOBS[job]`` on ``nprocs`` gloo ranks; returns each rank's
-    results, in rank order, and what ``meanwhile()`` returns, called in
-    this process while the ranks run. A rank that raises fails the
-    spawn."""
+def spawn(job, nprocs: int, payload: dict, out: Path, meanwhile=None):
+    """Run ``JOBS[job]`` (or ``job`` itself, a module-level function of
+    another JAX-free rank module) on ``nprocs`` gloo ranks; returns each
+    rank's results, in rank order, and what ``meanwhile()`` returns,
+    called in this process while the ranks run. A rank that raises fails
+    the spawn."""
     out = Path(out)
     ctx = mp.start_processes(
         _rank, args=(nprocs, free_port(), job, payload, str(out)),
@@ -58,13 +59,13 @@ def spawn(job: str, nprocs: int, payload: dict, out: Path, meanwhile=None):
     return results, done
 
 
-def _rank(rank: int, nprocs: int, port: int, job: str, payload: dict,
+def _rank(rank: int, nprocs: int, port: int, job, payload: dict,
           out: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=nprocs, rank=rank)
     try:
-        res = JOBS[job](rank, payload)
+        res = (JOBS[job] if isinstance(job, str) else job)(rank, payload)
     finally:
         dist.destroy_process_group()
     with open(Path(out) / f"rank{rank}.pkl", "wb") as f:
@@ -178,11 +179,17 @@ def two_ranks(rank: int, payload: dict) -> dict:
     for case, kw in OPTIONS:
         out[case] = pod_run("osafl", **kw)
     out["snapshot"] = _snapshot_case(rank, Path(payload["ckpt"]))
+    # a sparse cohort and edge clusters run on two rows; what the rows
+    # refuse of them is the reference's divisibility and hier-mesh rules
+    out["ran"] = {
+        "cohort": pod_run("osafl", cohort_size=8, participation=0.5),
+        "clusters": pod_run("osafl", num_clusters=2)}
     out["refused"] = {
         "indivisible": _raises(lambda: pod_run("osafl", num_clients=9)),
-        "cohort": _raises(lambda: pod_run("osafl", cohort_size=8,
+        "cohort": _raises(lambda: pod_run("osafl", cohort_size=3,
                                           participation=0.5)),
-        "clusters": _raises(lambda: pod_run("osafl", num_clusters=2)),
+        "clusters": _raises(lambda: pod_run("osafl", num_clients=6,
+                                            num_clusters=3)),
         "v1_snapshots": _raises(lambda: pod_run("osafl", run_kw=dict(
             save_every_k=1, checkpoint_dir=payload["ckpt"] + "-v1",
             checkpoint_async=False))),
