@@ -201,7 +201,27 @@ Phases, each fatal on failure:
      against CPU; a profiled fedavg step, whose flash backward must be the
      Hopper route's kernels, each once a layer. The Hopper backward's
      ptxas report (from the build, or kept beside a library built before)
-     must show no spill.
+     must show no spill;
+  9. tensor parallelism over 'model' (ROADMAP A7, first half): gloo
+     ranks sharing the card, in two groups started beside host-bound
+     phases (the four training ranks beside 6c and the small models'
+     breakdowns, the two serving ranks beside 7c and the small
+     card-against-CPU runs of 4 and 8). Training: qwen1.5-4b at full
+     width, 2 layers, f32
+     parameters and bf16 compute, 3 exact_tp steps on a (2, 2) mesh
+     (flash forward and backward on each rank's 10 local heads, twice a
+     step each) against the same steps on the (2, 1) mesh of column 0's
+     ranks: losses within TP_LOSS_TOL, every parameter leaf within
+     TP_PARAM_TOL of the distance it moved, whole leaves the same bits on
+     both columns; per rank each step's seconds, its seconds and calls in
+     model-axis collectives, peak memory. Serving: qwen1.5-4b at full
+     depth in bf16 on a (1, 2) mesh: a 1 x 2048 prefill (flash once a
+     layer on each rank) held to one process at 16 positions within
+     LOGIT_TOL and its greedy token, then a 32-token prompt and 8 decode
+     steps, each step's logits and tokens held to one process on the same
+     tokens; prefill and decode tokens/s. Then the flash forward and
+     backward at the ranks' local-head shapes against their plain
+     versions, timed beside bound and SDPA.
 Convolutions run in full f32 and deterministic inside every harness run
 (cuDNN's TF32 and benchmarking are held off and restored after). The line
 before the last is one JSON object with every kernel's numbers
@@ -573,6 +593,36 @@ BWD_SHAPES = ((1, 7, 1, 1, 128), (2, 14, 2, 130, 128), (2, 14, 2, 130, 40),
               (1, 4, 4, 130, 64), (1, 8, 2, 130, 256), (1, 16, 2, 1000, 128),
               (2, 8, 8, 777, 120), (2, 32, 32, 130, 80))
 LSE_TOL = 1e-4
+# phase 9, tensor parallelism over 'model': qwen1.5-4b at full width. The
+# training ranks: four gloo ranks sharing the card as a (2, 2) mesh, f32
+# parameters, bf16 compute, depth 40 -> 2 layers (four ranks' trees and the
+# (2, 1) run they are held to in 80 GB beside phase 7c), 3 exact_tp steps
+# on a global batch of 8 x 1024 (4 sequences a row; lr as phase 8's);
+# the same steps on the (2, 1) mesh of column 0's two ranks. Flash runs
+# on each rank's 10 local heads: 2 forward and 2 backward launches a step
+TP_ARCH = "qwen1.5-4b"
+TP_TRAIN_LAYERS = 2
+TP_TRAIN_RUN = dict(batch=8, seq=1024, lr=0.005, seed=0)
+TP_TRAIN_STEPS = 3
+TP_RANKS = 4
+# (2, 2) against (2, 1): bf16 matrix products whose partial sums the
+# model axis adds in another order. Each leaf's largest difference over
+# the largest distance its (2, 1) run moved it in the 3 steps, and each
+# step's loss relative to the (2, 1) run's
+TP_PARAM_TOL = 5e-2
+TP_LOSS_TOL = 1e-4
+# the serving ranks: two gloo ranks as a (1, 2) mesh, full depth, bf16
+# parameters: a 1 x 2048 bf16 prefill (flash once a layer on 10 local
+# heads), timed on its second call, and a 16-token prompt through decode
+# steps then 8 greedy decode steps, timed. Held to one process on the
+# same weights in f32 compute (LOGIT_TOL over its largest logit; greedy
+# tokens equal wherever its top-2 gap exceeds LOGIT_TOL); in bf16 the two
+# round apart 40 layers deep (0.25 of a largest logit of 5.0 on an H100),
+# so the bf16 prefill is held to be no farther from the f32 logits than
+# one process's bf16 prefill is, with 25 % headroom
+TP_SERVE = dict(batch=1, seq=2048, seed=1)
+TP_DECODE = dict(prompt_len=16, decode_steps=8)
+TP_LOGIT_POSITIONS = 16            # prefill positions compared, evenly
 
 
 def say(*parts) -> None:
@@ -3402,8 +3452,8 @@ def small_train_phase(devices=("cuda", "cpu")) -> list:
 def train_phase() -> dict:
     """The training path at full width (qwen1.5-4b, 8 layers): every
     engine for 5 steps through ``repro_torch.launch.train.run``; then
-    exact_tp against fedavg on one step, recompute's first step twice, and
-    the small runs card against CPU."""
+    exact_tp against fedavg on one step and recompute's first step twice
+    (the small runs card against CPU run beside phase 9's ranks)."""
     from repro_torch.configs import get_config
     from repro_torch.core.flatten import tree_get, tree_paths
     t_phase = _clock()
@@ -3473,7 +3523,6 @@ def train_phase() -> dict:
     if not (same_ok and rerun):
         raise AssertionError(f"exact_tp left fedavg or recompute did not "
                              f"repeat: {out['exact_tp_vs_fedavg']}, {rerun}")
-    out["small"] = small_train_phase()
     out["seconds"] = _clock() - t_phase
     say(f"training phase: {out['seconds']:.3f} s")
     return out
@@ -3514,6 +3563,420 @@ def fedavg_step_breakdown(cfg) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 9: tensor parallelism over 'model' (ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+def _tp_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.flash_attention_bhsd.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+def _tp_zero_counts() -> None:
+    from repro_torch.kernels import flash_attention as fa
+    fa.flash_attention_bhsd.launches = 0
+    fa.flash_attention_bwd.launches = 0
+
+
+class _ModelAxisClock:
+    """Seconds and calls of the model axis's collectives (``shmap``'s
+    gathers along a row), each bracketed by synchronizes, while open."""
+
+    def __init__(self, device):
+        self.device, self.s, self.calls = torch.device(device), 0.0, 0
+
+    def __enter__(self):
+        from repro_torch.core import shmap
+        self._plain = plain = shmap._gather
+
+        def timed_gather(x, group, kind, axis):
+            if axis != "model":
+                return plain(x, group, kind, axis)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            out = plain(x, group, kind, axis)
+            _sync(self.device)
+            self.s += time.perf_counter() - t0
+            self.calls += 1
+            return out
+        shmap._gather = timed_gather
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import shmap
+        shmap._gather = self._plain
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tp_train_rank(device) -> dict:
+    """One rank of phase 9's training: the (2, 1) run on column 0's ranks
+    (a mesh over their column group), then the (2, 2) run on all four;
+    each row's ranks gather the (2, 2) parameters whole, and column 0's
+    hold them to the (2, 1) run's. Whole leaves must be the same bits on
+    both columns."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.flatten import tree_get, tree_paths
+    from repro_torch.core.pod import make_tp_train_step
+    from repro_torch.core.shmap import client_sharding, model_axis
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch.mesh import HostMesh, make_host_mesh
+    from repro_torch.launch.sharding import (gather_params, param_shardings,
+                                             shard_params)
+    from repro_torch.models.transformer import init_model
+    mesh = make_host_mesh(model_parallel=2, device=device)
+    cfg = dataclasses.replace(get_config(TP_ARCH), n_layers=TP_TRAIN_LAYERS)
+    run = TP_TRAIN_RUN
+    fl = FLConfig(kappa_max=1, local_lr=run["lr"], num_clients=2)
+
+    def weights():
+        return init_model(torch.Generator(device=device).manual_seed(
+            run["seed"]), cfg)
+    batch = make_train_batch(torch.Generator(device=device).manual_seed(
+        run["seed"] + 1), cfg, run["batch"], run["seq"])
+    batch = {k: client_sharding(mesh, 2).block(v) for k, v in batch.items()}
+    out = {"rank": mesh.rank, "row": mesh.row, "col": mesh.col}
+    one = None
+    if mesh.col == 0:                        # (2, 1) over column 0's ranks
+        sub = HostMesh(np.full((2, 1), None, dtype=object), row=mesh.row,
+                       groups=(mesh.groups[0], None))
+        step = make_tp_train_step(cfg, fl, sub)
+        params, losses = weights(), []
+        for _ in range(TP_TRAIN_STEPS):
+            params, m = step(params, batch)
+            losses.append(float(m["loss"]))
+        one = params
+        out["one_column_losses"] = losses
+        del step
+    _sync(device)
+    dist.barrier()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    local = shard_params(weights(), mesh)
+    step = make_tp_train_step(cfg, fl, mesh)
+    rows = []
+    for _ in range(TP_TRAIN_STEPS):
+        _tp_zero_counts()
+        with _ModelAxisClock(device) as clock:
+            _sync(device)
+            t0 = time.perf_counter()
+            local, m = step(local, batch)
+            _sync(device)
+            step_s = time.perf_counter() - t0
+        rows.append({"step_s": step_s, "loss": float(m["loss"]),
+                     "lambda_mean": float(m["lambda_mean"]),
+                     "model_axis_s": clock.s,
+                     "model_axis_calls": clock.calls,
+                     "launches": _tp_counts()})
+    out["steps"] = rows
+    out["max_memory_allocated"] = (
+        torch.cuda.max_memory_allocated()
+        if torch.device(device).type == "cuda" else 0)
+    # whole leaves (the norms): the same bits on both columns of the row
+    meta = init_model(None, cfg)
+    specs = param_shardings(meta, mesh)
+    axis = model_axis(mesh)
+    out["whole_leaves_same_bits"] = all(
+        all(torch.equal(p, tree_get(local, path)) for p in axis.parts(
+            tree_get(local, path), "all-gather"))
+        for path in tree_paths(meta)
+        if "model" not in tree_get(specs, path).spec)
+    tp = gather_params(local, meta, mesh)
+    del local, step
+    if one is not None:
+        start = weights()
+        worst, by_leaf = 0.0, {}
+        for path in tree_paths(one):
+            a, b = tree_get(tp, path).float(), tree_get(one, path).float()
+            moved = float((b - tree_get(start, path).float()).abs().max())
+            err = float((a - b).abs().max()) / max(moved, 1e-30)
+            by_leaf[".".join(path)] = err
+            worst = max(worst, err)
+        out["params_err_over_moved"] = worst
+        out["params_err_by_leaf"] = by_leaf
+        out["loss_rel_err"] = max(
+            abs(r["loss"] - l) / abs(l)
+            for r, l in zip(rows, out["one_column_losses"]))
+        del start
+    del tp, one
+    _sync(device)
+    dist.barrier()
+    return out
+
+
+def _tp_serve_rank(device) -> dict:
+    """One rank of phase 9's serving on a (1, 2) mesh of qwen1.5-4b at
+    full depth with bf16 weights: the timed bf16 prefill (the entry point
+    a user calls) and bf16 decode, then the gates. Column 0 also runs one
+    process on the whole weights: in f32 compute the (1, 2) logits of the
+    prefill (sampled positions) and of every decode step, fed the same
+    tokens, are held to one process's within LOGIT_TOL of its largest
+    logit, and the greedy tokens equal wherever its top-2 gap exceeds
+    LOGIT_TOL; in bf16 the (1, 2) prefill's distance to the f32 logits is
+    held to 1.25x one process's own bf16 distance to them (the bf16 rule
+    of tests/test_torch_ssm_models.py: the two runs round apart by the
+    order of the model axis's sums, 40 layers deep)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.core.shmap import model_axis
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import shard_params
+    from repro_torch.models import transformer as T
+    mesh = make_host_mesh(model_parallel=2, device=device)
+    axis = model_axis(mesh)
+    cfg = dataclasses.replace(get_config(TP_ARCH), param_dtype="bfloat16")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(TP_SERVE["seed"])
+    whole = T.init_model(gen, cfg)
+    local = shard_params(whole, mesh)
+    if mesh.col != 0:
+        del whole
+        whole = None
+    prompt = torch.randint(0, cfg.vocab_size, (TP_SERVE["batch"],
+                                               TP_SERVE["seq"]),
+                           generator=gen, device=device, dtype=torch.int32)
+    at = torch.linspace(0, TP_SERVE["seq"] - 1, TP_LOGIT_POSITIONS,
+                        device=device).long()
+    n, steps = TP_DECODE["prompt_len"], TP_DECODE["decode_steps"]
+    out = {"rank": mesh.rank, "col": mesh.col}
+
+    def sampled(c, params, m):
+        logits, _ = T.forward(params, {"tokens": prompt}, c, m)
+        part = logits[:, at].float().contiguous()
+        return part if m is None else axis.cat(part)
+
+    def decode(c, params, m, fed=None):
+        """Greedy decode after the prompt's first n tokens: the (1, V)
+        logits of each step from n - 1 on, the tokens fed (``fed`` where
+        given) and the seconds of the ``steps`` greedy steps."""
+        cache = T.init_cache(c, TP_SERVE["batch"], n + steps,
+                             device=device, mesh=m)
+        tok, feed, rows, seconds = None, [], [], 0.0
+        for pos in range(n + steps):
+            if fed is not None:
+                tok = fed[pos]
+            elif pos < n:
+                tok = prompt[:, pos:pos + 1]
+            feed.append(tok)
+            _sync(device)
+            t0 = time.perf_counter()
+            lg, cache = T.decode_step(params, cache, tok, pos, c, mesh=m)
+            full = lg[:, -1].float().contiguous()
+            full = full if m is None else axis.cat(full)
+            tok = torch.argmax(full, dim=-1, keepdim=True).to(torch.int32)
+            _sync(device)
+            if pos >= n:
+                seconds += time.perf_counter() - t0
+            if pos >= n - 1:
+                rows.append(full)
+        return rows, feed, seconds
+
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, mesh)
+        prefill(local, {"tokens": prompt})                 # warm-up
+        _tp_zero_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        token = prefill(local, {"tokens": prompt})
+        _sync(device)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = _tp_counts()
+        out["prefill_tokens_per_s"] = prompt.numel() / out["prefill_s"]
+        out["prefill_token"] = int(token[0])
+        tp_bf16 = sampled(cfg, local, mesh)
+        rows, _, seconds = decode(cfg, local, mesh)
+        out["decode_s_per_step"] = seconds / steps
+        out["decode_tokens_per_s"] = TP_SERVE["batch"] * steps / seconds
+        out["tokens"] = [int(torch.argmax(r, -1)) for r in rows]
+        # the gates: f32 compute on the same bf16 weights
+        tp_f32 = sampled(f32, local, mesh)
+        if whole is not None:
+            one_f32 = sampled(f32, whole, None)
+            one_bf16 = sampled(cfg, whole, None)
+            top = float(one_f32.abs().max())
+            out["prefill_f32_max_abs_err"] = float(
+                (tp_f32 - one_f32).abs().max())
+            out["prefill_logit_scale"] = top
+            out["prefill_ok"] = (
+                out["prefill_f32_max_abs_err"] <= LOGIT_TOL * top
+                and _close_tokens(tp_f32, one_f32, LOGIT_TOL))
+            out["prefill_bf16_to_f32"] = {
+                "two_columns": float((tp_bf16 - one_f32).abs().max()),
+                "one_process": float((one_bf16 - one_f32).abs().max()),
+                "between": float((tp_bf16 - one_bf16).abs().max())}
+            d = out["prefill_bf16_to_f32"]
+            out["prefill_bf16_ok"] = d["two_columns"] <= 1.25 * d[
+                "one_process"]
+            # the greedy token: the gathered bf16 logits' first maximum
+            out["prefill_token_ok"] = out["prefill_token"] == int(
+                torch.argmax(tp_bf16[0, -1]))
+            one_rows, fed, _ = decode(f32, whole, None)
+            del one_f32, one_bf16
+        else:
+            fed = None
+        # the (1, 2) f32 decode on one process's tokens, which column 0
+        # (rank 0 of this group) sends to column 1
+        fed = (torch.cat(fed, dim=1) if fed is not None else torch.zeros(
+            (TP_SERVE["batch"], n + steps), dtype=torch.int32,
+            device=device))
+        dist.broadcast(fed, src=0, group=axis.group)
+        tp_rows, _, _ = decode(f32, local, mesh,
+                               fed=[fed[:, i:i + 1] for i in range(n + steps)])
+        if whole is not None:
+            errs = [float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(tp_rows, one_rows)]
+            agree = all(_close_tokens(a, b, LOGIT_TOL)
+                        for a, b in zip(tp_rows, one_rows))
+            out["decode_f32_max_rel_err"] = max(errs)
+            out["decode_tokens_agree"] = agree
+            out["decode_ok"] = max(errs) <= LOGIT_TOL and agree
+    del whole, local
+    _sync(device)
+    dist.barrier()
+    return out
+
+
+# phase 9's two groups: (job, ranks), each started beside host-bound phases
+TP_GROUPS = {"train": (_tp_train_rank, TP_RANKS),
+             "serve": (_tp_serve_rank, 2)}
+
+
+def _tp_process(proc: int, kind: str, port: int, out: str,
+                device: str) -> None:
+    """Rank ``proc`` of phase 9's ``kind`` group (``TP_GROUPS``): joins
+    the gloo group on the card, runs its job and writes its row into
+    ``out``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch.distributed as dist
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(0)
+    job, ranks = TP_GROUPS[kind]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=ranks, rank=proc)
+    try:
+        row = job(device)
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out) / f"rank{proc}.json", "w") as f:
+        json.dump(row, f)
+
+
+def start_tp_ranks(kind: str, device: str = "cuda:0") -> tuple:
+    """Phase 9's ``kind`` group started and left running: ``(kind,
+    context, output directory, start time)`` for ``join_tp_ranks``."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    out = Path(tempfile.mkdtemp(prefix=f"chip_smoke_tp_{kind}_"))
+    ctx = mp.start_processes(
+        _tp_process, args=(kind, _free_port(), str(out), device),
+        nprocs=TP_GROUPS[kind][1], join=False, start_method="spawn")
+    return kind, ctx, out, time.perf_counter()
+
+
+def stop_tp_ranks(started) -> None:
+    """End a started group's processes (a phase beside them failed)."""
+    for proc in started[1].processes:
+        proc.terminate()
+
+
+def join_tp_ranks(started) -> dict:
+    """Wait for a started group; its rows in rank order and its seconds
+    from the start."""
+    import shutil
+    kind, ctx, out, t0 = started
+    try:
+        while not ctx.join():
+            pass
+        seconds = time.perf_counter() - t0
+        rows = [json.loads((out / f"rank{r}.json").read_text())
+                for r in range(TP_GROUPS[kind][1])]
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return {"rows": rows, "seconds": seconds}
+
+
+def tp_phase(train_group: dict, serve_group: dict) -> dict:
+    """Phase 9 (module docstring): gate the two groups' rows; then hold
+    each flash kernel they launched to its plain version at the
+    local-head shapes, timed."""
+    from repro_torch.configs import get_config
+    train, serve = train_group["rows"], serve_group["rows"]
+    ranks_s = {"train": train_group["seconds"],
+               "serve": serve_group["seconds"]}
+    heads = 20 // 2                            # qwen1.5-4b's 20 over 2
+    per_step = {"flash_attention": TP_TRAIN_LAYERS,
+                "flash_attention_bwd": TP_TRAIN_LAYERS}
+    col0 = [r for r in train if r["col"] == 0]
+    gates = {
+        "(2, 2) losses within TP_LOSS_TOL of (2, 1)": all(
+            r["loss_rel_err"] <= TP_LOSS_TOL for r in col0),
+        "(2, 2) parameters within TP_PARAM_TOL of (2, 1)": all(
+            r["params_err_over_moved"] <= TP_PARAM_TOL for r in col0),
+        "whole leaves the same bits on both columns": all(
+            r["whole_leaves_same_bits"] for r in train),
+        "every rank's losses the same": all(
+            [s["loss"] for s in r["steps"]] == [s["loss"] for s in
+                                                train[0]["steps"]]
+            for r in train),
+        "flash forward and backward once a layer a step on each rank": all(
+            s["launches"] == per_step for r in train for s in r["steps"]),
+        "f32 prefill within LOGIT_TOL of one process": serve[0][
+            "prefill_ok"],
+        "bf16 prefill no farther from f32 than one process's, 1.25x":
+        serve[0]["prefill_bf16_ok"],
+        "prefill greedy token": serve[0]["prefill_token_ok"],
+        "f32 decode within LOGIT_TOL of one process": serve[0]["decode_ok"],
+        "both serving ranks' tokens the same": serve[0]["tokens"]
+        == serve[1]["tokens"] and serve[0]["prefill_token"]
+        == serve[1]["prefill_token"],
+        "prefill flash once a layer on each rank": all(
+            r["prefill_launches"]["flash_attention"]
+            == get_config(TP_ARCH).n_layers for r in serve)}
+    B = TP_TRAIN_RUN["batch"] // 2
+    kernels = {
+        "train_forward": check_flash((B, heads, heads, TP_TRAIN_RUN["seq"],
+                                      128), torch.bfloat16, causal=True,
+                                     timed=True),
+        "train_backward": check_flash_bwd(
+            (B, heads, heads, TP_TRAIN_RUN["seq"], 128), torch.bfloat16,
+            causal=True, timed=True),
+        "prefill_forward": check_flash(
+            (TP_SERVE["batch"], heads, heads, TP_SERVE["seq"], 128),
+            torch.bfloat16, causal=True, timed=True)}
+    torch.cuda.empty_cache()
+    res = {"ranks_s": ranks_s, "gates": gates, "train": train,
+           "serve": serve, "kernels": kernels,
+           "config": {"train": f"{TP_ARCH} n_layers={TP_TRAIN_LAYERS}, f32 "
+                      f"params, bf16 compute, (2, 2) against (2, 1), "
+                      f"{TP_TRAIN_STEPS} exact_tp steps, global batch "
+                      f"{TP_TRAIN_RUN['batch']} x {TP_TRAIN_RUN['seq']}",
+                      "serve": f"{TP_ARCH} full depth, bf16 params, (1, 2),"
+                      f" prefill {TP_SERVE['batch']} x {TP_SERVE['seq']}, "
+                      f"decode {TP_DECODE}"}}
+    say("tp phase " + json.dumps({k: res[k] for k in (
+        "ranks_s", "gates", "config")}))
+    for r in train:
+        say("tp train rank " + json.dumps(
+            {k: v for k, v in r.items() if k != "params_err_by_leaf"}))
+    for r in serve:
+        say("tp serve rank " + json.dumps(r))
+    if not all(gates.values()):
+        raise AssertionError(f"tensor-parallel phase gates failed: {gates}")
+    return res
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``; prints its wall seconds as ``phase <label>: <s> s``."""
     t0 = time.perf_counter()
@@ -3538,10 +4001,20 @@ def main() -> int:
                  MAIN_EVAL)
     timed("6 breakdown", breakdown_phase, MAIN_RUN)
     grid = timed("6b grid", grid_phase, main)
-    determinism = timed("6c determinism", determinism_phase, grid)
-    for alg, kw in GRID_RUNS:
-        if kw["model"] != "fcn":
-            timed(f"6 breakdown {kw['model']}", breakdown_phase, kw)
+    # phase 9's training ranks run beside 6c and the small models'
+    # breakdowns, which hold little device memory; the flash kernels they
+    # launch were built on the thread started above by now
+    tp_train = start_tp_ranks("train")
+    try:
+        determinism = timed("6c determinism", determinism_phase, grid)
+        for alg, kw in GRID_RUNS:
+            if kw["model"] != "fcn":
+                timed(f"6 breakdown {kw['model']}", breakdown_phase, kw)
+    except BaseException:
+        stop_tp_ranks(tp_train)
+        raise
+    tp_train = timed("9 tensor parallel training ranks", join_tp_ranks,
+                     tp_train)
     requests = timed("6d requests", requests_phase, main)
     stacked_small = timed("6d small stacked", small_run_phase,
                           STACKED_SMALL)
@@ -3556,13 +4029,26 @@ def main() -> int:
     fused = timed("6h fused", fused_phase)
     ptxas = timed("2 flash build", flash_build, flash_future)
     flash = timed("3 flash", flash_phase, ptxas["fwd"])
-    timed("4 small transformer", small_transformer_phase)
     serving = timed("7 serving", serving_phase)
     moe_serving = timed("7b moe serving", moe_serving_phase)
-    recurrent = timed("7c recurrent serving", recurrent_serving_phase)
+    # phase 9's serving ranks run beside 7c (whose decode and sLSTM loop
+    # leave the card mostly idle) and the small card-against-CPU runs of 4
+    # and 8
+    tp_serve = start_tp_ranks("serve")
+    try:
+        recurrent = timed("7c recurrent serving", recurrent_serving_phase)
+        timed("4 small transformer", small_transformer_phase)
+        small_train = timed("8 small train", small_train_phase)
+    except BaseException:
+        stop_tp_ranks(tp_serve)
+        raise
+    tp_serve = timed("9 tensor parallel serving ranks", join_tp_ranks,
+                     tp_serve)
+    tp = timed("9 tensor parallel", tp_phase, tp_train, tp_serve)
     cross = timed("7d cross serving", cross_serving_phase)
     bwd = timed("8 flash backward", flash_bwd_phase, ptxas["bwd"])
     training = timed("8 training", train_phase)
+    training["small"] = small_train
     m = kern["main"]
     # each path's own counts, each read after a reset: the FL main path,
     # every run of the grid (the main path's among them) and its
@@ -3625,6 +4111,11 @@ def main() -> int:
                     r["launches"][k] for r in rows]
         for label, row in mesh["one"].items():
             by_path[k][f"pod_mesh one process {label}"] = row["launches"][k]
+    by_path["flash_attention"]["tp_train per rank"] = [
+        sum(st["launches"]["flash_attention"] for st in r["steps"])
+        for r in tp["train"]]
+    by_path["flash_attention"]["tp_serve prefill per rank"] = [
+        r["prefill_launches"]["flash_attention"] for r in tp["serve"]]
     by_path["scored_reduce"]["pod_small"] = pods["small"]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
@@ -3685,7 +4176,14 @@ def main() -> int:
             **{key: cross["flash"][arch][key] for key in (
                 "shape", "symbol", "max_abs_err", "bitwise_repeat", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "share_of_bound")}} for arch in CROSS_SERVE}}, {
+                "share_of_bound")}} for arch in CROSS_SERVE},
+        # each rank's local heads (10 of qwen1.5-4b's 20) on phase 9's
+        # (2, 2) training mesh and (1, 2) serving mesh
+        "tp_local_heads_shapes": {
+            name: {key: tp["kernels"][name][key] for key in (
+                "shape", "max_abs_err", "bitwise_repeat", "ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by", "share_of_bound")}
+            for name in ("train_forward", "prefill_forward")}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -3695,11 +4193,18 @@ def main() -> int:
             **{f"train_{e}": r["launches"]["flash_attention_bwd"]
                for e, r in training["runs"].items()},
             "train_small": [r["launches"]["flash_attention_bwd"]
-                            for r in training["small"]]},
+                            for r in training["small"]],
+            "tp_train per rank": [
+                sum(st["launches"]["flash_attention_bwd"]
+                    for st in r["steps"]) for r in tp["train"]]},
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
-        "split_ms": bwd["split_ms"], "ptxas": bwd["ptxas"]}]}
+        "split_ms": bwd["split_ms"], "ptxas": bwd["ptxas"],
+        "tp_local_heads_shape": {key: tp["kernels"]["train_backward"][key]
+                                 for key in (
+            "shape", "max_abs_err", "bitwise_repeat", "ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "share_of_bound")}}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

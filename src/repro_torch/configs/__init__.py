@@ -14,9 +14,10 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (ExperimentConfig, FLConfig,
-                                      HybridConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig)
+from repro_torch.configs.base import (INPUT_SHAPE_BY_NAME, INPUT_SHAPES,
+                                      ExperimentConfig, FLConfig,
+                                      HybridConfig, InputShape, MLAConfig,
+                                      ModelConfig, MoEConfig, SSMConfig)
 
 ARCH_IDS = (
     "deepseek-v3-671b", "arctic-480b", "h2o-danube-3-4b", "nemotron-4-15b",
@@ -42,6 +43,8 @@ _MODULES = {
     "paper-lstm": "paper_models",
 }
 
+TRANSFORMER_ARCHS = tuple(a for a in ARCH_IDS if not a.startswith("paper-"))
+
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_IDS:
@@ -52,5 +55,7 @@ def get_config(name: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ARCH_IDS", "get_config", "ExperimentConfig", "FLConfig",
-           "HybridConfig", "MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig"]
+__all__ = ["ARCH_IDS", "TRANSFORMER_ARCHS", "get_config", "ExperimentConfig",
+           "FLConfig", "HybridConfig", "MLAConfig", "ModelConfig",
+           "MoEConfig", "SSMConfig", "InputShape", "INPUT_SHAPES",
+           "INPUT_SHAPE_BY_NAME"]

@@ -1,13 +1,14 @@
 """Configurations, copied field for field from ``repro/configs/base.py``
 and ``repro/harness/experiments.py`` so a config means the same thing in
 both packages: ``ModelConfig`` (a transformer of the model zoo, with the
-nested dataclasses it refers to), ``FLConfig`` (the server round) and
+nested dataclasses it refers to), ``InputShape`` (one of the dry run's
+four input shapes, ``INPUT_SHAPES``), ``FLConfig`` (the server round) and
 ``ExperimentConfig`` (one harness run)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -103,6 +104,14 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode memory is bounded in context length (long_500k
+        legal)."""
+        if self.arch_type in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0 and self.encoder is None
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: 2 layers, d_model<=256, <=4 experts, small
         vocab; the same cut as the reference's."""
@@ -148,6 +157,24 @@ class ModelConfig:
             kw["vision"] = dataclasses.replace(
                 self.vision, cross_attn_every=2, n_patches=16, d_vision=64)
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                         # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: Tuple[InputShape, ...] = (
+    InputShape("train_4k", 4_096, 256, "train"),
+    InputShape("prefill_32k", 32_768, 32, "prefill"),
+    InputShape("decode_32k", 32_768, 128, "decode"),
+    InputShape("long_500k", 524_288, 1, "decode"),
+)
+
+INPUT_SHAPE_BY_NAME = {s.name: s for s in INPUT_SHAPES}
 
 
 @dataclass(frozen=True)

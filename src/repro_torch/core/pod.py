@@ -45,6 +45,18 @@ A mesh of R > 1 rows needs a process group of R ranks (``ValueError``
 otherwise). The count-sketch signs are the port's
 (``core/scores.sketch_signs_int8`` under ``SKETCH_KEY``), equal to the
 reference's ``PRNGKey(17)`` signs only in distribution.
+
+Tensor parallelism: on an (R, M) mesh (``make_host_mesh(model_parallel=M)``,
+R * M ranks) exact_tp, fedavg, prefill and serve run the dense GQA
+decoders Megatron-style over each row's M columns (the reference's
+"shard_map manual over the client axes, auto-TP over 'model'"): each
+rank passes its shards of the parameters (``launch/sharding``'s tp rules)
+and its row's block of the batch, the forward and backward cross the
+model axis through ``core/shmap``, the client-row sums run down each
+column, and the scores act on the logical tree (a split leaf's terms
+model-summed, a whole leaf counted once: ``launch/sharding.ModelLayout``).
+recompute and stale run with FSDP in the reference, which is ROADMAP.md
+A7's second half: they raise on M > 1.
 """
 from __future__ import annotations
 
@@ -59,9 +71,11 @@ from repro_torch.core.flatten import (tree_from_leaves, tree_get, tree_map,
                                       tree_paths)
 from repro_torch.core.scores import sketch_tree, tree_dot, tree_norm
 from repro_torch.core.shmap import (check_ranks, client_rows,
-                                    client_sharding, row_cat, row_max,
-                                    row_mean, row_min, row_sum, shard_map)
-from repro_torch.models.transformer import decode_step, forward, loss_fn
+                                    client_sharding, model_columns, row_cat,
+                                    row_max, row_mean, row_min, row_sum,
+                                    shard_map)
+from repro_torch.models.transformer import (argmax_logits, decode_step,
+                                            forward, init_model, loss_fn)
 
 # the (2,) uint32 words of the reference's PRNGKey(17)
 SKETCH_KEY = (0, 17)
@@ -115,13 +129,37 @@ def make_pod_batch_fn() -> Callable:
     return batch_fn
 
 
-def _online_grad_fn(grad_fn, cfg):
+def _online_grad_fn(grad_fn, cfg, mesh=None):
     """The caller's ``grad_fn``, else the gradient of the zoo's
     ``loss_fn`` (which reads ``batch["tokens"]`` and ``["labels"]``, so a
-    caller pairs it with a batch function that gives them)."""
+    caller pairs it with a batch function that gives them). Over a
+    'model' axis the online step runs whole models (each column its row's
+    clients): the zoo's sharded loss is not vmapped."""
     if grad_fn is not None:
         return grad_fn
+    if model_columns(mesh) > 1:
+        raise NotImplementedError(
+            "the online pod step over a 'model' axis trains whole models "
+            "(pass grad_fn); the sharded zoo runs the stationary steps")
     return torch.func.grad(lambda p, b: loss_fn(p, b, cfg)[0])
+
+
+def _no_model_axis(mesh, engine: str) -> None:
+    """recompute and stale run with FSDP in the reference."""
+    if model_columns(mesh) > 1:
+        raise NotImplementedError(
+            f"{engine} over a 'model' axis runs with FSDP in the reference "
+            "(ROADMAP.md A7's second half); exact_tp and fedavg run "
+            "tensor-parallel")
+
+
+def _layout(cfg: ModelConfig, mesh):
+    """The parameters' ``ModelLayout`` on the mesh (None with one model
+    column)."""
+    if model_columns(mesh) == 1:
+        return None
+    from repro_torch.launch.sharding import model_layout
+    return model_layout(init_model(None, cfg), mesh)
 
 
 def _make_online_step(fl: FLConfig, mesh, batch_fn: Callable,
@@ -177,12 +215,13 @@ def _scored_metrics(lam, loss, mesh, U: int) -> dict:
             "lambda_max": row_max(lam, mesh)}
 
 
-def _loss_and_grad(params, batch, cfg: ModelConfig):
-    """``loss_fn``'s loss (detached) and its gradient tree at ``params``."""
+def _loss_and_grad(params, batch, cfg: ModelConfig, mesh=None):
+    """``loss_fn``'s loss (detached) and its gradient tree at ``params``
+    (this rank's shards on a mesh with a 'model' axis)."""
     paths = tree_paths(params)
     leaves = [tree_get(params, p).detach().requires_grad_() for p in paths]
     with torch.enable_grad():
-        loss, _ = loss_fn(tree_from_leaves(paths, leaves), batch, cfg)
+        loss, _ = loss_fn(tree_from_leaves(paths, leaves), batch, cfg, mesh)
         grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), tree_from_leaves(paths, grads)
 
@@ -219,19 +258,21 @@ def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
     """``step(params, batch) -> (new params, metrics)``, each row's
     ``batch`` its own block of the global batch (its client's data);
     ``kappa_max`` > 1 splits it into that many microbatches whose
-    gradients are averaged. With ``batch_fn``, the online step (module
-    docstring)."""
+    gradients are averaged. On an (R, M) mesh ``params`` are this rank's
+    shards, and so are the new ones. With ``batch_fn``, the online step
+    (module docstring)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
-                                 _online_grad_fn(grad_fn, cfg),
+                                 _online_grad_fn(grad_fn, cfg, mesh),
                                  prox_mu=prox_mu)
     U = _rows(mesh)
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
+    layout = _layout(cfg, mesh)
 
     def local_update(params, batch):
         if fl.kappa_max <= 1:
-            return _loss_and_grad(params, batch, cfg)
+            return _loss_and_grad(params, batch, cfg, mesh)
         kappa = fl.kappa_max
         split = {k: x.reshape((kappa, -1) + tuple(x.shape[1:]))
                  for k, x in batch.items()}
@@ -240,7 +281,7 @@ def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
         g = tree_map(torch.zeros_like, params)
         for tau in range(kappa):
             l, g_tau = _loss_and_grad(params, {k: x[tau] for k, x in
-                                               split.items()}, cfg)
+                                               split.items()}, cfg, mesh)
             loss = loss + l / kappa
             g = tree_map(lambda a, x: a + x * (1.0 / kappa), g, g_tau)
         return loss, g
@@ -248,15 +289,15 @@ def make_tp_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
     def step(params, batch):
         loss, g = local_update(params, batch)
         if sketch_dim:
-            sk = sketch_tree(g, SKETCH_KEY, sketch_dim)
+            sk = sketch_tree(g, SKETCH_KEY, sketch_dim, layout=layout)
             sk_mean = row_sum(sk, mesh) / U
             cos = torch.vdot(sk, sk_mean) / torch.clamp(
                 torch.linalg.vector_norm(sk)
                 * torch.linalg.vector_norm(sk_mean), min=1e-12)
         else:
             d_mean = tree_map(lambda x: row_sum(x, mesh) / U, g)
-            cos = tree_dot(g, d_mean) / torch.clamp(
-                tree_norm(g) * tree_norm(d_mean), min=1e-12)
+            cos = tree_dot(g, d_mean, layout) / torch.clamp(
+                tree_norm(g, layout) * tree_norm(d_mean, layout), min=1e-12)
         lam = _lambda(chi, cos)
         update = tree_map(lambda x: row_sum(lam * x, mesh) / U, g)
         return (_apply(params, update, lr_eff),
@@ -280,8 +321,9 @@ def make_recompute_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
     one-client-at-a-time form (module docstring)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
-                                 _online_grad_fn(grad_fn, cfg),
+                                 _online_grad_fn(grad_fn, cfg, mesh),
                                  scan=True, prox_mu=prox_mu)
+    _no_model_axis(mesh, "recompute")
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
@@ -342,8 +384,9 @@ def make_stale_score_train_step(cfg: ModelConfig, fl: FLConfig, mesh,
     server's (``FLConfig.stale_scores``)."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
-                                 _online_grad_fn(grad_fn, cfg),
+                                 _online_grad_fn(grad_fn, cfg, mesh),
                                  prox_mu=prox_mu)
+    _no_model_axis(mesh, "stale")
     lr_eff = fl.global_lr * fl.local_lr
     chi = fl.chi
     U = num_clients
@@ -390,13 +433,13 @@ def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
     unscored averaging is the stacked FedAvg server's."""
     if batch_fn is not None:
         return _make_online_step(fl, mesh, batch_fn,
-                                 _online_grad_fn(grad_fn, cfg),
+                                 _online_grad_fn(grad_fn, cfg, mesh),
                                  prox_mu=prox_mu)
     lr_eff = fl.global_lr * fl.local_lr
     R = _rows(mesh)
 
     def step(params, batch):
-        loss, g = _loss_and_grad(params, batch, cfg)
+        loss, g = _loss_and_grad(params, batch, cfg, mesh)
         if R > 1:
             g = tree_map(lambda x: row_sum(x, mesh) / R, g)
             loss = row_sum(loss, mesh) / R
@@ -408,23 +451,27 @@ def make_fedavg_train_step(cfg: ModelConfig, fl: FLConfig, mesh=None, *,
 # serving steps (decode shapes)
 # ---------------------------------------------------------------------------
 
-def make_serve_step(cfg: ModelConfig) -> Callable:
+def make_serve_step(cfg: ModelConfig, mesh=None) -> Callable:
     """One KV-cache decode step: (params, cache, tokens (B, 1), pos,
     memory=None) -> (next tokens (B, 1) int32, cache), greedy; ``memory``
     is whisper's encoder output or the vision decoder's projected
-    patches."""
+    patches. On a ``mesh`` with a 'model' axis, this rank's shards and
+    cache (``init_cache(..., mesh=)``); every column gets the same
+    tokens."""
     def serve_step(params, cache, tokens, pos, memory=None):
         logits, new_cache = decode_step(params, cache, tokens, pos, cfg,
-                                        memory=memory)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return next_tok[:, None], new_cache
+                                        memory=memory, mesh=mesh)
+        next_tok = argmax_logits(logits[:, -1, :], cfg, mesh)
+        return next_tok.to(torch.int32)[:, None], new_cache
     return serve_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
+def make_prefill_step(cfg: ModelConfig, mesh=None) -> Callable:
     """The prompt's forward: (params, {"tokens": (B, S)} [+ "frames" or
-    "patches"]) -> the greedy next token (B,) int32."""
+    "patches"]) -> the greedy next token (B,) int32; on a ``mesh`` with a
+    'model' axis, from this rank's shards (the vocab-split logits'
+    greedy token gathered, the same on every column)."""
     def prefill(params, batch):
-        logits, _ = forward(params, batch, cfg)
-        return torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        logits, _ = forward(params, batch, cfg, mesh)
+        return argmax_logits(logits[:, -1, :], cfg, mesh).to(torch.int32)
     return prefill

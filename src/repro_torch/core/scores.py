@@ -24,6 +24,7 @@ same signs, the sketches agree.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Sequence
 
 import numpy as np
@@ -33,16 +34,36 @@ from repro_torch.core.flatten import tree_get, tree_map, tree_paths
 from repro_torch.core.philox import MASK32, philox4x32
 
 
-def tree_dot(a, b) -> torch.Tensor:
+def _logical_sum(terms: dict, layout, like: torch.Tensor) -> torch.Tensor:
+    """The sum over the logical tree of per-leaf terms (path -> 0-d or
+    (k,) tensor), each leaf's term of this rank's shard: the whole leaves'
+    in sorted-key order plus the model-summed split leaves' (each whole
+    leaf counted once, not once a column)."""
+    whole = torch.zeros_like(like)
+    split = torch.zeros_like(like)
+    for p, t in terms.items():
+        if layout.split(p):
+            split = split + t
+        else:
+            whole = whole + t
+    return whole + layout.axis.sum(split)
+
+
+def tree_dot(a, b, layout=None) -> torch.Tensor:
     """Sum of f32 dot products over the leaves, in sorted-key order (the
-    reference's leaf order); a 0-d tensor."""
-    return sum(torch.vdot(tree_get(a, p).reshape(-1).float(),
-                          tree_get(b, p).reshape(-1).float())
-               for p in tree_paths(a))
+    reference's leaf order); a 0-d tensor. With ``layout`` (a
+    ``launch/sharding.ModelLayout``), ``a`` and ``b`` are this rank's
+    shards and the dot is the logical trees'."""
+    terms = {p: torch.vdot(tree_get(a, p).reshape(-1).float(),
+                           tree_get(b, p).reshape(-1).float())
+             for p in tree_paths(a)}
+    if layout is None:
+        return sum(terms.values())
+    return _logical_sum(terms, layout, next(iter(terms.values())))
 
 
-def tree_norm(a) -> torch.Tensor:
-    return torch.sqrt(tree_dot(a, a))
+def tree_norm(a, layout=None) -> torch.Tensor:
+    return torch.sqrt(tree_dot(a, a, layout))
 
 
 def tree_add(a, b):
@@ -154,20 +175,34 @@ def _bucket_sums(mat: torch.Tensor, signs: torch.Tensor, k: int
     return out
 
 
-def sketch_tree(tree, key, k: int, signs: Optional[Sequence] = None
-                ) -> torch.Tensor:
+def sketch_tree(tree, key, k: int, signs: Optional[Sequence] = None,
+                layout=None) -> torch.Tensor:
     """k-dim count-sketch of a parameter tree: each leaf (in sorted-key
     order) flattened, its entries sign-flipped and summed into bucket
     ``j % k``. ``signs`` (one (n_i,) vector per leaf) replaces the drawn
-    signs (``sketch_signs_int8(key, i, n_i)``)."""
-    out = None
+    signs (``sketch_signs_int8(key, i, n_i)``). With ``layout``, ``tree``
+    is this rank's shards and the sketch is the logical tree's: a split
+    leaf's entries take the signs and buckets of their indices j in the
+    whole leaf, and the split leaves' sums are model-summed."""
+    out, terms = None, {}
     for i, p in enumerate(tree_paths(tree)):
-        flat = tree_get(tree, p).reshape(1, -1)
-        sg = (sketch_signs_int8(key, i, flat.shape[1], flat.device)
+        leaf = tree_get(tree, p)
+        n = leaf.numel() if layout is None else math.prod(layout.shapes[p])
+        sg = (sketch_signs_int8(key, i, n, leaf.device)
               if signs is None else torch.as_tensor(
-                  signs[i], dtype=torch.float32, device=flat.device))
-        part = _bucket_sums(flat, sg, k)[0]
-        out = part if out is None else out + part
+                  signs[i], dtype=torch.float32, device=leaf.device))
+        if layout is not None and layout.split(p):
+            j = layout.flat_index(p, leaf.device)
+            part = torch.zeros(k, dtype=torch.float32, device=leaf.device)
+            part.index_add_(0, j % k, sg[j] * leaf.reshape(-1).float())
+        else:
+            part = _bucket_sums(leaf.reshape(1, -1), sg, k)[0]
+        if layout is not None:
+            terms[p] = part
+        else:
+            out = part if out is None else out + part
+    if layout is not None:
+        return _logical_sum(terms, layout, next(iter(terms.values())))
     return out
 
 

@@ -38,7 +38,12 @@ ranks in rank order, every rank holds the same weights, evaluates them
 and returns the same history (``round_s`` the slowest rank's). Its
 snapshots are tagged ``"pod"`` and record the engine flavour and the
 mesh's axes and shape; over R rows each rank writes its rows as shard
-files of one v2 snapshot, and a resume on R ranks reads each rank's.
+files of one v2 snapshot, and a resume on R ranks reads each rank's. On
+an (R, M) mesh (``make_host_mesh(model_parallel=M)``, R * M ranks) the
+paper's models stay whole (no sharding rule names their leaves): each
+model column's R ranks run the R rows, their sums down the column, so
+every column is the (R, 1) run bit for bit, and column 0 writes the
+snapshots.
 
 The stacked and pod engines also run the sparse cohort (``cohort_size``,
 ``participation``: only C slots of round state exist, a sample of the
@@ -144,8 +149,10 @@ def _make_ckpt_writer(save_every_k, checkpoint_async: bool, keep_last,
     async v2 writer (``submit`` copies the state to the host, a thread
     writes it; ``close()`` at exit is the drain barrier), over the client
     rows of ``mesh`` one shard file per rank, or the blocking v1 writer
-    (one process's whole arrays)."""
-    if not save_every_k:
+    (one process's whole arrays). On a mesh of M > 1 model columns every
+    column holds the same state and column 0's ranks write it: the others
+    get no writer."""
+    if not save_every_k or getattr(mesh, "col", 0) != 0:
         return None
     if checkpoint_async:
         return checkpoint.AsyncCheckpointWriter(keep_last=keep_last,
@@ -536,7 +543,7 @@ def _run_rounds(alg: str, xc: ExperimentConfig, eval_samples: int,
                             "participants": int(active.sum()),
                             "request_gen_s": req_s,
                             "round_s": round_s})
-            if save_every_k and (t + 1) % save_every_k == 0:
+            if writer is not None and (t + 1) % save_every_k == 0:
                 writer.submit(
                     checkpoint_path(checkpoint_dir, t + 1),
                     {"engine": engine, "alg": alg,

@@ -13,6 +13,12 @@ the process group first:
 (``--distributed`` calls ``init_process_group`` with NCCL on the cards,
 gloo with ``--device cpu``). Every rank draws the whole batch from the
 same seed and trains on its block; rank 0 prints and writes ``--ckpt``.
+``--model-parallel M`` lays R * M ranks out as R client rows of M model
+columns and splits the dense decoders' parameters over each row's
+columns (exact_tp and fedavg; ``launch/sharding.py``'s rules):
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
+      --distributed --model-parallel 2
 ``--full`` takes the full config (40 layers of qwen1.5-4b do not fit one
 card's memory with ``recompute``'s five parameter-sized trees; a caller
 cuts depth with ``dataclasses.replace`` and ``run(cfg=...)``).
@@ -35,6 +41,7 @@ from repro_torch.data.synthetic import (learnable_sequence_batch,
                                         make_train_batch)
 from repro_torch.device import clock, resolve_device
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.sharding import gather_params, shard_params
 from repro_torch.models.transformer import init_model, param_count
 
 ENGINES = ("exact_tp", "recompute", "stale", "fedavg")
@@ -43,16 +50,19 @@ ENGINES = ("exact_tp", "recompute", "stale", "fedavg")
 def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
         batch=8, seq=64, lr=0.1, global_lr=1.0, num_clients=None,
         learnable=True, ckpt=None, log_every=5, seed=0, device=None,
-        cfg: ModelConfig = None):
+        cfg: ModelConfig = None, model_parallel: int = 1):
     """Train ``arch`` (or ``cfg``, which replaces it) for ``steps`` steps
     from weights drawn with ``seed``; returns ``(params, history)``, each
     entry of ``history`` the step's metrics plus ``step_s`` (wall seconds,
     ending in a synchronize on the card). The mesh is ``make_host_mesh``'s:
-    one client row per rank of the process group (one with none);
-    ``num_clients`` (of recompute and stale) defaults to its rows."""
+    one client row per ``model_parallel`` ranks of the process group (one
+    with none); ``num_clients`` (of recompute and stale) defaults to its
+    rows. Over M > 1 columns each rank trains its shards of the weights
+    (drawn whole from ``seed``, then cut), and the returned ``params``
+    are the whole tree, gathered over each row."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; known: {ENGINES}")
-    mesh = make_host_mesh(device=device)
+    mesh = make_host_mesh(model_parallel, device=device)
     dev = resolve_device(mesh.device if device is None else device)
     if cfg is None:
         cfg = get_config(arch)
@@ -64,10 +74,13 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
                   score_sketch_dim=sketch)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     params = init_model(gen, cfg)
-    lead = mesh.row == 0
+    lead = mesh.rank == 0
     if lead:
         print(f"{cfg.name}: {param_count(params) / 1e6:.1f}M params, "
-              f"device={dev}, client rows={rows}, engine={engine}")
+              f"device={dev}, client rows={rows}, model columns="
+              f"{model_parallel}, engine={engine}")
+    if model_parallel > 1:
+        params = shard_params(params, mesh)
 
     with use_mesh(mesh):
         if engine == "exact_tp":
@@ -103,6 +116,8 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
             print(f"step {t:4d} loss={metrics['loss']:.4f}"
                   + (f" lambda={lam_m:.4f}" if lam_m is not None else "")
                   + f" ({metrics['step_s']:.2f}s)")
+    if model_parallel > 1:
+        params = gather_params(params, init_model(None, cfg), mesh)
     if ckpt and lead:
         checkpoint.save(ckpt, params, step=steps)
         print(f"saved checkpoint -> {ckpt}")
@@ -128,7 +143,11 @@ def main(argv=None):
                     help="cpu to run on the CPU (default: the CUDA card)")
     ap.add_argument("--distributed", action="store_true",
                     help="join the process group torchrun describes (one "
-                         "client row per process)")
+                         "client row per process, or per --model-parallel "
+                         "processes)")
+    ap.add_argument("--model-parallel", type=int, default=1,
+                    help="model columns a client row (tensor parallelism "
+                         "of the dense decoders over them)")
     args = ap.parse_args(argv)
     if args.distributed:
         import os
@@ -137,10 +156,15 @@ def main(argv=None):
         if args.device != "cpu":
             torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         dist.init_process_group("gloo" if args.device == "cpu" else "nccl")
-    run(args.arch, reduced=not args.full, steps=args.steps,
-        engine=args.engine, sketch=args.sketch, batch=args.batch,
-        seq=args.seq, lr=args.lr, num_clients=args.num_clients,
-        ckpt=args.ckpt, device=args.device)
+    try:
+        run(args.arch, reduced=not args.full, steps=args.steps,
+            engine=args.engine, sketch=args.sketch, batch=args.batch,
+            seq=args.seq, lr=args.lr, num_clients=args.num_clients,
+            ckpt=args.ckpt, device=args.device,
+            model_parallel=args.model_parallel)
+    finally:
+        if args.distributed:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

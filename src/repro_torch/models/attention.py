@@ -97,22 +97,52 @@ def init_gqa(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
     return p
 
 
+def tp_split(cfg: ModelConfig, M: int) -> tuple:
+    """``(q, kv, heads)`` of GQA over M model columns, by the rules of
+    ``launch/sharding.py``: whether ``wq`` (and ``bq``, ``wo``'s rows) and
+    ``wk``/``wv`` (and their biases) are split (their widths divide by
+    M), and whether the split falls on whole heads (H and Hkv divide by
+    M), so that each column runs its own H / M query heads over its Hkv /
+    M kv heads."""
+    H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = M > 1 and (H * hd) % M == 0
+    kv = M > 1 and (Hkv * hd) % M == 0
+    return q, kv, q and kv and H % M == 0 and Hkv % M == 0
+
+
 def gqa_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
-            cache_pos=None, causal: bool = True, rope: bool = True):
+            cache_pos=None, causal: bool = True, rope: bool = True,
+            tp=None):
     """x: (B,S,d). Training/prefill when cache is None; else single-step
     decode (S==1) writing into the cache at ``cache_pos`` (an int).
+
+    ``tp`` (a ``core/shmap.ModelAxis``): the projections split as
+    ``tp_split`` says, each split one computing this column's output
+    columns. On whole heads each column attends with its own query and kv
+    heads (flash on the local heads; the cache holds the local kv heads)
+    and feeds ``wo``'s rows of them, and the partial outputs are
+    model-summed. Where a split falls inside a head, the split
+    projections' columns are gathered, every column attends with every
+    head (the cache holds every kv head) and feeds its part of the heads'
+    output to its rows of ``wo``.
 
     Returns (y, cache)."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = x @ params["wq"].to(dt)
-    k = x @ params["wk"].to(dt)
-    v = x @ params["wv"].to(dt)
-    if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+    q_split, kv_split, local = tp_split(cfg, 1 if tp is None else tp.size)
+    x_in = tp.copy_in(x) if q_split or kv_split else x
+
+    def project(w, b, split):
+        y = (x_in if split else x) @ params[w].to(dt)
+        if cfg.qkv_bias:
+            y = y + params[b].to(dt)
+        return tp.gather(y) if split and not local else y
+    q = project("wq", "bq", q_split)
+    k = project("wk", "bk", kv_split)
+    v = project("wv", "bv", kv_split)
+    if local:
+        H, Hkv = H // tp.size, Hkv // tp.size
     q = q.reshape(B, S, H, hd)
     k = k.reshape(B, S, Hkv, hd)
     v = v.reshape(B, S, Hkv, hd)
@@ -146,14 +176,24 @@ def gqa_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
             valid = idx <= pos
         o = _sdpa(q, cache["k"].to(dt), cache["v"].to(dt),
                   valid[None, None, None, :], scale)
-    y = o.reshape(B, S, H * hd) @ params["wo"].to(dt)
-    return y, cache
+    o = o.reshape(B, S, H * hd)
+    if not q_split:
+        return o @ params["wo"].to(dt), cache
+    if not local:
+        o = tp.split(o)
+    return tp.reduce_out(o @ params["wo"].to(dt)), cache
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, length: int,
-                   dtype=torch.bfloat16, device=None, lead: tuple = ()):
+                   dtype=torch.bfloat16, device=None, lead: tuple = (),
+                   model_parallel: int = 1):
+    """Zeroed k and v caches; over ``model_parallel`` columns each holds
+    its local kv heads where ``tp_split`` puts whole heads on it."""
     L = min(length, cfg.sliding_window) if cfg.sliding_window else length
-    shape = (*lead, batch, L, cfg.n_kv_heads, cfg.resolved_head_dim)
+    n_kv = cfg.n_kv_heads
+    if tp_split(cfg, model_parallel)[2]:
+        n_kv //= model_parallel
+    shape = (*lead, batch, L, n_kv, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 

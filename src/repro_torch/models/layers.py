@@ -124,8 +124,14 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: int | None = None,
     return params
 
 
-def mlp_fwd(params, x, kind: str):
+def mlp_fwd(params, x, kind: str, tp=None):
+    """The MLP on ``x``. ``tp`` (a ``core/shmap.ModelAxis``, given where
+    the rules split d_ff over the model axis): ``w_up`` and ``w_gate``
+    hold this column's d_ff columns and ``w_down`` its rows; the partial
+    outputs are model-summed."""
     dtype = x.dtype
+    if tp is not None:
+        x = tp.copy_in(x)
     up = x @ params["w_up"].to(dtype)
     if kind == "swiglu":
         h = F.silu(x @ params["w_gate"].to(dtype)) * up
@@ -135,7 +141,8 @@ def mlp_fwd(params, x, kind: str):
         h = F.gelu(up, approximate="tanh")
     else:
         raise ValueError(f"unknown mlp kind {kind!r}")
-    return h @ params["w_down"].to(dtype)
+    out = h @ params["w_down"].to(dtype)
+    return out if tp is None else tp.reduce_out(out)
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +153,20 @@ def init_embedding(gen, vocab: int, d: int, dtype=torch.float32):
     return {"table": dense_init(gen, (vocab, d), dtype=dtype)}
 
 
-def embed(params, tokens, compute_dtype):
+def embed(params, tokens, compute_dtype, tp=None):
+    """The tokens' rows of the table in ``compute_dtype``. ``tp`` (where
+    the rules split d_model over the model axis): the table holds this
+    column's d_model columns, and the columns' rows are gathered."""
     # gather, then cast: the reference's cast-then-gather rounds each value
     # the same way without converting the whole table
-    return params["table"][tokens].to(compute_dtype)
+    x = params["table"][tokens].to(compute_dtype)
+    return x if tp is None else tp.gather(x)
 
 
-def unembed(params, x):
-    return x @ params["table"].to(x.dtype).T
+def unembed(params, x, tp=None):
+    """Tied logits ``x @ table.T``. ``tp`` (a d_model-split table): each
+    column's partial product over its d_model columns, model-summed into
+    the whole vocabulary's logits on every column."""
+    if tp is None:
+        return x @ params["table"].to(x.dtype).T
+    return tp.reduce_out(tp.split(x) @ params["table"].to(x.dtype).T)

@@ -27,14 +27,27 @@ differentiable (the flash kernel has a backward) and adds the MTP loss
 when the config has one; with ``cfg.remat`` each layer of a training
 forward is recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's ``_maybe_remat``.
+
+Tensor parallelism (the dense GQA decoders): given a ``mesh`` whose
+'model' axis has M > 1 columns, one rank a column, ``forward``,
+``loss_fn``, ``init_cache`` and ``decode_step`` run on this rank's shards
+of the parameters (``launch/sharding.py``'s tp rules): the embedding
+split over d_model and its columns gathered, the MLP and attention
+Megatron-style (column-split in, row-split out, one model-axis sum each),
+the logits split over the vocabulary with a vocab-parallel cross-entropy.
+The norms stay whole on every column, and ``core/shmap``'s autograd
+crossings make their gradients the same on all columns. The other
+families over a 'model' axis raise ``NotImplementedError``.
+
 Public API:
 
   init_model(gen, cfg)                           -> params
-  forward(params, batch, cfg)                    -> (logits, aux_loss)
-  loss_fn(params, batch, cfg)                    -> (loss, metrics)
-  init_cache(cfg, batch, length, device, dtype)  -> cache
-  decode_step(params, cache, tokens, pos, cfg, memory=None)
+  forward(params, batch, cfg, mesh=None)         -> (logits, aux_loss)
+  loss_fn(params, batch, cfg, mesh=None)         -> (loss, metrics)
+  init_cache(cfg, batch, length, device, dtype, mesh=None) -> cache
+  decode_step(params, cache, tokens, pos, cfg, memory=None, mesh=None)
                                                  -> (logits, cache)
+  argmax_logits(logits, cfg, mesh=None)          -> greedy tokens
   whisper_encode(params, frames, cfg)            -> memory
   memory_of(params, batch, cfg)                  -> memory or None
 """
@@ -49,6 +62,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.flatten import tree_get, tree_map, tree_paths
+from repro_torch.core.shmap import model_axis, model_columns
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (cross_attn_fwd, gqa_fwd,
                                           init_cross_attn, init_gqa,
@@ -85,14 +99,37 @@ def _family(cfg: ModelConfig) -> str:
     return "decoder"
 
 
-def _check_ported(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig, mesh=None):
     """Refuse attention kinds other than GQA and MLA outside xLSTM (which
-    has none): the reference builds no other."""
+    has none): the reference builds no other. Returns the mesh's
+    ``ModelAxis`` (None with one model column), which only the dense GQA
+    decoders take: the other families over a 'model' axis are ROADMAP.md
+    A7's second half."""
     if _family(cfg) != "xlstm" and cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} outside xLSTM is not "
             f"a kind the reference builds; repro_torch runs GQA and MLA "
             f"(ROADMAP.md queue A)")
+    tp = model_axis(mesh)
+    if tp is not None and not _tp_ported(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism over a 'model' axis runs the "
+            "dense GQA decoders; MoE expert parallelism and TP for MLA, "
+            "SSM, whisper and the vision decoder are ROADMAP.md A7's "
+            "second half")
+    return tp
+
+
+def _tp_ported(cfg: ModelConfig) -> bool:
+    """The dense GQA decoders: what runs over a 'model' axis."""
+    return (_family(cfg) == "decoder" and cfg.moe is None
+            and cfg.attention == "gqa" and not cfg.mtp_depth)
+
+
+def _split_over(tp, width: int):
+    """``tp`` where the rules split a dimension of ``width`` over its
+    columns, else None (the leaf stays whole)."""
+    return tp if tp is not None and width % tp.size == 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -117,22 +154,26 @@ def init_block(gen, cfg: ModelConfig, *, use_moe: bool = False,
 
 def block_fwd(p, x, cfg: ModelConfig, positions, *, use_moe: bool = False,
               cache=None, cache_pos=None, causal: bool = True,
-              rope: bool = True):
+              rope: bool = True, tp=None):
     """-> (x, cache, aux): the block's output, its cache (written in place)
-    and its MoE auxiliary loss (an f32 zero without MoE)."""
+    and its MoE auxiliary loss (an f32 zero without MoE). ``tp``: the
+    model axis its attention and MLP are split over (the norms stay
+    whole)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         h, new_cache = mla_fwd(p["attn"], h, cfg, positions, cache=cache,
                                cache_pos=cache_pos)
     else:
         h, new_cache = gqa_fwd(p["attn"], h, cfg, positions, cache=cache,
-                               cache_pos=cache_pos, causal=causal, rope=rope)
+                               cache_pos=cache_pos, causal=causal, rope=rope,
+                               tp=tp)
     x = x + h
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if use_moe:
         h, aux = moe_fwd(p["moe"], h, cfg)
     else:
-        h = mlp_fwd(p["mlp"], h, cfg.mlp)
+        # under tp only the dense decoders run: their d_ff is cfg.d_ff
+        h = mlp_fwd(p["mlp"], h, cfg.mlp, tp=_split_over(tp, cfg.d_ff))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, new_cache, aux
 
@@ -153,7 +194,7 @@ def _remat(cfg: ModelConfig) -> bool:
 
 
 def _scan_blocks(stack, x, cfg, positions, *, use_moe=False, caches=None,
-                 cache_pos=None, causal=True, rope=True):
+                 cache_pos=None, causal=True, rope=True, tp=None):
     """Run the stacked blocks in order; threads the caches if given (each
     layer's cache is a view into the stacked one, written in place) and
     sums the layers' auxiliary losses. A training forward (no caches)
@@ -171,26 +212,30 @@ def _scan_blocks(stack, x, cfg, positions, *, use_moe=False, caches=None,
         layer = tree_map(lambda ts: ts[i], layers)
         if remat:
             x, a = checkpoint(_block_out, layer, x, cfg, positions, use_moe,
-                              causal, rope, use_reentrant=False)
+                              causal, rope, tp, use_reentrant=False)
         else:
             cache = (None if caches is None
                      else tree_map(lambda t: t[i], caches))
             x, _, a = block_fwd(layer, x, cfg, positions, use_moe=use_moe,
                                 cache=cache, cache_pos=cache_pos,
-                                causal=causal, rope=rope)
+                                causal=causal, rope=rope, tp=tp)
         aux = aux + a
     return x, aux, caches
 
 
-def _block_out(layer, x, cfg, positions, use_moe, causal, rope):
+def _block_out(layer, x, cfg, positions, use_moe, causal, rope, tp=None):
     x, _, aux = block_fwd(layer, x, cfg, positions, use_moe=use_moe,
-                          causal=causal, rope=rope)
+                          causal=causal, rope=rope, tp=tp)
     return x, aux
 
 
-def _stacked_cache(cfg, n, batch, length, device, dtype):
-    init = init_mla_cache if cfg.attention == "mla" else init_gqa_cache
-    return init(cfg, batch, length, dtype=dtype, device=device, lead=(n,))
+def _stacked_cache(cfg, n, batch, length, device, dtype,
+                   model_parallel: int = 1):
+    if cfg.attention == "mla":
+        return init_mla_cache(cfg, batch, length, dtype=dtype, device=device,
+                              lead=(n,))
+    return init_gqa_cache(cfg, batch, length, dtype=dtype, device=device,
+                          lead=(n,), model_parallel=model_parallel)
 
 
 def _n_dense(cfg: ModelConfig) -> int:
@@ -230,7 +275,8 @@ def _init_decoder(gen, cfg: ModelConfig):
     return params
 
 
-def _decoder_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
+def _decoder_trunk(params, x, cfg, positions, caches=None, cache_pos=None,
+                   tp=None):
     n_dense = _n_dense(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = {}
@@ -241,17 +287,30 @@ def _decoder_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
         x, a, nc = _scan_blocks(params[f"{name}_layers"], x, cfg, positions,
                                 use_moe=use_moe,
                                 caches=caches[name] if caches else None,
-                                cache_pos=cache_pos)
+                                cache_pos=cache_pos, tp=tp)
         aux = aux + a
         new_caches[name] = nc
     return x, aux, new_caches
 
 
-def _logits(params, x, cfg):
+def _logits(params, x, cfg, tp=None):
+    """The final norm and the head. Under ``tp`` a vocab-split ``lm_head``
+    gives this column's (..., V / M) logits (``vocab_split``); a tied,
+    d-split table gives every column the whole vocabulary's, model-summed
+    (no zoo config ties its embeddings)."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return unembed(params["embed"], x)
+        return unembed(params["embed"], x, _split_over(tp, cfg.d_model))
+    if vocab_split(cfg, tp):
+        x = tp.copy_in(x)
     return x @ params["lm_head"].to(x.dtype)
+
+
+def vocab_split(cfg: ModelConfig, tp) -> bool:
+    """Whether the logits under ``tp`` are each column's part of the
+    vocabulary (an untied ``lm_head`` whose vocabulary the rules split)."""
+    return (not cfg.tie_embeddings
+            and _split_over(tp, cfg.vocab_size) is not None)
 
 
 def _mtp_loss(params, h, batch, cfg, positions, weight: float = 0.1):
@@ -601,12 +660,13 @@ def init_model(gen, cfg: ModelConfig):
     return _INITS[_family(cfg)](gen, cfg)
 
 
-def params_from_numpy(tree, cfg: ModelConfig, device=None):
+def params_from_numpy(tree, cfg: ModelConfig, device=None, mesh=None):
     """The reference's parameter tree (nested dicts of numpy arrays) as the
     port's parameters on ``device``. Every leaf must have the shape and the
     dtype (``cfg.param_dtype``) that ``init_model`` gives it. A bfloat16
     leaf (``ml_dtypes``' dtype, which numpy names ``bfloat16``) is carried
-    by its bits, so this needs no ``ml_dtypes``."""
+    by its bits, so this needs no ``ml_dtypes``. With ``mesh``, each leaf
+    is this rank's shard of it (``launch/sharding``'s tp rules)."""
     template = init_model(None, cfg)
     want, got = tree_paths(template), tree_paths(tree)
     if want != got:
@@ -620,7 +680,14 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
                 f"{leaf.dtype.name}, expected {tuple(a.shape)} "
                 f"{cfg.param_dtype}")
     dev = resolve_device(device)
-    return tree_map(lambda a: _leaf_tensor(np.asarray(a), dev), tree)
+    if mesh is None:
+        return tree_map(lambda a: _leaf_tensor(np.asarray(a), dev), tree)
+    from repro_torch.launch.sharding import local_shard, param_shardings
+    specs = param_shardings(template, mesh)
+    return tree_map(lambda a, s: local_shard(
+        _leaf_tensor(np.asarray(a), "cpu"), s.spec,
+        mesh).clone(memory_format=torch.contiguous_format).to(dev),
+        tree, specs)
 
 
 def _leaf_tensor(a: np.ndarray, device) -> torch.Tensor:
@@ -656,23 +723,34 @@ def _memory_arg(family: str, memory) -> tuple:
     return (memory,)
 
 
-def forward(params, batch, cfg: ModelConfig):
+def _trunk_kw(family: str, tp) -> dict:
+    """The trunk's ``tp`` keyword: only the decoder trunk takes one."""
+    return {"tp": tp} if family == "decoder" else {}
+
+
+def forward(params, batch, cfg: ModelConfig, mesh=None):
     """Training / prefill forward. batch: tokens (B, S) [+ labels (B, S),
     which add the MTP loss to the aux loss where the config has MTP;
     whisper's frames (B, n_frames, d_model), the vision decoder's patches
-    (B, n_patches, d_vision)]."""
-    _check_ported(cfg)
+    (B, n_patches, d_vision)]. On a ``mesh`` with a 'model' axis of M > 1
+    columns (the dense GQA decoders only), ``params`` are this rank's
+    shards (``launch/sharding.shard_params``, ``params_from_numpy(...,
+    mesh=)``) and the logits this column's V / M of the vocabulary
+    (``vocab_split``)."""
+    tp = _check_ported(cfg, mesh)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = embed(params["embed"], tokens, _cdtype(cfg))
+    x = embed(params["embed"], tokens, _cdtype(cfg),
+              _split_over(tp, cfg.d_model))
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     family = _family(cfg)
     x, aux, _ = _TRUNKS[family](
         params, x, cfg, positions,
-        *_memory_arg(family, memory_of(params, batch, cfg)))
+        *_memory_arg(family, memory_of(params, batch, cfg)),
+        **_trunk_kw(family, tp))
     if family == "decoder" and cfg.mtp_depth and "labels" in batch:
         aux = aux + _mtp_loss(params, x, batch, cfg, positions)
-    return _logits(params, x, cfg), aux
+    return _logits(params, x, cfg, tp), aux
 
 
 def _ce(logits, labels, mask=None):
@@ -683,17 +761,67 @@ def _ce(logits, labels, mask=None):
     return torch.mean(nll)
 
 
-def loss_fn(params, batch, cfg: ModelConfig):
-    logits, aux = forward(params, batch, cfg)
-    loss = _ce(logits, batch["labels"]) + aux
-    acc = torch.mean((torch.argmax(logits, -1) == batch["labels"]).float())
+def _vocab_part(logits, labels, tp) -> tuple:
+    """This column's offset into the vocabulary, the labels inside its
+    part (shifted to it) and where they are."""
+    width = logits.shape[-1]
+    local = labels.long() - tp.index * width
+    inside = (local >= 0) & (local < width)
+    return local.clamp(0, width - 1), inside
+
+
+def _ce_vocab_parallel(logits, labels, tp):
+    """``_ce`` over vocab-split logits without gathering them: the max,
+    the sum of exponentials and the label's logit, each a model-axis
+    collective over (B, S) numbers; the gradient stays on each column's
+    own logits."""
+    lf = logits.float()
+    m = tp.max(lf.detach().amax(dim=-1))
+    sum_exp = tp.reduce_out(torch.exp(lf - m[..., None]).sum(dim=-1))
+    local, inside = _vocab_part(lf, labels, tp)
+    picked = torch.gather(lf, -1, local[..., None])[..., 0]
+    label_logit = tp.reduce_out(torch.where(inside, picked,
+                                            torch.zeros_like(picked)))
+    return torch.mean(torch.log(sum_exp) + m - label_logit)
+
+
+def argmax_logits(logits, cfg: ModelConfig, mesh=None):
+    """``torch.argmax(logits, -1)`` of the logits ``forward`` or
+    ``decode_step`` gave on ``mesh``: over vocab-split logits, each
+    column's first maximum and its index are gathered and the first
+    column holding the largest wins (the whole vocabulary's first
+    maximum)."""
+    tp = model_axis(mesh)
+    if not vocab_split(cfg, tp):
+        return torch.argmax(logits, -1)
+    vals, idx = logits.max(dim=-1)
+    vals = torch.stack(tp.parts(vals, "all-gather"))
+    idx = torch.stack(tp.parts(idx + tp.index * logits.shape[-1],
+                               "all-gather"))
+    best = torch.argmax(vals, dim=0, keepdim=True)
+    return torch.gather(idx, 0, best)[0]
+
+
+def loss_fn(params, batch, cfg: ModelConfig, mesh=None):
+    """Cross-entropy (+ the aux loss) and the metrics; on a ``mesh`` with
+    a 'model' axis, of this rank's shards, the vocab-parallel
+    cross-entropy (no column gathers the logits)."""
+    logits, aux = forward(params, batch, cfg, mesh)
+    tp = model_axis(mesh)
+    if vocab_split(cfg, tp):
+        ce = _ce_vocab_parallel(logits, batch["labels"], tp)
+    else:
+        ce = _ce(logits, batch["labels"])
+    loss = ce + aux
+    acc = torch.mean((argmax_logits(logits.detach(), cfg, mesh)
+                      == batch["labels"]).float())
     return loss, {"loss": loss, "aux": aux, "accuracy": acc}
 
 
 # --- decode -----------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
-               dtype=torch.bfloat16):
+               dtype=torch.bfloat16, mesh=None):
     """Zeroed KV caches of the dense and MoE stacks (GQA or MLA latent
     caches, by the config's attention) in ``dtype``. zamba2: the Mamba2
     layers' conv windows and states, (n_groups, every) stacks in f32, and
@@ -703,8 +831,11 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     block's KV cache, of min(length, max_decoder_len) positions; the
     vision decoder: each self-attention layer's, stacked (n_groups,
     cross_attn_every - 1). Cross-attention keeps no cache: each step
-    projects the memory again, as in the reference."""
-    _check_ported(cfg)
+    projects the memory again, as in the reference. On a ``mesh`` with a
+    'model' axis each rank's cache holds its local kv heads where the
+    heads split whole over the columns (``attention.tp_split``), else
+    every head."""
+    _check_ported(cfg, mesh)
     dev = resolve_device(device)
     family = _family(cfg)
     if family == "encoder":
@@ -734,28 +865,33 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     out = {}
     for name, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
         if n:
-            out[name] = _stacked_cache(cfg, n, batch, length, dev, dtype)
+            out[name] = _stacked_cache(cfg, n, batch, length, dev, dtype,
+                                       model_columns(mesh))
     return out
 
 
-def decode_step(params, cache, tokens, pos, cfg: ModelConfig, memory=None):
+def decode_step(params, cache, tokens, pos, cfg: ModelConfig, memory=None,
+                mesh=None):
     """tokens: (B, 1); pos: int — the current write index; ``memory``: the
     encoder's output or the projected patches (``memory_of``), for whisper
     and the vision decoder. Writes the step's keys and values (and the
     recurrent states) into ``cache`` in place. whisper writes at
     min(pos, max_decoder_len - 1) while its RoPE positions run on, as in
-    the reference. Returns (logits (B,1,V), cache)."""
-    _check_ported(cfg)
+    the reference. Returns (logits (B,1,V), cache); on a ``mesh`` with a
+    'model' axis, this rank's shards and cache, and its (B, 1, V / M)
+    part of the logits (``vocab_split``)."""
+    tp = _check_ported(cfg, mesh)
     B = tokens.shape[0]
-    x = embed(params["embed"], tokens, _cdtype(cfg))
+    x = embed(params["embed"], tokens, _cdtype(cfg),
+              _split_over(tp, cfg.d_model))
     positions = torch.full((B, 1), int(pos), device=tokens.device)
     family = _family(cfg)
     cache_pos = (min(int(pos), cfg.encoder.max_decoder_len - 1)
                  if family == "encoder" else pos)
     x, _, nc = _TRUNKS[family](params, x, cfg, positions,
                                *_memory_arg(family, memory), caches=cache,
-                               cache_pos=cache_pos)
-    return _logits(params, x, cfg), nc
+                               cache_pos=cache_pos, **_trunk_kw(family, tp))
+    return _logits(params, x, cfg, tp), nc
 
 
 def param_count(params) -> int:

@@ -242,8 +242,8 @@ def test_tp_microbatches_average_their_gradients(reference, mesh):
 def test_what_one_card_does_not_run_raises():
     """One client row runs, stationary and online; a mesh of two rows
     needs a torch.distributed group of two ranks (``ValueError`` without
-    one); a 'model' axis or the production mesh raise naming ROADMAP A7;
-    a layout that is not a mesh raises ``TypeError``."""
+    one), and so do a 'model' axis of two columns and the production
+    meshes; a layout that is not a mesh raises ``TypeError``."""
     cfg = get_config("qwen1.5-4b").reduced()
     fl = FLConfig(kappa_max=1)
     one = make_host_mesh()
@@ -263,9 +263,11 @@ def test_what_one_card_does_not_run_raises():
             with pytest.raises(ValueError, match="torch.distributed"):
                 make(two, **kw)
         assert callable(make(one, batch_fn=pod.make_pod_batch_fn()))
+    # without a group of R x M ranks the model-axis meshes are refused
     for refused in (lambda: make_host_mesh(model_parallel=2),
-                    make_production_mesh):
-        with pytest.raises(NotImplementedError, match="A7"):
+                    make_production_mesh,
+                    lambda: make_production_mesh(multi_pod=True)):
+        with pytest.raises(ValueError, match="torch.distributed"):
             refused()
 
 
