@@ -221,7 +221,30 @@ Phases, each fatal on failure:
      steps, each step's logits and tokens held to one process on the same
      tokens; prefill and decode tokens/s. Then the flash forward and
      backward at the ranks' local-head shapes against their plain
-     versions, timed beside bound and SDPA.
+     versions, timed beside bound and SDPA. The training ranks also run
+     phase 10's training leg: reduced deepseek-v3-671b (3 layers, MTP)
+     and arctic-480b (2 layers) in f32, 2 exact_tp steps each on (2, 2)
+     against (2, 1), experts split over the columns (the expert-parallel
+     backward and MLA's flash backward on the card), under the same
+     tolerances; per step the model axis's and the expert-parallel sums'
+     seconds and calls;
+  10. the MoE decoders over 'model' (ROADMAP A7, second half, items 1 and
+     2a): two gloo ranks sharing the card as a (1, 2) mesh, started beside
+     the small-width runs of 4 and 6d, 5c's loop engine and 6f's loop
+     resume (not beside a full-width stacked FL run, which holds 23 GiB,
+     as much as a rank): deepseek-v3-671b at full width, depth 61
+     -> 4 (3 dense MLA layers, 1 MoE layer of 256 experts, 128 a column),
+     seeded bf16 weights drawn leaf by leaf (``sharding.init_shards``); a
+     1 x 2048 bf16 prefill timed on its second call (flash once a layer at
+     <192, 128> on each rank's 64 heads), a 16-token prompt and 8 greedy
+     decode steps, timed; then, after the ranks end, one process on the
+     same weights: in f32 compute the ranks' prefill logits at 16
+     positions and every decode step's within LOGIT_TOL, greedy tokens
+     equal, a token routed apart only at a router near tie (left out and
+     counted), dropped assignments equal; the one process's bf16 prefill
+     timed beside the ranks'. Then the flash forward at the ranks' local
+     heads and the training leg's shapes, and the backward at the latter,
+     against their plain versions, timed beside bound and SDPA.
 Convolutions run in full f32 and deterministic inside every harness run
 (cuDNN's TF32 and benchmarking are held off and restored after). The line
 before the last is one JSON object with every kernel's numbers
@@ -623,6 +646,40 @@ TP_LOSS_TOL = 1e-4
 TP_SERVE = dict(batch=1, seq=2048, seed=1)
 TP_DECODE = dict(prompt_len=16, decode_steps=8)
 TP_LOGIT_POSITIONS = 16            # prefill positions compared, evenly
+# the training ranks also take the MoE decoders (phase 10's training leg):
+# reduced deepseek-v3-671b (1 dense and 2 MoE layers, MTP, its shared
+# expert split by layer) and reduced arctic-480b (2 MoE layers, its dense
+# residual split by layer), f32 compute and parameters, 2 exact_tp steps
+# on a global batch of 8 x 64 each, (2, 2) against (2, 1) under phase 9's
+# tolerances; flash forward and backward once an attention layer a step
+TP_MOE_TRAIN = (("deepseek-v3-671b", 3), ("arctic-480b", 2))
+TP_MOE_RUN = dict(batch=8, seq=64, lr=0.1, seed=3)
+TP_MOE_STEPS = 2
+
+# phase 10, the MoE decoders over 'model' (expert parallelism, MLA and
+# MTP tensor-parallel): deepseek-v3-671b at full width, depth 61 -> 4 (its
+# 3 dense MLA layers and one MoE layer of all 256 experts, 128 a column),
+# bf16 parameters drawn leaf by leaf from a seed on each of two gloo ranks
+# sharing the card as a (1, 2) mesh (~16 GB of weights a rank): a 1 x 2048
+# bf16 prefill timed on its second call (flash once a layer at <192, 128>
+# on 64 local heads), then a 16-token prompt and 8 greedy decode steps,
+# timed. In f32 compute the ranks' logits (prefill at TP_LOGIT_POSITIONS
+# positions, every decode step) are held to one process on the same
+# seeded weights within LOGIT_TOL, greedy tokens equal; that process runs
+# after the ranks end (two f32-compute copies do not fit the card: 31.6 GB
+# of weights and a 15 GB f32 cast of one expert matrix each). A prefill
+# position whose token the router sends elsewhere than one process does is
+# left out and counted, and must be a near tie (the k-th and (k+1)-th
+# probabilities within EP_NEAR_TIE of each other, relative). Dropped
+# assignments per MoE layer equal on both ranks and in one process
+EP_ARCH = "deepseek-v3-671b"
+EP_LAYERS = 4
+EP_SERVE = dict(batch=1, seq=2048, seed=2)
+EP_DECODE = dict(prompt_len=16, decode_steps=8)
+EP_NEAR_TIE = 1e-4
+# while a group of ranks runs beside other phases, the card's used memory
+# (every process's) is read this often, in ms, and its peak reported
+CARD_POLL_MS = 200
 
 
 def say(*parts) -> None:
@@ -1249,6 +1306,7 @@ def breakdown_phase(run_kw: dict, rounds: int = 2) -> None:
                                     full_f32_convolutions)
     from repro_torch.models.small import small_loss
     dev = torch.device("cuda")
+    torch.cuda.empty_cache()      # ranks may share the card (main())
     xc = ExperimentConfig(**run_kw)
     s = _stacked_setup("osafl", xc, MAIN_EVAL, dev)
     if s.scn is not None:
@@ -2678,9 +2736,9 @@ def moe_serving_phase() -> dict:
         stats = []
         real = T.moe_fwd
 
-        def counting(p, x, c):
+        def counting(p, x, c, tp=None):
             stats.append(moe.dispatch_stats(p, x, c))
-            return real(p, x, c)
+            return real(p, x, c, tp=tp)
         T.moe_fwd = counting
         try:
             with torch.inference_mode():
@@ -3581,14 +3639,20 @@ def _tp_zero_counts() -> None:
 
 class _ModelAxisClock:
     """Seconds and calls of the model axis's collectives (``shmap``'s
-    gathers along a row), each bracketed by synchronizes, while open."""
+    gathers along a row), each bracketed by synchronizes, while open; and
+    apart (``ep_s``, ``ep_calls``) those made inside ``moe_fwd``: the
+    expert-parallel sum of each MoE layer's parts (a backward's crossings
+    of the layer run outside it and count only in the total)."""
 
     def __init__(self, device):
         self.device, self.s, self.calls = torch.device(device), 0.0, 0
+        self.ep_s, self.ep_calls, self._in_moe = 0.0, 0, False
 
     def __enter__(self):
         from repro_torch.core import shmap
+        from repro_torch.models import transformer
         self._plain = plain = shmap._gather
+        self._moe = moe_fwd = transformer.moe_fwd
 
         def timed_gather(x, group, kind, axis):
             if axis != "model":
@@ -3597,15 +3661,29 @@ class _ModelAxisClock:
             t0 = time.perf_counter()
             out = plain(x, group, kind, axis)
             _sync(self.device)
-            self.s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            self.s += dt
             self.calls += 1
+            if self._in_moe:
+                self.ep_s += dt
+                self.ep_calls += 1
             return out
+
+        def marked_moe(*args, **kwargs):
+            self._in_moe = True
+            try:
+                return moe_fwd(*args, **kwargs)
+            finally:
+                self._in_moe = False
         shmap._gather = timed_gather
+        transformer.moe_fwd = marked_moe
         return self
 
     def __exit__(self, *exc):
         from repro_torch.core import shmap
+        from repro_torch.models import transformer
         shmap._gather = self._plain
+        transformer.moe_fwd = self._moe
 
 
 def _sync(device) -> None:
@@ -3618,13 +3696,15 @@ def _tp_train_rank(device) -> dict:
     (a mesh over their column group), then the (2, 2) run on all four;
     each row's ranks gather the (2, 2) parameters whole, and column 0's
     hold them to the (2, 1) run's. Whole leaves must be the same bits on
-    both columns."""
+    both columns. The (2, 1) result, the gathered (2, 2) weights and the
+    start they are measured from are held on the host: four ranks and the
+    FL phases beside them share the card."""
     import numpy as np
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import FLConfig
-    from repro_torch.core.flatten import tree_get, tree_paths
+    from repro_torch.core.flatten import tree_get, tree_map, tree_paths
     from repro_torch.core.pod import make_tp_train_step
     from repro_torch.core.shmap import client_sharding, model_axis
     from repro_torch.data.synthetic import make_train_batch
@@ -3653,9 +3733,9 @@ def _tp_train_rank(device) -> dict:
         for _ in range(TP_TRAIN_STEPS):
             params, m = step(params, batch)
             losses.append(float(m["loss"]))
-        one = params
+        one = tree_map(lambda t: t.cpu(), params)
         out["one_column_losses"] = losses
-        del step
+        del step, params
     _sync(device)
     dist.barrier()
     if torch.device(device).type == "cuda":
@@ -3690,10 +3770,10 @@ def _tp_train_rank(device) -> dict:
             tree_get(local, path), "all-gather"))
         for path in tree_paths(meta)
         if "model" not in tree_get(specs, path).spec)
-    tp = gather_params(local, meta, mesh)
+    tp = tree_map(lambda t: t.cpu(), gather_params(local, meta, mesh))
     del local, step
     if one is not None:
-        start = weights()
+        start = tree_map(lambda t: t.cpu(), weights())
         worst, by_leaf = 0.0, {}
         for path in tree_paths(one):
             a, b = tree_get(tp, path).float(), tree_get(one, path).float()
@@ -3708,6 +3788,98 @@ def _tp_train_rank(device) -> dict:
             for r, l in zip(rows, out["one_column_losses"]))
         del start
     del tp, one
+    _sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    dist.barrier()
+    out["moe"] = {arch: _tp_moe_leg(mesh, device, arch, layers)
+                  for arch, layers in TP_MOE_TRAIN}
+    return out
+
+
+def _tp_moe_leg(mesh, device, arch: str, layers: int) -> dict:
+    """Phase 10's training leg on this rank of phase 9's (2, 2) group:
+    ``arch`` reduced, ``layers`` deep, in f32, ``TP_MOE_STEPS`` exact_tp
+    steps on the (2, 1) mesh of column 0's ranks from ``init_model``'s
+    weights, then on (2, 2) from ``sharding.init_shards``' (drawn leaf by
+    leaf from the same seed); column 0 holds the gathered (2, 2) weights
+    to the (2, 1) run's."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import FLConfig
+    from repro_torch.core.flatten import tree_get, tree_paths
+    from repro_torch.core.pod import make_tp_train_step
+    from repro_torch.core.shmap import client_sharding, model_axis
+    from repro_torch.data.synthetic import make_train_batch
+    from repro_torch.launch.mesh import HostMesh
+    from repro_torch.launch.sharding import (gather_params, init_shards,
+                                             param_shardings)
+    from repro_torch.models.transformer import init_model
+    cfg = dataclasses.replace(get_config(arch).reduced(), n_layers=layers,
+                              dtype="float32", param_dtype="float32")
+    run = TP_MOE_RUN
+    fl = FLConfig(kappa_max=1, local_lr=run["lr"], num_clients=2)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(run["seed"])
+    batch = make_train_batch(torch.Generator(device=device).manual_seed(
+        run["seed"] + 1), cfg, run["batch"], run["seq"])
+    batch = {k: client_sharding(mesh, 2).block(v) for k, v in batch.items()}
+    out = {"config": f"{arch} reduced, n_layers={layers}, f32, "
+                     f"{TP_MOE_STEPS} exact_tp steps, global batch "
+                     f"{run['batch']} x {run['seq']}"}
+    one = None
+    if mesh.col == 0:
+        sub = HostMesh(np.full((2, 1), None, dtype=object), row=mesh.row,
+                       groups=(mesh.groups[0], None))
+        step = make_tp_train_step(cfg, fl, sub)
+        params, losses = init_model(gen(), cfg), []
+        for _ in range(TP_MOE_STEPS):
+            params, m = step(params, batch)
+            losses.append(float(m["loss"]))
+        one, out["one_column_losses"] = params, losses
+    _sync(device)
+    dist.barrier()
+    local = init_shards(gen(), cfg, mesh)
+    step = make_tp_train_step(cfg, fl, mesh)
+    rows = []
+    for _ in range(TP_MOE_STEPS):
+        _tp_zero_counts()
+        with _ModelAxisClock(device) as clock:
+            _sync(device)
+            t0 = time.perf_counter()
+            local, m = step(local, batch)
+            _sync(device)
+        rows.append({"step_s": time.perf_counter() - t0,
+                     "loss": float(m["loss"]),
+                     "lambda_mean": float(m["lambda_mean"]),
+                     "model_axis_s": clock.s, "model_axis_calls": clock.calls,
+                     "ep_sum_s": clock.ep_s, "ep_sum_calls": clock.ep_calls,
+                     "launches": _tp_counts()})
+    out["steps"] = rows
+    meta = init_model(None, cfg)
+    specs = param_shardings(meta, mesh)
+    axis = model_axis(mesh)
+    out["whole_leaves_same_bits"] = all(
+        all(torch.equal(p, tree_get(local, path)) for p in axis.parts(
+            tree_get(local, path), "all-gather"))
+        for path in tree_paths(meta)
+        if "model" not in tree_get(specs, path).spec)
+    tp = gather_params(local, meta, mesh)
+    if one is not None:
+        start = init_model(gen(), cfg)
+        worst = 0.0
+        for path in tree_paths(one):
+            a, b = tree_get(tp, path), tree_get(one, path)
+            moved = float((b - tree_get(start, path)).abs().max())
+            worst = max(worst, float((a - b).abs().max()) / max(moved,
+                                                                 1e-30))
+        out["params_err_over_moved"] = worst
+        out["loss_rel_err"] = max(abs(r["loss"] - l) / abs(l) for r, l in
+                                  zip(rows, out["one_column_losses"]))
+    del tp, one, local
     _sync(device)
     dist.barrier()
     return out
@@ -3847,9 +4019,175 @@ def _tp_serve_rank(device) -> dict:
     return out
 
 
-# phase 9's two groups: (job, ranks), each started beside host-bound phases
+class _MoeRecorder:
+    """While open, each MoE layer's routing: its expert ids (T, k), each
+    token's k-th and (k+1)-th largest router probabilities, and its
+    dispatch's assignments beyond capacity and those lost to an emptied
+    slot 0 (``moe.dispatch_stats``' two drop counts). Reads counts to the
+    host: for untimed calls only."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.layers, self._route, self._dispatch = [], moe.route, moe.dispatch
+
+        def route(router, xt, k):
+            probs, gates, ids = self._route(router, xt, k)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.layers.append({"ids": ids, "kth": top[:, k - 1],
+                                "next": top[:, k]})
+            return probs, gates, ids
+
+        def dispatch(ids, gates, E, C):
+            table = self._dispatch(ids, gates, E, C)
+            count = table[2]
+            self.layers[-1]["over_capacity"] = int(
+                torch.clamp(count - C, min=0).sum())
+            self.layers[-1]["slot0_emptied"] = int((count > C).sum())
+            return table
+        moe.route, moe.dispatch = route, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.route, moe.dispatch = self._route, self._dispatch
+
+    def drops(self) -> list:
+        return [{k: layer[k] for k in ("over_capacity", "slot0_emptied")}
+                for layer in self.layers]
+
+
+def _ep_inputs(device):
+    """Phase 10's config, its f32-compute twin, the seeded generator and
+    the prompt: the generator draws the weights first, then the prompt,
+    on the ranks and in one process alike."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(EP_SERVE["seed"])
+    at = torch.linspace(0, EP_SERVE["seq"] - 1, TP_LOGIT_POSITIONS,
+                        device=device).long()
+    return cfg, f32, gen, at
+
+
+def _ep_prompt(cfg, gen, device):
+    return torch.randint(0, cfg.vocab_size, (EP_SERVE["batch"],
+                                             EP_SERVE["seq"]),
+                         generator=gen, device=device, dtype=torch.int32)
+
+
+def _ep_sampled(c, params, prompt, at, mesh=None):
+    """The forward's logits at the positions ``at`` (gathered over the
+    vocabulary on a mesh), f32."""
+    from repro_torch.core.shmap import model_axis
+    from repro_torch.models import transformer as T
+    logits, _ = T.forward(params, {"tokens": prompt}, c, mesh)
+    part = logits[:, at].float().contiguous()
+    return part if mesh is None else model_axis(mesh).cat(part)
+
+
+def _ep_decode(c, params, prompt, device, mesh=None, fed=None):
+    """The first ``prompt_len`` tokens, then ``decode_steps`` greedy steps
+    (or the tokens ``fed``): each step's (B, V) f32 logits from the last
+    prompt token on, the tokens fed, and the greedy steps' seconds."""
+    from repro_torch.core.shmap import model_axis
+    from repro_torch.models import transformer as T
+    n, steps = EP_DECODE["prompt_len"], EP_DECODE["decode_steps"]
+    cache = T.init_cache(c, EP_SERVE["batch"], n + steps, device=device,
+                         dtype=getattr(torch, c.dtype), mesh=mesh)
+    tok, feed, rows, seconds = None, [], [], 0.0
+    for pos in range(n + steps):
+        if fed is not None:
+            tok = fed[:, pos:pos + 1]
+        elif pos < n:
+            tok = prompt[:, pos:pos + 1]
+        feed.append(tok)
+        _sync(device)
+        t0 = time.perf_counter()
+        lg, cache = T.decode_step(params, cache, tok, pos, c, mesh=mesh)
+        full = lg[:, -1].float().contiguous()
+        full = full if mesh is None else model_axis(mesh).cat(full)
+        tok = torch.argmax(full, dim=-1, keepdim=True).to(torch.int32)
+        _sync(device)
+        if pos >= n:
+            seconds += time.perf_counter() - t0
+        if pos >= n - 1:
+            rows.append(full)
+    return torch.stack(rows), torch.cat(feed, dim=1), seconds
+
+
+def _ep_serve_rank(device, out_dir: str, proc: int) -> dict:
+    """One rank of phase 10 (module docstring): its shards drawn leaf by
+    leaf, the timed bf16 prefill and decode, then the f32-compute runs
+    whose logits and routes rank 0 writes for one process to be held to
+    after the ranks end."""
+    import torch.distributed as dist
+
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import init_shards
+    mesh = make_host_mesh(model_parallel=2, device=device)
+    cfg, f32, gen, at = _ep_inputs(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    local = init_shards(gen, cfg, mesh)
+    _sync(device)
+    out = {"rank": mesh.rank, "col": mesh.col,
+           "init_s": time.perf_counter() - t0,
+           "init_peak_bytes": torch.cuda.max_memory_allocated(),
+           "weights_bytes": torch.cuda.memory_allocated()}
+    prompt = _ep_prompt(cfg, gen, device)
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg, mesh)
+        prefill(local, {"tokens": prompt})                 # warm-up
+        _tp_zero_counts()
+        _sync(device)
+        t0 = time.perf_counter()
+        token = prefill(local, {"tokens": prompt})
+        _sync(device)
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = _tp_counts()
+        out["prefill_tokens_per_s"] = prompt.numel() / out["prefill_s"]
+        out["prefill_token"] = int(token[0])
+        with _MoeRecorder() as rec, _ModelAxisClock(device) as clock:
+            bf16 = _ep_sampled(cfg, local, prompt, at, mesh)
+        out["bf16_drops"] = rec.drops()
+        # an untimed prefill-sized forward: its model-axis collectives
+        out["prefill_model_axis"] = {"s": clock.s, "calls": clock.calls,
+                                     "ep_sum_s": clock.ep_s,
+                                     "ep_sum_calls": clock.ep_calls}
+        out["prefill_token_ok"] = out["prefill_token"] == int(
+            torch.argmax(bf16[0, -1]))
+        _, toks, seconds = _ep_decode(cfg, local, prompt, device, mesh)
+        n = EP_DECODE["prompt_len"]
+        out["decode_s_per_step"] = seconds / EP_DECODE["decode_steps"]
+        out["decode_tokens_per_s"] = (EP_SERVE["batch"]
+                                      * EP_DECODE["decode_steps"] / seconds)
+        out["tokens"] = toks[0, n:].tolist()
+        # the gates' side: f32 compute on the same bf16 weights
+        with _MoeRecorder() as rec:
+            f32_logits = _ep_sampled(f32, local, prompt, at, mesh)
+        out["f32_drops"] = rec.drops()
+        rows, fed, _ = _ep_decode(f32, local, prompt, device, mesh)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if proc == 0:
+        torch.save({"prompt": prompt.cpu(), "bf16": bf16.cpu(),
+                    "f32": f32_logits.cpu(),
+                    "routes": [{k: layer[k].cpu() for k in ("ids", "kth",
+                                                            "next")}
+                               for layer in rec.layers],
+                    "decode_rows": rows.cpu(), "decode_fed": fed.cpu()},
+                   Path(out_dir) / "rank0.pt")
+    del local
+    _sync(device)
+    dist.barrier()
+    return out
+
+
+# phase 9's two groups and phase 10's: (job, ranks), each started beside
+# host-bound phases
 TP_GROUPS = {"train": (_tp_train_rank, TP_RANKS),
-             "serve": (_tp_serve_rank, 2)}
+             "serve": (_tp_serve_rank, 2),
+             "ep": (_ep_serve_rank, 2)}
 
 
 def _tp_process(proc: int, kind: str, port: int, out: str,
@@ -3865,7 +4203,7 @@ def _tp_process(proc: int, kind: str, port: int, out: str,
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=ranks, rank=proc)
     try:
-        row = job(device)
+        row = (job(device, out, proc) if kind == "ep" else job(device))
     finally:
         dist.destroy_process_group()
     with open(Path(out) / f"rank{proc}.json", "w") as f:
@@ -3874,37 +4212,98 @@ def _tp_process(proc: int, kind: str, port: int, out: str,
 
 def start_tp_ranks(kind: str, device: str = "cuda:0") -> tuple:
     """Phase 9's ``kind`` group started and left running: ``(kind,
-    context, output directory, start time)`` for ``join_tp_ranks``."""
+    context, output directory, start time, memory poll)`` for
+    ``join_tp_ranks``. This process's cached blocks go back to the card
+    first, and the card's used memory is read while the group runs
+    (``_CardMemoryPoll``)."""
     import tempfile
 
     import torch.multiprocessing as mp
+    torch.cuda.empty_cache()
     out = Path(tempfile.mkdtemp(prefix=f"chip_smoke_tp_{kind}_"))
+    poll = _CardMemoryPoll()
     ctx = mp.start_processes(
         _tp_process, args=(kind, _free_port(), str(out), device),
         nprocs=TP_GROUPS[kind][1], join=False, start_method="spawn")
-    return kind, ctx, out, time.perf_counter()
+    return kind, ctx, out, time.perf_counter(), poll
+
+
+class _CardMemoryPoll:
+    """The card's used memory, every process's (NVML's total less its
+    free, in MiB), read on a thread every ``CARD_POLL_MS`` until
+    ``stop``, which returns the peak, the total and the count of reads.
+    Where NVML cannot be loaded nothing is read (``None``)."""
+
+    def __init__(self):
+        import ctypes
+        import threading
+        self.peak = self.total = None
+        self.samples = 0
+        self._done = threading.Event()
+        self._thread = None
+        try:
+            nvml = ctypes.CDLL("libnvidia-ml.so.1")
+        except OSError:
+            return
+        handle = ctypes.c_void_p()
+        if (nvml.nvmlInit_v2() != 0 or nvml.nvmlDeviceGetHandleByIndex_v2(
+                0, ctypes.byref(handle)) != 0):
+            return
+
+        class Memory(ctypes.Structure):
+            _fields_ = [("total", ctypes.c_ulonglong),
+                        ("free", ctypes.c_ulonglong),
+                        ("used", ctypes.c_ulonglong)]
+
+        def read():
+            mem = Memory()
+            while not self._done.is_set():
+                if nvml.nvmlDeviceGetMemoryInfo(handle,
+                                                ctypes.byref(mem)) == 0:
+                    used = (mem.total - mem.free) >> 20
+                    self.peak = max(self.peak or 0, used)
+                    self.total = mem.total >> 20
+                    self.samples += 1
+                self._done.wait(CARD_POLL_MS / 1e3)
+            nvml.nvmlShutdown()
+        self._thread = threading.Thread(target=read, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> dict:
+        self._done.set()
+        if self._thread is not None:
+            self._thread.join()
+        return {"peak_used_mib": self.peak, "total_mib": self.total,
+                "samples": self.samples}
 
 
 def stop_tp_ranks(started) -> None:
     """End a started group's processes (a phase beside them failed)."""
     for proc in started[1].processes:
         proc.terminate()
+    started[4].stop()
 
 
 def join_tp_ranks(started) -> dict:
-    """Wait for a started group; its rows in rank order and its seconds
-    from the start."""
+    """Wait for a started group; its rows in rank order, its seconds from
+    the start and the card's largest used memory while it ran (MiB, every
+    process's: ``_CardMemoryPoll``)."""
     import shutil
-    kind, ctx, out, t0 = started
+    kind, ctx, out, t0, poll = started
     try:
         while not ctx.join():
             pass
         seconds = time.perf_counter() - t0
         rows = [json.loads((out / f"rank{r}.json").read_text())
                 for r in range(TP_GROUPS[kind][1])]
+        saved = out / "rank0.pt"
+        tensors = torch.load(saved) if saved.exists() else None
     finally:
+        card = poll.stop()
         shutil.rmtree(out, ignore_errors=True)
-    return {"rows": rows, "seconds": seconds}
+    say(f"{kind} ranks: card memory while they ran " + json.dumps(card))
+    return {"rows": rows, "seconds": seconds, "tensors": tensors,
+            "card_memory": card}
 
 
 def tp_phase(train_group: dict, serve_group: dict) -> dict:
@@ -3944,6 +4343,27 @@ def tp_phase(train_group: dict, serve_group: dict) -> dict:
         "prefill flash once a layer on each rank": all(
             r["prefill_launches"]["flash_attention"]
             == get_config(TP_ARCH).n_layers for r in serve)}
+    for arch, layers in TP_MOE_TRAIN:
+        legs = [r["moe"][arch] for r in train]
+        # flash forward and backward once an attention layer a step (MTP's
+        # block is one more)
+        n = layers + get_config(arch).reduced().mtp_depth
+        gates.update({
+            f"{arch} (2, 2) losses within TP_LOSS_TOL of (2, 1)": all(
+                leg["loss_rel_err"] <= TP_LOSS_TOL
+                for leg, r in zip(legs, train) if r["col"] == 0),
+            f"{arch} (2, 2) parameters within TP_PARAM_TOL of (2, 1)": all(
+                leg["params_err_over_moved"] <= TP_PARAM_TOL
+                for leg, r in zip(legs, train) if r["col"] == 0),
+            f"{arch} whole leaves the same bits on both columns": all(
+                leg["whole_leaves_same_bits"] for leg in legs),
+            f"{arch} every rank's losses the same": all(
+                [s["loss"] for s in leg["steps"]]
+                == [s["loss"] for s in legs[0]["steps"]] for leg in legs),
+            f"{arch} flash forward and backward once a layer a step": all(
+                s["launches"] == {"flash_attention": n,
+                                  "flash_attention_bwd": n}
+                for leg in legs for s in leg["steps"])})
     B = TP_TRAIN_RUN["batch"] // 2
     kernels = {
         "train_forward": check_flash((B, heads, heads, TP_TRAIN_RUN["seq"],
@@ -3956,7 +4376,10 @@ def tp_phase(train_group: dict, serve_group: dict) -> dict:
             (TP_SERVE["batch"], heads, heads, TP_SERVE["seq"], 128),
             torch.bfloat16, causal=True, timed=True)}
     torch.cuda.empty_cache()
-    res = {"ranks_s": ranks_s, "gates": gates, "train": train,
+    res = {"ranks_s": ranks_s, "card_memory": {
+               "train": train_group["card_memory"],
+               "serve": serve_group["card_memory"]},
+           "gates": gates, "train": train,
            "serve": serve, "kernels": kernels,
            "config": {"train": f"{TP_ARCH} n_layers={TP_TRAIN_LAYERS}, f32 "
                       f"params, bf16 compute, (2, 2) against (2, 1), "
@@ -3966,14 +4389,152 @@ def tp_phase(train_group: dict, serve_group: dict) -> dict:
                       f" prefill {TP_SERVE['batch']} x {TP_SERVE['seq']}, "
                       f"decode {TP_DECODE}"}}
     say("tp phase " + json.dumps({k: res[k] for k in (
-        "ranks_s", "gates", "config")}))
+        "ranks_s", "card_memory", "gates", "config")}))
     for r in train:
         say("tp train rank " + json.dumps(
-            {k: v for k, v in r.items() if k != "params_err_by_leaf"}))
+            {k: v for k, v in r.items() if k not in ("params_err_by_leaf",
+                                                      "moe")}))
+        say("tp moe train rank " + json.dumps({"rank": r["rank"],
+                                                **r["moe"]}))
     for r in serve:
         say("tp serve rank " + json.dumps(r))
     if not all(gates.values()):
         raise AssertionError(f"tensor-parallel phase gates failed: {gates}")
+    return res
+
+
+def ep_phase(group: dict, device: str = "cuda") -> dict:
+    """Phase 10 (module docstring): after the ranks end, one process on
+    the same seeded weights, whole, in f32 compute (and bf16 for the gap
+    and its time); the gates; then the flash kernels at the ranks'
+    local-head shapes and at the training leg's, against their plain
+    versions, timed beside bound and SDPA."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.models import transformer as T
+    rows, saved = group["rows"], group["tensors"]
+    torch.cuda.empty_cache()
+    cfg, f32, gen, at = _ep_inputs(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole = T.init_model(gen, cfg)
+    _sync(device)
+    one = {"init_s": time.perf_counter() - t0,
+           "weights_bytes": torch.cuda.memory_allocated()}
+    prompt = _ep_prompt(cfg, gen, device)
+    with torch.inference_mode():
+        prefill = make_prefill_step(cfg)
+        prefill(whole, {"tokens": prompt})
+        _sync(device)
+        t0 = time.perf_counter()
+        prefill(whole, {"tokens": prompt})
+        _sync(device)
+        one["prefill_s"] = time.perf_counter() - t0
+        bf16 = _ep_sampled(cfg, whole, prompt, at)
+        with _MoeRecorder() as rec:
+            f32_logits = _ep_sampled(f32, whole, prompt, at)
+        one["f32_drops"] = rec.drops()
+        tp_rows = saved["decode_rows"].to(device)
+        one_rows, _, _ = _ep_decode(f32, whole, prompt, device,
+                                    fed=saved["decode_fed"].to(device))
+    one["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del whole
+    torch.cuda.empty_cache()
+    # router near ties: tokens the (1, 2) run sends to another set of
+    # experts than one process does, each with its gap in one process
+    flips = []
+    for i, (mine, theirs) in enumerate(zip(saved["routes"], rec.layers)):
+        a = torch.sort(mine["ids"].to(device), dim=-1).values
+        b = torch.sort(theirs["ids"], dim=-1).values
+        for t in torch.nonzero((a != b).any(-1)).flatten().tolist():
+            kth, nxt = float(theirs["kth"][t]), float(theirs["next"][t])
+            flips.append({"layer": i, "token": t,
+                          "gap": (kth - nxt) / kth})
+    flipped = {f["token"] for f in flips}
+    keep = [j for j, pos in enumerate(at.tolist()) if pos not in flipped]
+    tp_f32 = saved["f32"].to(device)[:, keep]
+    one_f32 = f32_logits[:, keep]
+    top = float(one_f32.abs().max())
+    res = {"ranks_s": group["seconds"],
+           "card_memory": group["card_memory"], "one_process": one,
+           "ranks": rows, "route_flips": flips,
+           "positions_left_out": len(at) - len(keep),
+           "prefill_f32_max_abs_err": float((tp_f32 - one_f32).abs().max()),
+           "prefill_logit_scale": top,
+           "decode_f32_max_rel_err": max(
+               float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(tp_rows, one_rows)),
+           "prefill_bf16": {
+               "two_columns_to_f32": float((saved["bf16"].to(device)[:, keep]
+                                            - one_f32).abs().max()),
+               "one_process_to_f32": float((bf16[:, keep]
+                                            - one_f32).abs().max()),
+               "between": float((saved["bf16"].to(device) - bf16).abs().max())},
+           "prefill_s": {"two_columns": [r["prefill_s"] for r in rows],
+                         "one_process": one["prefill_s"]}}
+    gates = {
+        "same prompt on the ranks and in one process": torch.equal(
+            saved["prompt"].to(device), prompt),
+        "f32 prefill within LOGIT_TOL of one process":
+        res["prefill_f32_max_abs_err"] <= LOGIT_TOL * top,
+        "f32 prefill greedy tokens": _close_tokens(tp_f32, one_f32,
+                                                   LOGIT_TOL),
+        "route flips only at near ties": all(f["gap"] <= EP_NEAR_TIE
+                                             for f in flips),
+        "f32 decode within LOGIT_TOL of one process":
+        res["decode_f32_max_rel_err"] <= LOGIT_TOL,
+        "f32 decode greedy tokens": all(_close_tokens(a, b, LOGIT_TOL)
+                                        for a, b in zip(tp_rows, one_rows)),
+        "both ranks' tokens the same": rows[0]["tokens"] == rows[1]["tokens"]
+        and rows[0]["prefill_token"] == rows[1]["prefill_token"],
+        "prefill greedy token the gathered logits'": all(
+            r["prefill_token_ok"] for r in rows),
+        "prefill flash once a layer on each rank": all(
+            r["prefill_launches"]["flash_attention"] == EP_LAYERS
+            for r in rows),
+        "dropped assignments equal on both ranks and in one process": (
+            rows[0]["f32_drops"] == rows[1]["f32_drops"] == one["f32_drops"]
+            and rows[0]["bf16_drops"] == rows[1]["bf16_drops"])}
+    res["gates"] = gates
+    m = cfg.mla
+    heads = cfg.n_heads // 2
+    res["kernels"] = {
+        "prefill_forward": check_flash(
+            (EP_SERVE["batch"], heads, heads, EP_SERVE["seq"],
+             m.qk_nope_head_dim + m.qk_rope_head_dim), torch.bfloat16,
+            causal=True, timed=True, dv=m.v_head_dim)}
+    B = TP_MOE_RUN["batch"] // 2
+    for arch, layers in TP_MOE_TRAIN:
+        small = dataclasses.replace(get_config(arch).reduced(),
+                                    n_layers=layers)
+        H = small.n_heads // 2
+        if small.attention == "mla":
+            sm = small.mla
+            D = sm.qk_nope_head_dim + sm.qk_rope_head_dim
+            fwd = ((B, H, H, TP_MOE_RUN["seq"], D), sm.v_head_dim)
+        else:
+            D = small.resolved_head_dim
+            fwd = ((B, H, small.n_kv_heads // 2, TP_MOE_RUN["seq"], D), D)
+        # the backward takes v zero-padded to D (MLA) and one head dim
+        res["kernels"][f"train_forward {arch}"] = check_flash(
+            fwd[0], torch.float32, causal=True, timed=True, dv=fwd[1])
+        res["kernels"][f"train_backward {arch}"] = check_flash_bwd(
+            fwd[0], torch.float32, causal=True, timed=True)
+    torch.cuda.empty_cache()
+    say("ep phase " + json.dumps({k: res[k] for k in (
+        "ranks_s", "card_memory", "gates", "route_flips",
+        "positions_left_out",
+        "prefill_f32_max_abs_err", "prefill_logit_scale",
+        "decode_f32_max_rel_err", "prefill_bf16", "prefill_s",
+        "one_process")}) + " config " + json.dumps(
+        f"{EP_ARCH} n_layers={EP_LAYERS} of {61} (depth cut: 3 dense MLA "
+        f"layers and 1 MoE layer of 256 experts, 128 a column), full width, "
+        f"bf16 params, (1, 2), prefill {EP_SERVE['batch']} x "
+        f"{EP_SERVE['seq']}, decode {EP_DECODE}"))
+    for r in rows:
+        say("ep serve rank " + json.dumps(r))
+    if not all(gates.values()):
+        raise AssertionError(f"expert-parallel phase gates failed: {gates}")
     return res
 
 
@@ -3992,18 +4553,16 @@ def main() -> int:
     flash_future = start_flash_build()
     timed("2 build", build)
     kern = timed("3 kernels", kernels_phase)
-    small_loop = timed("4 small runs", small_run_phase)
     timed("4 conv precision", conv_precision_phase)
     main = timed("5 main path", fl_run, "main path", "osafl", MAIN_RUN,
                  MAIN_EVAL)
     list_api = timed("5b list api", list_api_phase)
-    loop = timed("5c loop engine", fl_run, "loop engine", "osafl", LOOP_RUN,
-                 MAIN_EVAL)
     timed("6 breakdown", breakdown_phase, MAIN_RUN)
     grid = timed("6b grid", grid_phase, main)
     # phase 9's training ranks run beside 6c and the small models'
-    # breakdowns, which hold little device memory; the flash kernels they
-    # launch were built on the thread started above by now
+    # breakdowns (11 GiB at most); the flash kernels they launch are built
+    # on the thread started above
+    flash_future.result()
     tp_train = start_tp_ranks("train")
     try:
         determinism = timed("6c determinism", determinism_phase, grid)
@@ -4015,12 +4574,25 @@ def main() -> int:
         raise
     tp_train = timed("9 tensor parallel training ranks", join_tp_ranks,
                      tp_train)
+    # phase 10's ranks (~23 GiB each at their peaks) run beside the
+    # small-width runs of 4 and 6d, the loop engine and its resume (5 GiB
+    # at most), not beside a full-width stacked FL run (23 GiB); one
+    # process is held to them after 3's flash checks
+    ep_ranks = start_tp_ranks("ep")
+    try:
+        small_loop = timed("4 small runs", small_run_phase)
+        loop = timed("5c loop engine", fl_run, "loop engine", "osafl",
+                     LOOP_RUN, MAIN_EVAL)
+        stacked_small = timed("6d small stacked", small_run_phase,
+                              STACKED_SMALL)
+        loop_resume = timed("6f loop resume", loop_resume_phase)
+    except BaseException:
+        stop_tp_ranks(ep_ranks)
+        raise
+    ep_ranks = timed("10 expert parallel ranks", join_tp_ranks, ep_ranks)
     requests = timed("6d requests", requests_phase, main)
-    stacked_small = timed("6d small stacked", small_run_phase,
-                          STACKED_SMALL)
     f32 = timed("6e f32 solve", f32_solve_phase)
     ckpt = timed("6f checkpoint", checkpoint_phase)
-    loop_resume = timed("6f loop resume", loop_resume_phase)
     timed("6 breakdown stacked requests", breakdown_phase,
           dict(MAIN_RUN, request_backend="stacked"))
     cohorts = timed("6g cohorts", cohort_phase)
@@ -4029,6 +4601,7 @@ def main() -> int:
     fused = timed("6h fused", fused_phase)
     ptxas = timed("2 flash build", flash_build, flash_future)
     flash = timed("3 flash", flash_phase, ptxas["fwd"])
+    ep = timed("10 expert parallel", ep_phase, ep_ranks)
     serving = timed("7 serving", serving_phase)
     moe_serving = timed("7b moe serving", moe_serving_phase)
     # phase 9's serving ranks run beside 7c (whose decode and sLSTM loop
@@ -4116,6 +4689,13 @@ def main() -> int:
         for r in tp["train"]]
     by_path["flash_attention"]["tp_serve prefill per rank"] = [
         r["prefill_launches"]["flash_attention"] for r in tp["serve"]]
+    by_path["flash_attention"]["ep_serve prefill per rank"] = [
+        r["prefill_launches"]["flash_attention"] for r in ep["ranks"]]
+    moe_train = {k: {f"tp_train {arch} per rank": [
+        sum(st["launches"][k] for st in r["moe"][arch]["steps"])
+        for r in tp["train"]] for arch, _ in TP_MOE_TRAIN}
+        for k in ("flash_attention", "flash_attention_bwd")}
+    by_path["flash_attention"].update(moe_train["flash_attention"])
     by_path["scored_reduce"]["pod_small"] = pods["small"]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
@@ -4183,7 +4763,15 @@ def main() -> int:
             name: {key: tp["kernels"][name][key] for key in (
                 "shape", "max_abs_err", "bitwise_repeat", "ms", "plain_ms",
                 "library_ms", "bound_ms", "bound_by", "share_of_bound")}
-            for name in ("train_forward", "prefill_forward")}}, {
+            for name in ("train_forward", "prefill_forward")},
+        # phase 10: each rank's 64 of deepseek-v3's 128 MLA heads at <192,
+        # 128>, and the training leg's reduced MoE decoders' local heads
+        "ep_local_heads_shapes": {
+            name: {key: ep["kernels"][name][key] for key in (
+                "shape", "dv", "dtype", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}
+            for name in ep["kernels"] if "backward" not in name}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -4196,7 +4784,8 @@ def main() -> int:
                             for r in training["small"]],
             "tp_train per rank": [
                 sum(st["launches"]["flash_attention_bwd"]
-                    for st in r["steps"]) for r in tp["train"]]},
+                    for st in r["steps"]) for r in tp["train"]],
+            **moe_train["flash_attention_bwd"]},
         "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
         "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
         "bound_by": bwd["bound_by"], "library_ms": bwd["library_ms"],
@@ -4204,7 +4793,13 @@ def main() -> int:
         "tp_local_heads_shape": {key: tp["kernels"]["train_backward"][key]
                                  for key in (
             "shape", "max_abs_err", "bitwise_repeat", "ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "share_of_bound")}}]}
+            "library_ms", "bound_ms", "bound_by", "share_of_bound")},
+        "tp_moe_train_shapes": {
+            name: {key: ep["kernels"][name][key] for key in (
+                "shape", "dtype", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}
+            for name in ep["kernels"] if "backward" in name}}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -47,16 +47,18 @@ otherwise). The count-sketch signs are the port's
 reference's ``PRNGKey(17)`` signs only in distribution.
 
 Tensor parallelism: on an (R, M) mesh (``make_host_mesh(model_parallel=M)``,
-R * M ranks) exact_tp, fedavg, prefill and serve run the dense GQA
-decoders Megatron-style over each row's M columns (the reference's
+R * M ranks) exact_tp, fedavg, prefill and serve run the dense and MoE
+decoders (GQA or MLA, MoE experts split over the columns, MTP)
+Megatron-style over each row's M columns (the reference's
 "shard_map manual over the client axes, auto-TP over 'model'"): each
 rank passes its shards of the parameters (``launch/sharding``'s tp rules)
 and its row's block of the batch, the forward and backward cross the
 model axis through ``core/shmap``, the client-row sums run down each
 column, and the scores act on the logical tree (a split leaf's terms
 model-summed, a whole leaf counted once: ``launch/sharding.ModelLayout``).
-recompute and stale run with FSDP in the reference, which is ROADMAP.md
-A7's second half: they raise on M > 1.
+The MoE aux loss and MTP's loss are in the objective, as the
+reference's. recompute and stale run with FSDP in the reference, which
+is ROADMAP.md A7's second half (its FSDP item): they raise on M > 1.
 """
 from __future__ import annotations
 
@@ -149,8 +151,8 @@ def _no_model_axis(mesh, engine: str) -> None:
     if model_columns(mesh) > 1:
         raise NotImplementedError(
             f"{engine} over a 'model' axis runs with FSDP in the reference "
-            "(ROADMAP.md A7's second half); exact_tp and fedavg run "
-            "tensor-parallel")
+            "(ROADMAP.md A7's second half, its FSDP item); exact_tp and "
+            "fedavg run tensor-parallel")
 
 
 def _layout(cfg: ModelConfig, mesh):

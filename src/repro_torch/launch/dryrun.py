@@ -24,11 +24,14 @@ roofline uses one H100 SXM's data-sheet peaks (989 TFLOP/s dense bf16,
 3.35 TB/s HBM, NVLink 4 at 450 GB/s a direction): the port's card, not the
 reference's v5e.
 
-The port runs the dense GQA decoders tensor-parallel (exact_tp and fedavg
-on the tp rules); MoE expert parallelism, TP for MLA, SSM and
-cross-attention and the FSDP regime of recompute and stale are ROADMAP.md
-A7's second half, and a combo that needs them writes a record that says
-so (``skipped``, as ``benchmarks/roofline.py`` reads it).
+The port runs the dense and MoE decoders tensor- and expert-parallel
+(exact_tp and fedavg on the tp rules; prefill on them under every engine,
+as the reference places prefill weights by the tp rules even for
+recompute). TP for the SSM blocks and cross-attention and the FSDP regime
+of recompute and stale (training and decode of the >100B MoE archs by
+default) are ROADMAP.md A7's second half, and a combo that needs them
+writes a record that says so (``skipped``, as ``benchmarks/roofline.py``
+reads it).
 
 Online pod mode (``--online``) instead *executes* ``repro_torch.harness.
 run`` on the pod engine for every pod engine on a ('pod', 'data') mesh of
@@ -125,16 +128,20 @@ def skip_reason(cfg: ModelConfig, shp: InputShape) -> str | None:
     return None
 
 
-def _not_ported(cfg: ModelConfig, engine: str) -> str | None:
-    """Why the port cannot trace this combo on the production mesh yet."""
+def _not_ported(cfg: ModelConfig, engine: str,
+                shp: InputShape) -> str | None:
+    """Why the port cannot trace this combo on the production mesh yet.
+    Prefill places its weights by the tp rules under every engine (the
+    reference's ``fsdp = engine == "recompute" and kind != "prefill"``)."""
     from repro_torch.models.transformer import _tp_ported
     if not _tp_ported(cfg):
         return (f"{cfg.name}: tensor parallelism over 'model' runs the dense "
-                "GQA decoders; MoE expert parallelism and TP for MLA, SSM "
-                "and cross-attention are ROADMAP.md A7's second half")
-    if engine not in ("exact_tp", "fedavg"):
-        return (f"engine {engine!r} runs with FSDP in the reference, "
-                "ROADMAP.md A7's second half")
+                "and MoE decoders; TP for the SSM blocks and "
+                "cross-attention is ROADMAP.md A7's second half")
+    if engine not in ("exact_tp", "fedavg") and shp.kind != "prefill":
+        return (f"engine {engine!r} runs with FSDP in the reference "
+                "(ROADMAP.md A7's second half, its FSDP item: recompute "
+                "and stale on (R, M) meshes)")
     return None
 
 
@@ -282,7 +289,7 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     if reason:
         return None, {"arch": arch, "shape": shape_name, "skipped": reason}
     engine = engine or default_engine(arch)
-    reason = _not_ported(cfg, engine)
+    reason = _not_ported(cfg, engine, shp)
     if reason:
         return None, {"arch": arch, "shape": shape_name, "engine": engine,
                       "skipped": reason}

@@ -244,6 +244,37 @@ def shard_params(params, mesh, *, fsdp: bool = False):
                     params, specs)
 
 
+def init_shards(gen, cfg, mesh):
+    """This rank's shard of every leaf of ``init_model(gen, cfg)``, with
+    the same numbers, drawn without the whole tree: each leaf is drawn
+    whole in ``init_model``'s order from ``gen``, this rank's shard kept
+    (a contiguous copy) and the whole leaf freed before the next one is
+    drawn. A rank's peak is its shards plus the largest leaf (at
+    deepseek-v3-671b's width one (1, 256, 7168, 2048) bf16 expert stack,
+    7.5 GB) where ``shard_params`` of the whole tree would hold all of it
+    (31.6 GB at four layers). The leaves drawn with no number (the norms'
+    ones, zero biases) are cut from the whole afterwards."""
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import init_model
+    order: list = []
+    with layers.keep_drawn(lambda t: order.append(t) or t):
+        template = init_model(None, cfg)
+    path_of = {id(tree_get(template, p)): p for p in tree_paths(template)}
+    drawn = [path_of[id(t)] for t in order]
+    specs = param_shardings(template, mesh)
+
+    def cut(whole, path):
+        return local_shard(whole, tree_get(specs, path).spec, mesh).clone(
+            memory_format=torch.contiguous_format)
+    todo = iter(drawn)
+    with layers.keep_drawn(lambda whole: cut(whole, next(todo))):
+        tree = init_model(gen, cfg)
+    for p in set(tree_paths(tree)) - set(drawn):
+        node = tree_get(tree, p[:-1])
+        node[p[-1]] = cut(node[p[-1]], p)
+    return tree
+
+
 def _axes(entry) -> tuple:
     if entry is None:
         return ()

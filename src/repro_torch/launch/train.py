@@ -14,11 +14,12 @@ the process group first:
 gloo with ``--device cpu``). Every rank draws the whole batch from the
 same seed and trains on its block; rank 0 prints and writes ``--ckpt``.
 ``--model-parallel M`` lays R * M ranks out as R client rows of M model
-columns and splits the dense decoders' parameters over each row's
-columns (exact_tp and fedavg; ``launch/sharding.py``'s rules):
+columns and splits the dense and MoE decoders' parameters over each row's
+columns (exact_tp and fedavg; ``launch/sharding.py``'s rules: the MoE
+layers' experts over the columns, MLA's heads):
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
-      --distributed --model-parallel 2
+      --distributed --model-parallel 2 [--arch deepseek-v3-671b]
 ``--full`` takes the full config (40 layers of qwen1.5-4b do not fit one
 card's memory with ``recompute``'s five parameter-sized trees; a caller
 cuts depth with ``dataclasses.replace`` and ``run(cfg=...)``).
@@ -41,7 +42,7 @@ from repro_torch.data.synthetic import (learnable_sequence_batch,
                                         make_train_batch)
 from repro_torch.device import clock, resolve_device
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.launch.sharding import gather_params, shard_params
+from repro_torch.launch.sharding import gather_params, init_shards
 from repro_torch.models.transformer import init_model, param_count
 
 ENGINES = ("exact_tp", "recompute", "stale", "fedavg")
@@ -58,8 +59,9 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
     one client row per ``model_parallel`` ranks of the process group (one
     with none); ``num_clients`` (of recompute and stale) defaults to its
     rows. Over M > 1 columns each rank trains its shards of the weights
-    (drawn whole from ``seed``, then cut), and the returned ``params``
-    are the whole tree, gathered over each row."""
+    (drawn from ``seed`` a whole leaf at a time, each cut to this rank's
+    shard before the next: ``sharding.init_shards``), and the returned
+    ``params`` are the whole tree, gathered over each row."""
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; known: {ENGINES}")
     mesh = make_host_mesh(model_parallel, device=device)
@@ -73,14 +75,13 @@ def run(arch: str, *, reduced=True, steps=20, engine="exact_tp", sketch=0,
                   num_clients=num_clients or rows,
                   score_sketch_dim=sketch)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
-    params = init_model(gen, cfg)
+    params = (init_shards(gen, cfg, mesh) if model_parallel > 1
+              else init_model(gen, cfg))
     lead = mesh.rank == 0
     if lead:
-        print(f"{cfg.name}: {param_count(params) / 1e6:.1f}M params, "
-              f"device={dev}, client rows={rows}, model columns="
+        print(f"{cfg.name}: {param_count(init_model(None, cfg)) / 1e6:.1f}M "
+              f"params, device={dev}, client rows={rows}, model columns="
               f"{model_parallel}, engine={engine}")
-    if model_parallel > 1:
-        params = shard_params(params, mesh)
 
     with use_mesh(mesh):
         if engine == "exact_tp":
@@ -146,8 +147,8 @@ def main(argv=None):
                          "client row per process, or per --model-parallel "
                          "processes)")
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="model columns a client row (tensor parallelism "
-                         "of the dense decoders over them)")
+                    help="model columns a client row (tensor and expert "
+                         "parallelism of the decoders over them)")
     args = ap.parse_args(argv)
     if args.distributed:
         import os

@@ -258,13 +258,34 @@ def init_mla(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
     }
 
 
-def _mla_qkv(params, x, cfg: ModelConfig, positions):
+def mla_tp_split(cfg: ModelConfig, M: int) -> tuple:
+    """``(q, kv, o, heads)`` of MLA over M model columns, by the rules of
+    ``launch/sharding.py``: whether ``wq_b``'s and ``wkv_b``'s columns and
+    ``wo``'s rows are split (their widths divide by M), and whether the
+    split falls on whole heads (H divides by M), so that each column runs
+    its own H / M heads. ``wq_a``, ``wkv_a`` and the norms stay whole."""
+    m = cfg.mla
+    H = cfg.n_heads
+    q = M > 1 and (H * (m.qk_nope_head_dim + m.qk_rope_head_dim)) % M == 0
+    kv = M > 1 and (H * (m.qk_nope_head_dim + m.v_head_dim)) % M == 0
+    o = M > 1 and (H * m.v_head_dim) % M == 0
+    return q, kv, o, M > 1 and H % M == 0
+
+
+def _mla_qkv(params, x, cfg: ModelConfig, positions, tp=None):
+    """q's nope and rope parts, the normed latent and the rope key.
+    ``tp``: the heads split whole, ``wq_b`` holding this column's heads;
+    the whole low-rank outputs cross into the model region here, after
+    their norms."""
     m = cfg.mla
     B, S, _ = x.shape
     dt = x.dtype
+    H = cfg.n_heads if tp is None else cfg.n_heads // tp.size
     q = rmsnorm(params["q_norm"], x @ params["wq_a"].to(dt), cfg.norm_eps)
+    if tp is not None:
+        q = tp.copy_in(q)
     q = (q @ params["wq_b"].to(dt)).reshape(
-        B, S, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
+        B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv = x @ params["wkv_a"].to(dt)
@@ -272,21 +293,50 @@ def _mla_qkv(params, x, cfg: ModelConfig, positions):
     c_kv = rmsnorm(params["kv_norm"], c_kv, cfg.norm_eps)        # (B,S,rank)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)                          # (B,S,1,r)
+    if tp is not None:
+        c_kv, k_rope = tp.copy_in(c_kv), tp.copy_in(k_rope)
     return q_nope, q_rope, c_kv, k_rope
 
 
+def _whole_mla(params, tp, splits: tuple) -> dict:
+    """The MLA leaves with ``wq_b``/``wkv_b``'s columns and ``wo``'s rows
+    gathered where they are split (each column's gradient back as its
+    own part): a split inside a head runs whole on every column."""
+    params = dict(params)
+    for (name, dim), split in zip((("wq_b", -1), ("wkv_b", -1), ("wo", 0)),
+                                  splits):
+        if split:
+            params[name] = tp.gather(params[name], dim=dim)
+    return params
+
+
 def mla_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
-            cache_pos=None):
+            cache_pos=None, tp=None):
     """MLA attention. Prefill/train: naive expansion through the flash
     kernel, q and k at ``qk_nope + qk_rope`` and v at ``v_head_dim``.
     Decode (S == 1, ``cache_pos`` an int): absorbed form over the latent
     cache {"c": (B, L, rank), "k_rope": (B, L, r)}, written in place.
+
+    ``tp`` (a ``core/shmap.ModelAxis``): ``wq_b``/``wkv_b`` column-split
+    and ``wo`` row-split as ``mla_tp_split`` says; ``wq_a``, ``wkv_a``,
+    the norms and the latent cache are whole on every column. On whole
+    heads each column runs its own H / M heads (flash on them in prefill,
+    the absorbed decode over the whole latent cache) and feeds ``wo``'s
+    rows of them, and the partial outputs are model-summed; ``q`` after
+    ``q_norm``, ``c_kv`` and ``k_rope`` cross into the model region
+    (``copy_in``), so ``wq_a``, ``wkv_a`` and the norms receive the whole
+    gradient, the same on every column. Where a split falls inside a
+    head, the split leaves are gathered and every column runs the whole
+    attention.
     Returns (y, cache)."""
+    splits = mla_tp_split(cfg, 1 if tp is None else tp.size)
+    if tp is not None and not splits[3]:
+        params, tp = _whole_mla(params, tp, splits[:3]), None
     m = cfg.mla
     B, S, _ = x.shape
-    H = cfg.n_heads
+    H = cfg.n_heads if tp is None else cfg.n_heads // tp.size
     dt = x.dtype
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions)
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions, tp)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     wkv_b = params["wkv_b"].to(dt).reshape(
         m.kv_lora_rank, H, m.qk_nope_head_dim + m.v_head_dim)
@@ -322,7 +372,7 @@ def mla_fwd(params, x, cfg: ModelConfig, positions, *, cache=None,
         o_lat = torch.einsum("bhst,btr->bshr", probs, c)
         o = torch.einsum("bshr,rhd->bshd", o_lat, w_v)          # (B,1,H,dv)
     y = o.reshape(B, S, H * m.v_head_dim) @ params["wo"].to(dt)
-    return y, cache
+    return (y if tp is None else tp.reduce_out(y)), cache
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, length: int,

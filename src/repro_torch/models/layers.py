@@ -12,6 +12,8 @@ checks an imported tree against.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -27,19 +29,39 @@ from repro_torch.configs.base import ModelConfig
 DRAW_LIMIT = 1 << 30
 
 
+_KEEP = contextvars.ContextVar("keep_drawn", default=None)
+
+
+@contextlib.contextmanager
+def keep_drawn(fn):
+    """While open (in this thread or task), each leaf ``dense_init`` makes
+    (a meta tensor too) is passed to ``fn`` and replaced by what ``fn``
+    returns, as soon as it is made: a caller keeps a part of each leaf and
+    the whole leaf is freed before the next is drawn
+    (``launch/sharding.init_shards``)."""
+    token = _KEEP.set(fn)
+    try:
+        yield
+    finally:
+        _KEEP.reset(token)
+
+
 def dense_init(gen, shape, scale: float = 0.02, dtype=torch.float32):
     """``scale`` * N(0, 1) of ``shape`` on ``gen``'s device. A float32
     leaf, or one whose f32 draw is at most ``DRAW_LIMIT`` bytes, is one
     draw (so the numbers of every f32 config stay as they were); a larger
     leaf of a narrower dtype is drawn in blocks straight into the result."""
     if gen is None:
-        return torch.empty(shape, dtype=dtype, device="meta")
-    if dtype == torch.float32 or math.prod(shape) * 4 <= DRAW_LIMIT:
+        out = torch.empty(shape, dtype=dtype, device="meta")
+    elif dtype == torch.float32 or math.prod(shape) * 4 <= DRAW_LIMIT:
         x = torch.randn(shape, generator=gen, device=gen.device)
-        return x.mul_(scale).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    _draw_into(out, gen, scale)
-    return out
+        out = x.mul_(scale).to(dtype)
+        del x                       # the f32 draw freed before a keep cuts
+    else:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        _draw_into(out, gen, scale)
+    keep = _KEEP.get()
+    return out if keep is None else keep(out)
 
 
 def _draw_into(out, gen, scale: float) -> None:

@@ -73,6 +73,14 @@ def route(router, xt, k: int):
     return probs, gate_vals, expert_ids
 
 
+def _counts(flat_e, E: int):
+    """Each expert's assignment count (E,) int64. A scatter into a fixed
+    (E,) shape, not ``torch.bincount``, whose output size depends on the
+    data (a traced step on fake tensors cannot size it)."""
+    return torch.zeros(E, dtype=torch.int64, device=flat_e.device
+                       ).scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
 def dispatch(expert_ids, gate_vals, E: int, C: int):
     """The (E, C) token table (T = empty) and f32 gate table of the sort
     dispatch, each expert's assignment count (E,), and each assignment's
@@ -86,7 +94,7 @@ def dispatch(expert_ids, gate_vals, E: int, C: int):
     st = order // k                           # the token of each assignment
     group_start = torch.searchsorted(se, torch.arange(E, device=dev))
     pos = torch.arange(T * k, device=dev) - group_start[se]
-    count = torch.bincount(flat_e, minlength=E)
+    count = _counts(flat_e, E)
     keep = pos < C
     # kept assignments to their slots, dropped ones to a spare column C
     # (discarded; its duplicate writes are never read)
@@ -117,14 +125,30 @@ def dispatch_stats(params, x, cfg: ModelConfig) -> dict:
     E = m.num_experts
     C = _capacity(T, m.top_k, E, m.capacity_factor)
     _, _, ids = route(params["router"], x.reshape(T, -1), m.top_k)
-    count = torch.bincount(ids.reshape(-1), minlength=E)
+    count = _counts(ids.reshape(-1), E)
     return {"capacity": C, "tokens": T, "max_count": count.max(),
             "over_capacity": torch.clamp(count - C, min=0).sum(),
             "slot0_emptied": (count > C).sum()}
 
 
-def moe_fwd(params, x, cfg: ModelConfig):
-    """x: (B, S, d) -> (y, aux_loss)."""
+def moe_fwd(params, x, cfg: ModelConfig, tp=None):
+    """x: (B, S, d) -> (y, aux_loss).
+
+    ``tp`` (a ``core/shmap.ModelAxis``): expert parallelism where E
+    divides by M (the rules' ``_MOE_EXPERT``: each column holds E / M
+    experts of each stacked ``w_gate``/``w_up``/``w_down``). Every column
+    routes the whole batch (the router is whole: the same top-k, capacity
+    and tables, so the same drops), runs its E / M experts' rows of the
+    tables and combines its part; the parts are model-summed, in rank
+    order, which is ascending expert order. The experts' input crosses in through ``copy_in`` (the
+    columns' partial input gradients summed) and the local gate rows come
+    out of the whole gate table through ``split`` (the columns' gate
+    gradients concatenated back), so the router's path, computed whole on
+    every column, receives its whole gradient once. The aux loss is
+    added once, never summed. The shared expert and the dense residual
+    run whole on every column and are added after the sum. Where E does
+    not divide by M the experts are whole and every column runs all of
+    them, with nothing summed."""
     m = cfg.moe
     B, S, d = x.shape
     E, k = m.num_experts, m.top_k
@@ -140,19 +164,35 @@ def moe_fwd(params, x, cfg: ModelConfig):
     frac = count.float() / (T * k)
     aux = m.router_aux_coef * E * torch.sum(frac * probs.mean(0))
 
-    xt_pad = torch.cat([xt, xt.new_zeros((1, d))])        # row T = zeros
-    xe = xt_pad[token_table]                               # (E, C, d)
+    split = tp is not None and E % tp.size == 0
+    if split:
+        n = E // tp.size
+        lo = tp.index * n
+        xt_in = tp.copy_in(xt)
+        token_table = token_table[lo:lo + n]
+        gate_table = tp.split(gate_table, dim=0)
+        # this column's slots from 0; another column's and dropped ones
+        # to the zero row n * C
+        local = slot - lo * C
+        slot = torch.where((local >= 0) & (local < n * C), local, n * C)
+    else:
+        n, xt_in = E, xt
+
+    xt_pad = torch.cat([xt_in, xt_in.new_zeros((1, d))])  # row T = zeros
+    xe = xt_pad[token_table]                               # (n, C, d)
 
     gate = torch.bmm(xe, params["w_gate"].to(dt))
     up = torch.bmm(xe, params["w_up"].to(dt))
-    ye = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))   # (E, C, d)
+    ye = torch.bmm(F.silu(gate) * up, params["w_down"].to(dt))   # (n, C, d)
 
-    # combine: row E * C of the gated outputs is zeros (a dropped slot)
-    yg = (ye * gate_table[..., None].to(dt)).reshape(E * C, d)
+    # combine: row n * C of the gated outputs is zeros (a dropped slot)
+    yg = (ye * gate_table[..., None].to(dt)).reshape(n * C, d)
     yg = torch.cat([yg, yg.new_zeros((1, d))])
     y = torch.zeros((T, d), dtype=dt, device=x.device)
     for j in range(k):
         y = y + yg[slot[:, j]]
+    if split:
+        y = tp.reduce_out(y)
     y = y.reshape(B, S, d)
 
     if m.num_shared_experts:

@@ -28,16 +28,20 @@ when the config has one; with ``cfg.remat`` each layer of a training
 forward is recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's ``_maybe_remat``.
 
-Tensor parallelism (the dense GQA decoders): given a ``mesh`` whose
+Tensor parallelism (the dense and MoE decoders): given a ``mesh`` whose
 'model' axis has M > 1 columns, one rank a column, ``forward``,
 ``loss_fn``, ``init_cache`` and ``decode_step`` run on this rank's shards
 of the parameters (``launch/sharding.py``'s tp rules): the embedding
-split over d_model and its columns gathered, the MLP and attention
+split over d_model and its columns gathered, the MLP, GQA and MLA
 Megatron-style (column-split in, row-split out, one model-axis sum each),
-the logits split over the vocabulary with a vocab-parallel cross-entropy.
-The norms stay whole on every column, and ``core/shmap``'s autograd
-crossings make their gradients the same on all columns. The other
-families over a 'model' axis raise ``NotImplementedError``.
+the MoE layers expert-parallel (``moe.moe_fwd``), the logits split over
+the vocabulary with a vocab-parallel cross-entropy (MTP's masked one
+too). The norms, the router and MTP's ``proj`` stay whole on every
+column, and ``core/shmap``'s autograd crossings make their gradients the
+same on all columns. A stacked leaf the rules split along its layer axis
+(the shared expert and the dense residual where the MoE layers divide by
+M) is gathered whole at use. The other families over a 'model' axis
+raise ``NotImplementedError``.
 
 Public API:
 
@@ -102,9 +106,9 @@ def _family(cfg: ModelConfig) -> str:
 def _check_ported(cfg: ModelConfig, mesh=None):
     """Refuse attention kinds other than GQA and MLA outside xLSTM (which
     has none): the reference builds no other. Returns the mesh's
-    ``ModelAxis`` (None with one model column), which only the dense GQA
-    decoders take: the other families over a 'model' axis are ROADMAP.md
-    A7's second half."""
+    ``ModelAxis`` (None with one model column), which only the dense and
+    MoE decoders take: the other families over a 'model' axis are
+    ROADMAP.md A7's second half."""
     if _family(cfg) != "xlstm" and cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} outside xLSTM is not "
@@ -114,16 +118,16 @@ def _check_ported(cfg: ModelConfig, mesh=None):
     if tp is not None and not _tp_ported(cfg):
         raise NotImplementedError(
             f"{cfg.name}: tensor parallelism over a 'model' axis runs the "
-            "dense GQA decoders; MoE expert parallelism and TP for MLA, "
-            "SSM, whisper and the vision decoder are ROADMAP.md A7's "
+            "dense and MoE decoders (GQA, MLA, MTP); TP for the SSM "
+            "blocks, whisper and the vision decoder is ROADMAP.md A7's "
             "second half")
     return tp
 
 
 def _tp_ported(cfg: ModelConfig) -> bool:
-    """The dense GQA decoders: what runs over a 'model' axis."""
-    return (_family(cfg) == "decoder" and cfg.moe is None
-            and cfg.attention == "gqa" and not cfg.mtp_depth)
+    """The dense and MoE decoders (GQA or MLA, MTP): what runs over a
+    'model' axis."""
+    return _family(cfg) == "decoder"
 
 
 def _split_over(tp, width: int):
@@ -157,12 +161,12 @@ def block_fwd(p, x, cfg: ModelConfig, positions, *, use_moe: bool = False,
               rope: bool = True, tp=None):
     """-> (x, cache, aux): the block's output, its cache (written in place)
     and its MoE auxiliary loss (an f32 zero without MoE). ``tp``: the
-    model axis its attention and MLP are split over (the norms stay
-    whole)."""
+    model axis its attention, MLP and experts are split over (the norms
+    stay whole)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         h, new_cache = mla_fwd(p["attn"], h, cfg, positions, cache=cache,
-                               cache_pos=cache_pos)
+                               cache_pos=cache_pos, tp=tp)
     else:
         h, new_cache = gqa_fwd(p["attn"], h, cfg, positions, cache=cache,
                                cache_pos=cache_pos, causal=causal, rope=rope,
@@ -170,10 +174,11 @@ def block_fwd(p, x, cfg: ModelConfig, positions, *, use_moe: bool = False,
     x = x + h
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if use_moe:
-        h, aux = moe_fwd(p["moe"], h, cfg)
+        h, aux = moe_fwd(p["moe"], h, cfg, tp=tp)
     else:
-        # under tp only the dense decoders run: their d_ff is cfg.d_ff
-        h = mlp_fwd(p["mlp"], h, cfg.mlp, tp=_split_over(tp, cfg.d_ff))
+        # under tp only the decoders run: their dense blocks' own width
+        h = mlp_fwd(p["mlp"], h, cfg.mlp,
+                    tp=_split_over(tp, _dense_ff(cfg)))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, new_cache, aux
 
@@ -206,6 +211,8 @@ def _scan_blocks(stack, x, cfg, positions, *, use_moe=False, caches=None,
     # whole-stack gradient to scatter into and add up (at qwen1.5-4b's
     # width with 8 layers, on an H100: 112 fills, and the adds, among the
     # 35 ms of a 184 ms fedavg step spent in fills and adds)
+    if tp is not None:
+        stack = _gather_layers(stack, n, tp)
     layers = tree_map(lambda t: t.unbind(0), stack)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(n):
@@ -223,6 +230,16 @@ def _scan_blocks(stack, x, cfg, positions, *, use_moe=False, caches=None,
     return x, aux, caches
 
 
+def _gather_layers(stack, n: int, tp):
+    """The stack with each leaf the rules split along its layer axis (a
+    leading dimension of n / M, not n: the shared expert and the dense
+    residual, whose stacked 3-d leaves take the expert rule) gathered
+    whole. Every column computes the same with it, so each gets its own
+    layers' whole gradient back."""
+    return tree_map(lambda t: t if t.shape[0] == n else tp.gather(t, dim=0),
+                    stack)
+
+
 def _block_out(layer, x, cfg, positions, use_moe, causal, rope, tp=None):
     x, _, aux = block_fwd(layer, x, cfg, positions, use_moe=use_moe,
                           causal=causal, rope=rope, tp=tp)
@@ -238,6 +255,14 @@ def _stacked_cache(cfg, n, batch, length, device, dtype,
                           lead=(n,), model_parallel=model_parallel)
 
 
+def _dense_ff(cfg: ModelConfig) -> int:
+    """The d_ff of a decoder's dense blocks (its dense layers and MTP's
+    block): the MoE config's ``d_ff_dense`` where it sets one (deepseek-v3's
+    18,432 beside its experts' 2,048), else ``cfg.d_ff``."""
+    moe_cfg = cfg.moe
+    return (moe_cfg.d_ff_dense or cfg.d_ff) if moe_cfg else cfg.d_ff
+
+
 def _n_dense(cfg: ModelConfig) -> int:
     """The dense layers ahead of the MoE ones (all layers without MoE)."""
     return cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
@@ -249,7 +274,6 @@ def _n_dense(cfg: ModelConfig) -> int:
 
 def _init_decoder(gen, cfg: ModelConfig):
     pd = _pdtype(cfg)
-    moe_cfg = cfg.moe
     n_dense = _n_dense(cfg)
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, pd),
@@ -258,7 +282,7 @@ def _init_decoder(gen, cfg: ModelConfig):
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        dtype=pd)
-    d_ff_dense = (moe_cfg.d_ff_dense or cfg.d_ff) if moe_cfg else cfg.d_ff
+    d_ff_dense = _dense_ff(cfg)
     if n_dense:
         params["dense_layers"] = init_block(gen, cfg, d_ff=d_ff_dense,
                                             lead=(n_dense,))
@@ -313,21 +337,26 @@ def vocab_split(cfg: ModelConfig, tp) -> bool:
             and _split_over(tp, cfg.vocab_size) is not None)
 
 
-def _mtp_loss(params, h, batch, cfg, positions, weight: float = 0.1):
+def _mtp_loss(params, h, batch, cfg, positions, weight: float = 0.1,
+              tp=None):
     """DeepSeek-V3 multi-token prediction: predict token t+2 from
-    (h_t, emb(token_{t+1})) through one extra block."""
+    (h_t, emb(token_{t+1})) through one extra block. Under ``tp``: the
+    d-split embedding gathered, ``proj`` whole, the block split as a
+    dense block, and the vocab-parallel cross-entropy under the mask."""
     p = params["mtp"]
     tokens, labels = batch["tokens"], batch["labels"]
     nxt = torch.roll(tokens, -1, dims=1)
-    e = embed(params["embed"], nxt, h.dtype)
+    e = embed(params["embed"], nxt, h.dtype, _split_over(tp, cfg.d_model))
     z = torch.cat([rmsnorm(p["ln_h"], h, cfg.norm_eps),
                    rmsnorm(p["ln_e"], e, cfg.norm_eps)], dim=-1)
     z = z @ p["proj"].to(h.dtype)
-    z, _, _ = block_fwd(p["block"], z, cfg, positions)
-    logits = _logits(params, z, cfg)
+    z, _, _ = block_fwd(p["block"], z, cfg, positions, tp=tp)
+    logits = _logits(params, z, cfg, tp)
     tgt = torch.roll(labels, -1, dims=1)
     S = tokens.shape[1]
     mask = (torch.arange(S, device=h.device) < S - 2)[None, :]
+    if vocab_split(cfg, tp):
+        return weight * _ce_vocab_parallel(logits, tgt, tp, mask)
     return weight * _ce(logits, tgt, mask)
 
 
@@ -733,7 +762,7 @@ def forward(params, batch, cfg: ModelConfig, mesh=None):
     which add the MTP loss to the aux loss where the config has MTP;
     whisper's frames (B, n_frames, d_model), the vision decoder's patches
     (B, n_patches, d_vision)]. On a ``mesh`` with a 'model' axis of M > 1
-    columns (the dense GQA decoders only), ``params`` are this rank's
+    columns (the dense and MoE decoders only), ``params`` are this rank's
     shards (``launch/sharding.shard_params``, ``params_from_numpy(...,
     mesh=)``) and the logits this column's V / M of the vocabulary
     (``vocab_split``)."""
@@ -749,7 +778,7 @@ def forward(params, batch, cfg: ModelConfig, mesh=None):
         *_memory_arg(family, memory_of(params, batch, cfg)),
         **_trunk_kw(family, tp))
     if family == "decoder" and cfg.mtp_depth and "labels" in batch:
-        aux = aux + _mtp_loss(params, x, batch, cfg, positions)
+        aux = aux + _mtp_loss(params, x, batch, cfg, positions, tp=tp)
     return _logits(params, x, cfg, tp), aux
 
 
@@ -770,11 +799,11 @@ def _vocab_part(logits, labels, tp) -> tuple:
     return local.clamp(0, width - 1), inside
 
 
-def _ce_vocab_parallel(logits, labels, tp):
+def _ce_vocab_parallel(logits, labels, tp, mask=None):
     """``_ce`` over vocab-split logits without gathering them: the max,
     the sum of exponentials and the label's logit, each a model-axis
     collective over (B, S) numbers; the gradient stays on each column's
-    own logits."""
+    own logits. ``mask``: the masked mean, as ``_ce``'s."""
     lf = logits.float()
     m = tp.max(lf.detach().amax(dim=-1))
     sum_exp = tp.reduce_out(torch.exp(lf - m[..., None]).sum(dim=-1))
@@ -782,7 +811,10 @@ def _ce_vocab_parallel(logits, labels, tp):
     picked = torch.gather(lf, -1, local[..., None])[..., 0]
     label_logit = tp.reduce_out(torch.where(inside, picked,
                                             torch.zeros_like(picked)))
-    return torch.mean(torch.log(sum_exp) + m - label_logit)
+    nll = torch.log(sum_exp) + m - label_logit
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
+    return torch.mean(nll)
 
 
 def argmax_logits(logits, cfg: ModelConfig, mesh=None):
@@ -832,9 +864,9 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     vision decoder: each self-attention layer's, stacked (n_groups,
     cross_attn_every - 1). Cross-attention keeps no cache: each step
     projects the memory again, as in the reference. On a ``mesh`` with a
-    'model' axis each rank's cache holds its local kv heads where the
+    'model' axis each rank's GQA cache holds its local kv heads where the
     heads split whole over the columns (``attention.tp_split``), else
-    every head."""
+    every head; MLA's latent cache is whole on every column."""
     _check_ported(cfg, mesh)
     dev = resolve_device(device)
     family = _family(cfg)

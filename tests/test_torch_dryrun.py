@@ -6,8 +6,11 @@ trees, the port on meta tensors; cached per config, which changes no
 number); one dense combo traced as rank 0 of the (16, 16) production mesh
 on PyTorch's fake process-group backend, whose record has the reference's
 keys, a ``useful_flops_ratio`` in (0.01, 1] and the model axis's
-collectives; the records of combos outside the tensor-parallel slice; and
-``run_online`` on two gloo ranks of a ('pod', 'data') mesh."""
+collectives; the MoE decoders at full width with their depth cut
+(deepseek-v3-671b's prefill under its default engine, arctic-480b's
+exact_tp training step), traced the same way; the records of combos
+outside the tensor-parallel slice; and ``run_online`` on two gloo ranks
+of a ('pod', 'data') mesh."""
 import dataclasses
 import functools
 import importlib
@@ -110,6 +113,55 @@ def test_a_dense_combo_traces_on_the_fake_production_mesh(dense_record):
     assert rl["dominant"] in ("compute_s", "memory_s", "collective_s")
     saved = json.loads((out / "qwen1.5-4b__decode_32k__pod.json").read_text())
     assert saved["useful_flops_ratio"] == rec["useful_flops_ratio"]
+
+
+# the MoE decoders' depth cut for their traced records: deepseek-v3's 3
+# dense layers and one MoE layer, arctic's first two (MoE) layers
+MOE_DEPTH = {"deepseek-v3-671b": 4, "arctic-480b": 2}
+
+
+@pytest.mark.parametrize("arch, shape, engine", (
+    ("deepseek-v3-671b", "prefill_32k", None),
+    ("arctic-480b", "train_4k", "exact_tp")))
+def test_moe_decoders_trace_at_full_width(monkeypatch, tmp_path, arch,
+                                          shape, engine):
+    """Full width, depth cut to ``MOE_DEPTH``, as rank 0 of (16, 16): the
+    prefill under the default engine (recompute: prefill places its
+    weights by the tp rules under every engine) and exact_tp's training
+    step. Each layer's experts, attention and MLP sum over the model
+    axis; the record has the reference's keys and a useful-FLOPs ratio in
+    (0.01, 1]."""
+    def cut(name):
+        cfg = get_config(name)
+        return dataclasses.replace(cfg, n_layers=MOE_DEPTH.get(
+            name, cfg.n_layers))
+    monkeypatch.setattr(dryrun, "get_config", cut)
+    rec = dryrun.run_one(arch, shape, engine=engine, out_dir=tmp_path,
+                         verbose=False)
+    assert "skipped" not in rec
+    assert rec["engine"] == (engine or "recompute")
+    assert rec["mesh"] == {"data": 16, "model": 16}
+    assert 0.01 < rec["useful_flops_ratio"] <= 1.0
+    per = rec["per_device"]
+    assert per["flops"] > 0 and per["traffic_bytes"] > 0
+    assert per["memory"]["peak_bytes"] >= per["memory"]["argument_bytes"] > 0
+    # every layer's attention and experts (the MoE layers) or MLP sum over
+    # the model axis, forward only in prefill and twice with training
+    n = MOE_DEPTH[arch]
+    assert per["collective_counts"]["all-reduce"] >= 2 * n
+    assert rec["total_params"] == dryrun.total_params(cut(arch))
+
+
+@pytest.mark.parametrize("arch", ("arctic-480b", "deepseek-v3-671b"))
+@pytest.mark.parametrize("shape", ("train_4k", "decode_32k"))
+def test_moe_default_engine_waits_on_fsdp(tmp_path, arch, shape):
+    """The >100B MoE archs train and decode under recompute by default,
+    which places their weights by the FSDP rules: a record naming A7's
+    FSDP item, no trace."""
+    rec = dryrun.run_one(arch, shape, out_dir=tmp_path, verbose=False)
+    assert rec["engine"] == "recompute"
+    assert "A7" in rec["skipped"] and "FSDP" in rec["skipped"]
+    assert "roofline" not in rec
 
 
 def test_combos_outside_the_slice_write_what_they_need(tmp_path):

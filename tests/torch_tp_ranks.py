@@ -29,17 +29,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(groups, payload: dict, out: Path, meanwhile=None):
+def spawn(groups, payload: dict, out: Path, meanwhile=None, job=None):
     """Run ``payload``'s cases on each of ``groups`` in turn (and its FL
     harness runs on the groups whose fourth entry is true); returns
     ``{group name: [each rank's results, in rank order]}`` and what
-    ``meanwhile()`` returns, called here while the ranks run."""
+    ``meanwhile()`` returns, called here while the ranks run. ``job(payload,
+    M)`` (a module-level function) is what each rank runs, ``run_cases``
+    by default."""
     out = Path(out)
     nprocs = max(g[1] for g in groups)
     ports = [free_port() for _ in groups]
     ctx = mp.start_processes(
-        _process, args=(groups, ports, payload, str(out)), nprocs=nprocs,
-        join=False, start_method="spawn")
+        _process, args=(groups, ports, payload, str(out), job or run_cases),
+        nprocs=nprocs, join=False, start_method="spawn")
     done = meanwhile() if meanwhile is not None else None
     while not ctx.join():
         pass
@@ -52,7 +54,8 @@ def spawn(groups, payload: dict, out: Path, meanwhile=None):
     return results, done
 
 
-def _process(proc: int, groups, ports, payload: dict, out: str) -> None:
+def _process(proc: int, groups, ports, payload: dict, out: str,
+             job) -> None:
     torch.set_num_threads(1)
     for (name, n, M, harness), port in zip(groups, ports):
         if proc >= n:
@@ -60,8 +63,7 @@ def _process(proc: int, groups, ports, payload: dict, out: str) -> None:
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 world_size=n, rank=proc)
         try:
-            res = run_cases(payload if harness else dict(payload, harness=()),
-                            M)
+            res = job(payload if harness else dict(payload, harness=()), M)
         finally:
             dist.destroy_process_group()
         with open(Path(out) / f"{name}.rank{proc}.pkl", "wb") as f:
@@ -170,17 +172,17 @@ def _refusals(mesh) -> dict:
     from repro_torch.models import transformer as T
     cfg = get_config("qwen1.5-4b").reduced()
     fl = FLConfig(num_clients=mesh.shape["data"], **FL)
-    moe = get_config("arctic-480b").reduced()
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    ssm = get_config("zamba2-2.7b").reduced()
+    tokens = torch.zeros((1, 32), dtype=torch.int32)
     out = {}
     for what, call in (
             ("recompute", lambda: pod.make_recompute_train_step(
                 cfg, fl, mesh, mesh.shape["data"])),
             ("stale", lambda: pod.make_stale_score_train_step(
                 cfg, fl, mesh, mesh.shape["data"])),
-            ("moe forward", lambda: T.forward(
-                T.init_model(torch.Generator().manual_seed(0), moe),
-                {"tokens": tokens}, moe, mesh))):
+            ("ssm forward", lambda: T.forward(
+                T.init_model(torch.Generator().manual_seed(0), ssm),
+                {"tokens": tokens}, ssm, mesh))):
         try:
             call()
             out[what] = "ran"
