@@ -227,7 +227,11 @@ Phases, each fatal on failure:
      against (2, 1), experts split over the columns (the expert-parallel
      backward and MLA's flash backward on the card), under the same
      tolerances; per step the model axis's and the expert-parallel sums'
-     seconds and calls;
+     seconds and calls; and phase 11's: reduced zamba2-2.7b (2 groups of
+     one Mamba2 layer and the shared block) and whisper-medium (2
+     encoder and 2 decoder blocks over 16 frames), the same way (the
+     Mamba2, cross-attention and local-head flash backwards on the
+     card);
   10. the MoE decoders over 'model' (ROADMAP A7, second half, items 1 and
      2a): two gloo ranks sharing the card as a (1, 2) mesh, started beside
      the small-width runs of 4 and 6d, 5c's loop engine and 6f's loop
@@ -245,6 +249,26 @@ Phases, each fatal on failure:
      timed beside the ranks'. Then the flash forward at the ranks' local
      heads and the training leg's shapes, and the backward at the latter,
      against their plain versions, timed beside bound and SDPA.
+  11. the recurrent and cross-attention families over 'model' (ROADMAP
+     A7's rest, item 1): two gloo ranks sharing the card as a (1, 2)
+     mesh, started after phase 10's join beside 6d's requests to 6g, one
+     model at a time at full width with f32 weights drawn leaf by leaf:
+     zamba2-2.7b (depth 54 -> 12: 2 groups of 6 Mamba2 layers on each
+     rank's 40 of 80 heads, the shared block twice on 16 of 32 attention
+     heads), llama-3.2-vision-11b (depth 40 -> 5: 4 self layers and the
+     gated cross layer, gates at 0.5, ``vision_proj`` by column),
+     whisper-medium and xlstm-350m whole (sLSTM on every head); a bf16
+     prefill (1 x 2048, the vision decoder over 1,601 patches; whisper 1
+     x 448 over 1,500 frames; xLSTM 1 x 512, the chunked mLSTM form) timed
+     on its second call (flash once a causal self-attention on each
+     rank), a 16-token prompt and 8 greedy decode steps, timed; then,
+     after the ranks end, one process on the same weights: in f32
+     compute the ranks' prefill logits at 16 positions and every decode
+     step's within LOGIT_TOL, greedy tokens equal, each rank's recurrent
+     caches within LOGIT_TOL of its column's part of one process's. Then
+     the flash forward at the ranks' local heads and the training leg's,
+     and the backward at the latter, against their plain versions, timed
+     beside bound and SDPA.
 Convolutions run in full f32 and deterministic inside every harness run
 (cuDNN's TF32 and benchmarking are held off and restored after). The line
 before the last is one JSON object with every kernel's numbers
@@ -655,6 +679,11 @@ TP_LOGIT_POSITIONS = 16            # prefill positions compared, evenly
 TP_MOE_TRAIN = (("deepseek-v3-671b", 3), ("arctic-480b", 2))
 TP_MOE_RUN = dict(batch=8, seq=64, lr=0.1, seed=3)
 TP_MOE_STEPS = 2
+# and phase 11's training leg, the same way: reduced zamba2-2.7b (2 groups
+# of one Mamba2 layer and the shared block; the Mamba2 backward on each
+# column's heads) and reduced whisper-medium (2 encoder and 2 decoder
+# blocks, over 16 frames; cross-attention's backward on local heads)
+TP_FAMILY_TRAIN = (("zamba2-2.7b", 2), ("whisper-medium", 2))
 
 # phase 10, the MoE decoders over 'model' (expert parallelism, MLA and
 # MTP tensor-parallel): deepseek-v3-671b at full width, depth 61 -> 4 (its
@@ -677,6 +706,33 @@ EP_LAYERS = 4
 EP_SERVE = dict(batch=1, seq=2048, seed=2)
 EP_DECODE = dict(prompt_len=16, decode_steps=8)
 EP_NEAR_TIE = 1e-4
+# phase 11, the recurrent and cross-attention families over 'model' (Mamba2
+# and mLSTM on each column's heads, sLSTM on every head, cross-attention
+# and vision_proj tensor-parallel): two gloo ranks sharing the card as a
+# (1, 2) mesh, started after phase 10's join beside 6d's requests to 6g;
+# one model at a time, at full width with the configs' f32 weights drawn
+# leaf by leaf from FAMILY_SEED (the vision decoder's tanh gates at
+# CROSS_GATE): zamba2-2.7b depth 54 -> 12 (2 groups of 6 Mamba2 layers,
+# the shared block twice), llama-3.2-vision-11b depth 40 -> 5 (one group: 4
+# self layers and the gated cross layer), whisper-medium and xlstm-350m
+# whole. A bf16 prefill of FAMILY_PREFILL tokens (the vision decoder over
+# its 1,601 patches, whisper over 1,500 frames, xLSTM's chunked mLSTM
+# form) timed on its second call, and 8 greedy decode steps after a
+# 16-token prompt, timed. Then, after the ranks end, one process on the
+# same weights in f32 compute: the ranks' f32 prefill logits at
+# TP_LOGIT_POSITIONS positions and every decode step's within LOGIT_TOL of
+# the largest logit, greedy tokens equal, and each rank's recurrent caches
+# after decode (Mamba2's h and conv window, mLSTM's C/n/m, sLSTM's
+# c/n/m/h) within LOGIT_TOL of its column's part of one process's caches
+# (relative to their largest magnitude). Then the flash kernels at the
+# ranks' local heads and at the training leg's, against their plain
+# versions, timed beside bound and SDPA
+FAMILY_SERVE = (("zamba2-2.7b", 12), ("llama-3.2-vision-11b", 5),
+                ("whisper-medium", None), ("xlstm-350m", None))
+FAMILY_PREFILL = {"zamba2-2.7b": 2048, "llama-3.2-vision-11b": 2048,
+                  "whisper-medium": 448, "xlstm-350m": 512}
+FAMILY_DECODE = dict(prompt_len=16, decode_steps=8)
+FAMILY_SEED = 4
 # while a group of ranks runs beside other phases, the card's used memory
 # (every process's) is read this often, in ms, and its peak reported
 CARD_POLL_MS = 200
@@ -3792,18 +3848,57 @@ def _tp_train_rank(device) -> dict:
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     dist.barrier()
-    out["moe"] = {arch: _tp_moe_leg(mesh, device, arch, layers)
+    out["moe"] = {arch: _tp_leg(mesh, device, arch, layers)
                   for arch, layers in TP_MOE_TRAIN}
+    out["families"] = {arch: _tp_leg(mesh, device, arch, layers)
+                       for arch, layers in TP_FAMILY_TRAIN}
     return out
 
 
-def _tp_moe_leg(mesh, device, arch: str, layers: int) -> dict:
-    """Phase 10's training leg on this rank of phase 9's (2, 2) group:
-    ``arch`` reduced, ``layers`` deep, in f32, ``TP_MOE_STEPS`` exact_tp
-    steps on the (2, 1) mesh of column 0's ranks from ``init_model``'s
-    weights, then on (2, 2) from ``sharding.init_shards``' (drawn leaf by
-    leaf from the same seed); column 0 holds the gathered (2, 2) weights
-    to the (2, 1) run's."""
+def _leg_gates(legs: list, cols: list, arch: str, layers: int) -> dict:
+    """The gates of a training leg (``_tp_leg``) from its four ranks' rows
+    and their columns."""
+    from repro_torch.configs import get_config
+    # flash forward and backward once a causal self-attention a step
+    n = _flash_layers(dataclasses.replace(get_config(arch).reduced(),
+                                          n_layers=layers))
+    col0 = [leg for leg, c in zip(legs, cols) if c == 0]
+    return {
+        f"{arch} (2, 2) losses within TP_LOSS_TOL of (2, 1)": all(
+            leg["loss_rel_err"] <= TP_LOSS_TOL for leg in col0),
+        f"{arch} (2, 2) parameters within TP_PARAM_TOL of (2, 1)": all(
+            leg["params_err_over_moved"] <= TP_PARAM_TOL for leg in col0),
+        f"{arch} whole leaves the same bits on both columns": all(
+            leg["whole_leaves_same_bits"] for leg in legs),
+        f"{arch} every rank's losses the same": all(
+            [s["loss"] for s in leg["steps"]]
+            == [s["loss"] for s in legs[0]["steps"]] for leg in legs),
+        f"{arch} flash forward and backward once a layer a step": all(
+            s["launches"] == {"flash_attention": n, "flash_attention_bwd": n}
+            for leg in legs for s in leg["steps"])}
+
+
+def _flash_layers(cfg) -> int:
+    """Flash forward launches a forward of ``cfg`` makes: once a causal
+    self-attention (MTP's block one more; zamba2's shared block once a
+    group; none in whisper's encoder, a cross-attention or xLSTM)."""
+    if cfg.hybrid is not None:
+        return cfg.n_layers // cfg.hybrid.shared_attn_every
+    if cfg.vision is not None:
+        every = cfg.vision.cross_attn_every
+        return cfg.n_layers // every * (every - 1)
+    if cfg.ssm is not None:
+        return 0
+    return cfg.n_layers + cfg.mtp_depth
+
+
+def _tp_leg(mesh, device, arch: str, layers: int) -> dict:
+    """The training legs of phases 10 and 11 on this rank of phase 9's
+    (2, 2) group: ``arch`` reduced, ``layers`` deep, in f32,
+    ``TP_MOE_STEPS`` exact_tp steps on the (2, 1) mesh of column 0's ranks
+    from ``init_model``'s weights, then on (2, 2) from
+    ``sharding.init_shards``' (drawn leaf by leaf from the same seed);
+    column 0 holds the gathered (2, 2) weights to the (2, 1) run's."""
     import numpy as np
     import torch.distributed as dist
 
@@ -3826,7 +3921,8 @@ def _tp_moe_leg(mesh, device, arch: str, layers: int) -> dict:
         return torch.Generator(device=device).manual_seed(run["seed"])
     batch = make_train_batch(torch.Generator(device=device).manual_seed(
         run["seed"] + 1), cfg, run["batch"], run["seq"])
-    batch = {k: client_sharding(mesh, 2).block(v) for k, v in batch.items()}
+    batch = {k: client_sharding(mesh, v.dim()).block(v)
+             for k, v in batch.items()}
     out = {"config": f"{arch} reduced, n_layers={layers}, f32, "
                      f"{TP_MOE_STEPS} exact_tp steps, global batch "
                      f"{run['batch']} x {run['seq']}"}
@@ -4183,11 +4279,165 @@ def _ep_serve_rank(device, out_dir: str, proc: int) -> dict:
     return out
 
 
-# phase 9's two groups and phase 10's: (job, ranks), each started beside
-# host-bound phases
+def _family_inputs(arch: str, layers, device) -> tuple:
+    """Phase 11's config of ``arch`` (depth cut to ``layers`` where given)
+    and its f32-compute twin, the weights' generator, the (1, S) prompt,
+    its memory inputs (0.02 N(0, 1) frames or patches) and the prefill
+    positions the gates compare."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device=device).manual_seed(FAMILY_SEED)
+    draw = torch.Generator(device=device).manual_seed(FAMILY_SEED + 1)
+    S = FAMILY_PREFILL[arch]
+    prompt = torch.randint(0, cfg.vocab_size, (1, S), generator=draw,
+                           device=device, dtype=torch.int32)
+    mem = {}
+    if cfg.encoder is not None:
+        mem["frames"] = 0.02 * torch.randn(
+            (1, cfg.encoder.n_frames, cfg.d_model), generator=draw,
+            device=device)
+    if cfg.vision is not None:
+        mem["patches"] = 0.02 * torch.randn(
+            (1, cfg.vision.n_patches, cfg.vision.d_vision), generator=draw,
+            device=device)
+    at = torch.linspace(0, S - 1, TP_LOGIT_POSITIONS, device=device).long()
+    return cfg, f32, gen, prompt, mem, at
+
+
+def _whole_logits(logits, cfg, mesh):
+    """The whole vocabulary's logits (f32): a vocab-split column's part
+    gathered over the model axis."""
+    from repro_torch.core.shmap import model_axis
+    from repro_torch.models import transformer as T
+    tp = model_axis(mesh)
+    logits = logits.float().contiguous()
+    return tp.cat(logits) if T.vocab_split(cfg, tp) else logits
+
+
+def _family_sampled(c, params, batch, at, mesh=None):
+    from repro_torch.models import transformer as T
+    logits, _ = T.forward(params, batch, c, mesh)
+    return _whole_logits(logits[:, at], c, mesh)
+
+
+def _family_decode(c, params, prompt, mem, device, mesh=None, fed=None):
+    """Greedy decode after the prompt's first tokens over the memory: the
+    whole (1, V) logits of each step from the prompt's last on, the
+    tokens fed (``fed`` where given), the seconds of the greedy steps and
+    the cache they leave (this column's part over a mesh)."""
+    from repro_torch.models import transformer as T
+    n, steps = FAMILY_DECODE["prompt_len"], FAMILY_DECODE["decode_steps"]
+    memory = T.memory_of(params, mem, c, mesh)
+    cache = T.init_cache(c, prompt.shape[0], n + steps, device=device,
+                         dtype=(torch.float32 if c.dtype == "float32"
+                                else torch.bfloat16), mesh=mesh)
+    tok, feed, rows, seconds = None, [], [], 0.0
+    for pos in range(n + steps):
+        if fed is not None:
+            tok = fed[:, pos:pos + 1]
+        elif pos < n:
+            tok = prompt[:, pos:pos + 1]
+        feed.append(tok)
+        _sync(device)
+        t0 = time.perf_counter()
+        lg, cache = T.decode_step(params, cache, tok, pos, c, memory=memory,
+                                  mesh=mesh)
+        full = _whole_logits(lg[:, -1], c, mesh)
+        tok = torch.argmax(full, dim=-1, keepdim=True).to(torch.int32)
+        _sync(device)
+        if pos >= n:
+            seconds += time.perf_counter() - t0
+        if pos >= n - 1:
+            rows.append(full)
+    return torch.stack(rows), torch.cat(feed, dim=1), seconds, cache
+
+
+RECURRENT_CACHES = ("mamba", "mlstm", "slstm")
+
+
+def _family_rank(device, out_dir: str, proc: int) -> dict:
+    """One rank of phase 11 (``FAMILY_SERVE``), one model at a time: its
+    shards drawn leaf by leaf, the timed bf16 prefill and decode, then the
+    f32-compute runs whose logits (rank 0), fed tokens and recurrent
+    caches each rank writes for one process to be held to after the ranks
+    end."""
+    import torch.distributed as dist
+
+    from repro_torch.core.flatten import tree_map
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import init_shards
+    mesh = make_host_mesh(model_parallel=2, device=device)
+    out = {"rank": mesh.rank, "col": mesh.col, "models": {}}
+    saved = {}
+    for arch, layers in FAMILY_SERVE:
+        cfg, f32, gen, prompt, mem, at = _family_inputs(arch, layers, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        base = (torch.cuda.memory_allocated()
+                if torch.device(device).type == "cuda" else 0)
+        local = init_shards(gen, cfg, mesh)
+        _set_gates(local)
+        _sync(device)
+        row = {"init_s": time.perf_counter() - t0}
+        if torch.device(device).type == "cuda":
+            row["weights_bytes"] = torch.cuda.memory_allocated() - base
+        batch = {"tokens": prompt, **mem}
+        with torch.inference_mode():
+            prefill = make_prefill_step(cfg, mesh)
+            prefill(local, batch)                          # warm-up
+            _tp_zero_counts()
+            _sync(device)
+            t0 = time.perf_counter()
+            token = prefill(local, batch)
+            _sync(device)
+            row["prefill_s"] = time.perf_counter() - t0
+            row["prefill_launches"] = _tp_counts()
+            row["prefill_tokens_per_s"] = prompt.numel() / row["prefill_s"]
+            row["prefill_token"] = int(token[0])
+            with _ModelAxisClock(device) as clock:
+                bf16 = _family_sampled(cfg, local, batch, at, mesh)
+            # an untimed prefill-sized forward: its model-axis collectives
+            row["prefill_model_axis"] = {"s": clock.s, "calls": clock.calls}
+            row["prefill_token_ok"] = row["prefill_token"] == int(
+                torch.argmax(bf16[0, -1]))
+            _, toks, seconds, _ = _family_decode(cfg, local, prompt, mem,
+                                                 device, mesh)
+            steps = FAMILY_DECODE["decode_steps"]
+            row["decode_ms_per_step"] = seconds / steps * 1e3
+            row["tokens"] = toks[0, FAMILY_DECODE["prompt_len"]:].tolist()
+            # the gates' side: f32 compute on the same weights
+            logits = _family_sampled(f32, local, batch, at, mesh)
+            rows, fed, _, cache = _family_decode(f32, local, prompt, mem,
+                                                 device, mesh)
+        if torch.device(device).type == "cuda":
+            row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        saved[arch] = {"prompt": prompt.cpu(), "decode_rows": rows.cpu(),
+                       "decode_fed": fed.cpu(),
+                       "cache": {k: tree_map(lambda t: t.cpu(), cache[k])
+                                 for k in RECURRENT_CACHES if k in cache}}
+        if proc == 0:
+            saved[arch].update(bf16=bf16.cpu(), f32=logits.cpu())
+        out["models"][arch] = row
+        del local, cache, prefill
+        _sync(device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.save(saved, Path(out_dir) / f"rank{proc}.pt")
+    return out
+
+
+# phase 9's two groups and phases 10's and 11's: (job, ranks), each started
+# beside host-bound phases
 TP_GROUPS = {"train": (_tp_train_rank, TP_RANKS),
              "serve": (_tp_serve_rank, 2),
-             "ep": (_ep_serve_rank, 2)}
+             "ep": (_ep_serve_rank, 2),
+             "family": (_family_rank, 2)}
 
 
 def _tp_process(proc: int, kind: str, port: int, out: str,
@@ -4203,7 +4453,8 @@ def _tp_process(proc: int, kind: str, port: int, out: str,
     dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                             world_size=ranks, rank=proc)
     try:
-        row = (job(device, out, proc) if kind == "ep" else job(device))
+        row = (job(device, out, proc) if kind in ("ep", "family")
+               else job(device))
     finally:
         dist.destroy_process_group()
     with open(Path(out) / f"rank{proc}.json", "w") as f:
@@ -4294,16 +4545,17 @@ def join_tp_ranks(started) -> dict:
         while not ctx.join():
             pass
         seconds = time.perf_counter() - t0
+        ranks = range(TP_GROUPS[kind][1])
         rows = [json.loads((out / f"rank{r}.json").read_text())
-                for r in range(TP_GROUPS[kind][1])]
-        saved = out / "rank0.pt"
-        tensors = torch.load(saved) if saved.exists() else None
+                for r in ranks]
+        saved = [torch.load(out / f"rank{r}.pt") if (
+            out / f"rank{r}.pt").exists() else None for r in ranks]
     finally:
         card = poll.stop()
         shutil.rmtree(out, ignore_errors=True)
     say(f"{kind} ranks: card memory while they ran " + json.dumps(card))
-    return {"rows": rows, "seconds": seconds, "tensors": tensors,
-            "card_memory": card}
+    return {"rows": rows, "seconds": seconds, "tensors": saved[0],
+            "rank_tensors": saved, "card_memory": card}
 
 
 def tp_phase(train_group: dict, serve_group: dict) -> dict:
@@ -4343,27 +4595,10 @@ def tp_phase(train_group: dict, serve_group: dict) -> dict:
         "prefill flash once a layer on each rank": all(
             r["prefill_launches"]["flash_attention"]
             == get_config(TP_ARCH).n_layers for r in serve)}
-    for arch, layers in TP_MOE_TRAIN:
-        legs = [r["moe"][arch] for r in train]
-        # flash forward and backward once an attention layer a step (MTP's
-        # block is one more)
-        n = layers + get_config(arch).reduced().mtp_depth
-        gates.update({
-            f"{arch} (2, 2) losses within TP_LOSS_TOL of (2, 1)": all(
-                leg["loss_rel_err"] <= TP_LOSS_TOL
-                for leg, r in zip(legs, train) if r["col"] == 0),
-            f"{arch} (2, 2) parameters within TP_PARAM_TOL of (2, 1)": all(
-                leg["params_err_over_moved"] <= TP_PARAM_TOL
-                for leg, r in zip(legs, train) if r["col"] == 0),
-            f"{arch} whole leaves the same bits on both columns": all(
-                leg["whole_leaves_same_bits"] for leg in legs),
-            f"{arch} every rank's losses the same": all(
-                [s["loss"] for s in leg["steps"]]
-                == [s["loss"] for s in legs[0]["steps"]] for leg in legs),
-            f"{arch} flash forward and backward once a layer a step": all(
-                s["launches"] == {"flash_attention": n,
-                                  "flash_attention_bwd": n}
-                for leg in legs for s in leg["steps"])})
+    for key, arch, layers in ([("moe", *a) for a in TP_MOE_TRAIN]
+                              + [("families", *a) for a in TP_FAMILY_TRAIN]):
+        gates.update(_leg_gates([r[key][arch] for r in train],
+                                [r["col"] for r in train], arch, layers))
     B = TP_TRAIN_RUN["batch"] // 2
     kernels = {
         "train_forward": check_flash((B, heads, heads, TP_TRAIN_RUN["seq"],
@@ -4393,9 +4628,11 @@ def tp_phase(train_group: dict, serve_group: dict) -> dict:
     for r in train:
         say("tp train rank " + json.dumps(
             {k: v for k, v in r.items() if k not in ("params_err_by_leaf",
-                                                      "moe")}))
+                                                      "moe", "families")}))
         say("tp moe train rank " + json.dumps({"rank": r["rank"],
                                                 **r["moe"]}))
+        say("tp family train rank " + json.dumps({"rank": r["rank"],
+                                                  **r["families"]}))
     for r in serve:
         say("tp serve rank " + json.dumps(r))
     if not all(gates.values()):
@@ -4538,6 +4775,161 @@ def ep_phase(group: dict, device: str = "cuda") -> dict:
     return res
 
 
+def _cache_part(kind: str, leaf: str, t, cfg, col: int, M: int = 2):
+    """Column ``col``'s part of one process's recurrent cache leaf
+    (``init_cache``'s layout over M columns): Mamba2's local heads of h
+    and its heads' x channels of the window beside the whole B and C;
+    mLSTM's local heads of C, n and m where the heads divide (its window
+    whole); sLSTM's states whole."""
+    from repro_torch.models import ssm
+
+    def own(x, dim):
+        w = x.shape[dim] // M
+        return x.narrow(dim, col * w, w)
+    if kind == "mamba" and ssm.mamba_local(cfg, M):
+        if leaf == "h":
+            return own(t, -3)
+        d_inner = ssm.mamba_dims(cfg)[0]
+        return torch.cat([own(t[..., :d_inner], -1), t[..., d_inner:]], -1)
+    if (kind == "mlstm" and leaf in ("C", "n", "m")
+            and ssm.heads_local(cfg.n_heads, M)):
+        return own(t, {"C": -3, "n": -2, "m": -1}[leaf])
+    return t
+
+
+def family_phase(group: dict, device: str = "cuda") -> dict:
+    """Phase 11 (``FAMILY_SERVE``): after the ranks end, one process on the
+    same seeded weights, whole, in f32 compute (and bf16 for its time):
+    the gates; then the flash kernels at the ranks' local-head shapes and
+    the training leg's, against their plain versions, timed beside bound
+    and SDPA."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.flatten import tree_get, tree_paths
+    from repro_torch.core.pod import make_prefill_step
+    from repro_torch.models import transformer as T
+    rows, saved = group["rows"], group["rank_tensors"]
+    torch.cuda.empty_cache()
+    res = {"ranks_s": group["seconds"], "card_memory": group["card_memory"],
+           "models": {}}
+    gates = {}
+    for arch, layers in FAMILY_SERVE:
+        t_arch = time.perf_counter()
+        cfg, f32, gen, prompt, mem, at = _family_inputs(arch, layers, device)
+        mine = [s[arch] for s in saved]
+        whole = T.init_model(gen, cfg)
+        _set_gates(whole)
+        batch = {"tokens": prompt, **mem}
+        with torch.inference_mode():
+            prefill = make_prefill_step(cfg)
+            prefill(whole, batch)
+            _sync(device)
+            t0 = time.perf_counter()
+            prefill(whole, batch)
+            _sync(device)
+            one_prefill_s = time.perf_counter() - t0
+            one_bf16 = _family_sampled(cfg, whole, batch, at)
+            one_f32 = _family_sampled(f32, whole, batch, at)
+            one_rows, _, _, one_cache = _family_decode(
+                f32, whole, prompt, mem, device,
+                fed=mine[0]["decode_fed"].to(device))
+        del whole, prefill
+        torch.cuda.empty_cache()
+        tp_f32 = mine[0]["f32"].to(device)
+        tp_rows = mine[0]["decode_rows"].to(device)
+        top = float(one_f32.abs().max())
+        cache_err = {}
+        for r, part in zip(rows, mine):
+            for kind, tree in part["cache"].items():
+                for path in tree_paths(tree):
+                    want = _cache_part(kind, path[-1],
+                                       tree_get(one_cache[kind], path), cfg,
+                                       r["col"])
+                    got = tree_get(tree, path).to(device)
+                    key = f"{kind}.{'.'.join(path)}"
+                    err = (float((got - want).abs().max())
+                           / max(float(want.abs().max()), 1e-30))
+                    cache_err[key] = max(cache_err.get(key, 0.0), err)
+        n_flash = _flash_layers(cfg)
+        m = {"config": f"{cfg.name} n_layers={cfg.n_layers}"
+                       + (f" of {get_config(arch).n_layers}" if layers
+                          else "") + f", prefill 1 x {FAMILY_PREFILL[arch]}"
+                       + f", decode {FAMILY_DECODE}, f32 params, (1, 2)",
+             "ranks": [r["models"][arch] for r in rows],
+             "prefill_f32_max_abs_err": float((tp_f32 - one_f32).abs().max()),
+             "prefill_logit_scale": top,
+             "decode_f32_max_rel_err": max(
+                 float((a - b).abs().max()) / float(b.abs().max())
+                 for a, b in zip(tp_rows, one_rows)),
+             "cache_max_rel_err": cache_err,
+             "prefill_bf16": {
+                 "two_columns_to_f32": float((mine[0]["bf16"].to(device)
+                                              - one_f32).abs().max()),
+                 "one_process_to_f32": float((one_bf16 - one_f32).abs().max())},
+             "prefill_s": {"two_columns": [r["models"][arch]["prefill_s"]
+                                           for r in rows],
+                           "one_process": one_prefill_s},
+             "flash_per_prefill_call": n_flash,
+             "one_process_s": time.perf_counter() - t_arch}
+        ranks = m["ranks"]
+        gates.update({
+            f"{arch} same prompt on the ranks and in one process": all(
+                torch.equal(p["prompt"].to(device), prompt) for p in mine),
+            f"{arch} f32 prefill within LOGIT_TOL of one process":
+            m["prefill_f32_max_abs_err"] <= LOGIT_TOL * top,
+            f"{arch} f32 prefill greedy tokens": _close_tokens(
+                tp_f32, one_f32, LOGIT_TOL),
+            f"{arch} f32 decode within LOGIT_TOL of one process":
+            m["decode_f32_max_rel_err"] <= LOGIT_TOL,
+            f"{arch} f32 decode greedy tokens": all(
+                _close_tokens(a, b, LOGIT_TOL)
+                for a, b in zip(tp_rows, one_rows)),
+            f"{arch} recurrent caches within LOGIT_TOL of one process's":
+            all(e <= LOGIT_TOL for e in cache_err.values())
+            and bool(cache_err) == (cfg.ssm is not None),
+            f"{arch} both ranks' tokens the same": ranks[0]["tokens"]
+            == ranks[1]["tokens"] and ranks[0]["prefill_token"]
+            == ranks[1]["prefill_token"],
+            f"{arch} prefill greedy token the gathered logits'": all(
+                r["prefill_token_ok"] for r in ranks),
+            f"{arch} prefill flash once a causal self-attention on each "
+            "rank": all(r["prefill_launches"]["flash_attention"] == n_flash
+                        for r in ranks)})
+        res["models"][arch] = m
+        say("family " + json.dumps(m))
+    res["gates"] = gates
+    # the ranks' local heads (bf16 prefill) and the training leg's (f32)
+    kernels = {}
+    for arch, layers in FAMILY_SERVE:
+        cfg = _family_inputs(arch, layers, device)[0]
+        if not _flash_layers(cfg):
+            continue
+        kernels[f"prefill_forward {arch}"] = check_flash(
+            (1, cfg.n_heads // 2, cfg.n_kv_heads // 2,
+             min(FAMILY_PREFILL[arch], cfg.encoder.max_decoder_len)
+             if cfg.encoder else FAMILY_PREFILL[arch],
+             cfg.resolved_head_dim), torch.bfloat16, causal=True,
+            timed=True)
+    B = TP_MOE_RUN["batch"] // 2
+    for arch, layers in TP_FAMILY_TRAIN:
+        small = get_config(arch).reduced()
+        shape = (B, small.n_heads // 2, small.n_kv_heads // 2,
+                 TP_MOE_RUN["seq"], small.resolved_head_dim)
+        kernels[f"train_forward {arch}"] = check_flash(
+            shape, torch.float32, causal=True, timed=True)
+        kernels[f"train_backward {arch}"] = check_flash_bwd(
+            shape, torch.float32, causal=True, timed=True)
+    res["kernels"] = kernels
+    torch.cuda.empty_cache()
+    say("family phase " + json.dumps({k: res[k] for k in (
+        "ranks_s", "card_memory", "gates")}))
+    for r in rows:
+        say("family rank " + json.dumps(r))
+    if not all(gates.values()):
+        raise AssertionError(f"recurrent and cross-attention families over "
+                             f"'model' failed their gates: {gates}")
+    return res
+
+
 def timed(label: str, fn, *args):
     """``fn(*args)``; prints its wall seconds as ``phase <label>: <s> s``."""
     t0 = time.perf_counter()
@@ -4590,12 +4982,22 @@ def main() -> int:
         stop_tp_ranks(ep_ranks)
         raise
     ep_ranks = timed("10 expert parallel ranks", join_tp_ranks, ep_ranks)
-    requests = timed("6d requests", requests_phase, main)
-    f32 = timed("6e f32 solve", f32_solve_phase)
-    ckpt = timed("6f checkpoint", checkpoint_phase)
-    timed("6 breakdown stacked requests", breakdown_phase,
-          dict(MAIN_RUN, request_backend="stacked"))
-    cohorts = timed("6g cohorts", cohort_phase)
+    # phase 11's ranks (one model's shards and activations each, under 8
+    # GB) run beside 6d's requests to 6g; one process is held to them
+    # after they end
+    family_ranks = start_tp_ranks("family")
+    try:
+        requests = timed("6d requests", requests_phase, main)
+        f32 = timed("6e f32 solve", f32_solve_phase)
+        ckpt = timed("6f checkpoint", checkpoint_phase)
+        timed("6 breakdown stacked requests", breakdown_phase,
+              dict(MAIN_RUN, request_backend="stacked"))
+        cohorts = timed("6g cohorts", cohort_phase)
+    except BaseException:
+        stop_tp_ranks(family_ranks)
+        raise
+    family_ranks = timed("11 family ranks", join_tp_ranks, family_ranks)
+    family = timed("11 families over model", family_phase, family_ranks)
     pods = timed("6i pod", pod_phase, main, grid)
     mesh = timed("6j pod mesh", pod_mesh_phase, main, pods, grid)
     fused = timed("6h fused", fused_phase)
@@ -4692,10 +5094,16 @@ def main() -> int:
     by_path["flash_attention"]["ep_serve prefill per rank"] = [
         r["prefill_launches"]["flash_attention"] for r in ep["ranks"]]
     moe_train = {k: {f"tp_train {arch} per rank": [
-        sum(st["launches"][k] for st in r["moe"][arch]["steps"])
-        for r in tp["train"]] for arch, _ in TP_MOE_TRAIN}
+        sum(st["launches"][k] for st in r[key][arch]["steps"])
+        for r in tp["train"]] for key, arch in (
+            [("moe", a) for a, _ in TP_MOE_TRAIN]
+            + [("families", a) for a, _ in TP_FAMILY_TRAIN])}
         for k in ("flash_attention", "flash_attention_bwd")}
     by_path["flash_attention"].update(moe_train["flash_attention"])
+    for arch, _ in FAMILY_SERVE:
+        by_path["flash_attention"][f"family prefill {arch} per rank"] = [
+            r["prefill_launches"]["flash_attention"]
+            for r in family["models"][arch]["ranks"]]
     by_path["scored_reduce"]["pod_small"] = pods["small"]
     by_path["scored_reduce"]["fused_small"] = fused["small"]
     by_path["scored_reduce"]["fused_parity_warm_segment"] = [
@@ -4771,7 +5179,17 @@ def main() -> int:
                 "shape", "dv", "dtype", "max_abs_err", "bitwise_repeat", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "share_of_bound")}
-            for name in ep["kernels"] if "backward" not in name}}, {
+            for name in ep["kernels"] if "backward" not in name},
+        # phase 11: each rank's local heads of zamba2's shared attention
+        # (16 of 32 at D = 80), the vision decoder's self layers (16 of 32
+        # over 4 of 8 kv heads) and whisper's decoder (8 of 16), and the
+        # training leg's reduced zamba2 and whisper (2 of 4, f32)
+        "family_local_heads_shapes": {
+            name: {key: family["kernels"][name][key] for key in (
+                "shape", "dtype", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}
+            for name in family["kernels"] if "backward" not in name}}, {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:26",
@@ -4799,7 +5217,13 @@ def main() -> int:
                 "shape", "dtype", "max_abs_err", "bitwise_repeat", "ms",
                 "plain_ms", "library_ms", "bound_ms", "bound_by",
                 "share_of_bound")}
-            for name in ep["kernels"] if "backward" in name}}]}
+            for name in ep["kernels"] if "backward" in name},
+        "tp_family_train_shapes": {
+            name: {key: family["kernels"][name][key] for key in (
+                "shape", "dtype", "max_abs_err", "bitwise_repeat", "ms",
+                "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "share_of_bound")}
+            for name in family["kernels"] if "backward" in name}}]}
     say(smi)                        # the card's name and power limit
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {

@@ -47,9 +47,11 @@ otherwise). The count-sketch signs are the port's
 reference's ``PRNGKey(17)`` signs only in distribution.
 
 Tensor parallelism: on an (R, M) mesh (``make_host_mesh(model_parallel=M)``,
-R * M ranks) exact_tp, fedavg, prefill and serve run the dense and MoE
-decoders (GQA or MLA, MoE experts split over the columns, MTP)
-Megatron-style over each row's M columns (the reference's
+R * M ranks) exact_tp, fedavg, prefill and serve run every family of
+the zoo (GQA or MLA, MoE experts split over the columns, MTP, Mamba2 and
+mLSTM on each column's heads, sLSTM, cross-attention; whisper's frames
+and the vision decoder's patches in the batch) Megatron-style over each
+row's M columns (the reference's
 "shard_map manual over the client axes, auto-TP over 'model'"): each
 rank passes its shards of the parameters (``launch/sharding``'s tp rules)
 and its row's block of the batch, the forward and backward cross the

@@ -322,7 +322,7 @@ class ModelAxis:
     columns, this rank's ``index`` and the ``group`` of its row's ranks.
     Plain collectives (``sum``, ``cat``, ``max``) and the autograd
     crossings of a tensor-parallel layer (``copy_in``, ``reduce_out``,
-    ``gather``, ``split``)."""
+    ``gather``, ``split``, and the summing ``gather_in``)."""
 
     def __init__(self, size: int, index: int, group):
         self.size, self.index, self.group = int(size), int(index), group
@@ -370,6 +370,14 @@ class ModelAxis:
         """This column's part of an ``x`` every column holds whole; the
         columns' gradients concatenated back."""
         return _Split.apply(x, self, dim)
+
+    def gather_in(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """The columns' parts concatenated into the model region, where
+        each column goes on to use its own part of the whole (a packed
+        projection cut across its segments): the gradient is summed over
+        the columns before this column's part is taken (``copy_in`` after
+        ``gather``)."""
+        return self.copy_in(self.gather(x, dim))
 
 
 class _CopyIn(torch.autograd.Function):

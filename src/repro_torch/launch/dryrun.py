@@ -24,14 +24,13 @@ roofline uses one H100 SXM's data-sheet peaks (989 TFLOP/s dense bf16,
 3.35 TB/s HBM, NVLink 4 at 450 GB/s a direction): the port's card, not the
 reference's v5e.
 
-The port runs the dense and MoE decoders tensor- and expert-parallel
-(exact_tp and fedavg on the tp rules; prefill on them under every engine,
-as the reference places prefill weights by the tp rules even for
-recompute). TP for the SSM blocks and cross-attention and the FSDP regime
-of recompute and stale (training and decode of the >100B MoE archs by
-default) are ROADMAP.md A7's second half, and a combo that needs them
-writes a record that says so (``skipped``, as ``benchmarks/roofline.py``
-reads it).
+The port runs every family tensor-parallel (the MoE decoders also
+expert-parallel): exact_tp and fedavg on the tp rules, and prefill on
+them under every engine, as the reference places prefill weights by the
+tp rules even for recompute. The FSDP regime of recompute and stale
+(training and decode of the >100B MoE archs by default) is ROADMAP.md
+A7's second half, and a combo that needs it writes a record that says so
+(``skipped``, as ``benchmarks/roofline.py`` reads it).
 
 Online pod mode (``--online``) instead *executes* ``repro_torch.harness.
 run`` on the pod engine for every pod engine on a ('pod', 'data') mesh of
@@ -133,11 +132,6 @@ def _not_ported(cfg: ModelConfig, engine: str,
     """Why the port cannot trace this combo on the production mesh yet.
     Prefill places its weights by the tp rules under every engine (the
     reference's ``fsdp = engine == "recompute" and kind != "prefill"``)."""
-    from repro_torch.models.transformer import _tp_ported
-    if not _tp_ported(cfg):
-        return (f"{cfg.name}: tensor parallelism over 'model' runs the dense "
-                "and MoE decoders; TP for the SSM blocks and "
-                "cross-attention is ROADMAP.md A7's second half")
     if engine not in ("exact_tp", "fedavg") and shp.kind != "prefill":
         return (f"engine {engine!r} runs with FSDP in the reference "
                 "(ROADMAP.md A7's second half, its FSDP item: recompute "
@@ -237,6 +231,9 @@ def _trace_step(cfg, shp, params, inputs, mesh, engine, fl, sketch) -> dict:
                                             device="meta", mesh=mesh))
                 args = (local, cache, torch.zeros((B, 1), dtype=torch.int32),
                         inputs["pos"])
+                if inputs["memory"] is not None:
+                    args += (torch.zeros(_row_block(inputs["memory"], rows),
+                                         dtype=inputs["memory"].dtype),)
                 step = pod.make_serve_step(cfg, mesh)
             else:
                 batch = {k: torch.zeros(_row_block(v, rows), dtype=v.dtype)

@@ -14,12 +14,14 @@ the process group first:
 gloo with ``--device cpu``). Every rank draws the whole batch from the
 same seed and trains on its block; rank 0 prints and writes ``--ckpt``.
 ``--model-parallel M`` lays R * M ranks out as R client rows of M model
-columns and splits the dense and MoE decoders' parameters over each row's
-columns (exact_tp and fedavg; ``launch/sharding.py``'s rules: the MoE
-layers' experts over the columns, MLA's heads):
+columns and splits every family's parameters over each row's columns
+(exact_tp and fedavg; ``launch/sharding.py``'s rules: the MoE layers'
+experts over the columns, MLA's heads, Mamba2's and mLSTM's heads,
+cross-attention's heads):
 
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
       --distributed --model-parallel 2 [--arch deepseek-v3-671b]
+      [--arch zamba2-2.7b|xlstm-350m|whisper-medium|llama-3.2-vision-11b]
 ``--full`` takes the full config (40 layers of qwen1.5-4b do not fit one
 card's memory with ``recompute``'s five parameter-sized trees; a caller
 cuts depth with ``dataclasses.replace`` and ``run(cfg=...)``).

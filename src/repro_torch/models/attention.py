@@ -220,20 +220,45 @@ def _promoted_matmul(a, w, dt):
     return a.to(ct) @ w.to(ct)
 
 
-def cross_attn_fwd(params, x, memory, cfg: ModelConfig):
+def cross_attn_fwd(params, x, memory, cfg: ModelConfig, tp=None):
     """x: (B,S,d); memory: (B,M,d_mem). Full (non-causal) attention over
     the memory through ``_sdpa``, with no mask; S and M may differ. A memory
     in a wider dtype than x's (f32 frames or patches into a bf16 model)
-    makes k, v and the output that dtype, as in the reference."""
+    makes k, v and the output that dtype, as in the reference.
+
+    ``tp`` (a ``core/shmap.ModelAxis``; the memory whole on every column):
+    ``wq``/``wk``/``wv`` column-split and ``wo`` row-split as ``tp_split``
+    says, as in ``gqa_fwd``; x and the memory cross into the model region
+    (``copy_in``) ahead of the split projections. On whole heads each
+    column attends with its own query and kv heads and feeds ``wo``'s rows
+    of them; where a split falls inside a head, the projections' columns
+    are gathered, every column attends with every head and feeds its part
+    of the output; the partial outputs are model-summed."""
     B, S, _ = x.shape
     M = memory.shape[1]
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(B, S, H, hd)
-    k = _promoted_matmul(memory, params["wk"], dt).reshape(B, M, Hkv, hd)
-    v = _promoted_matmul(memory, params["wv"], dt).reshape(B, M, Hkv, hd)
-    o = _sdpa(q, k, v, None, hd ** -0.5)
-    return _promoted_matmul(o.reshape(B, S, H * hd), params["wo"], dt)
+    q_split, kv_split, local = tp_split(cfg, 1 if tp is None else tp.size)
+    if q_split:
+        x = tp.copy_in(x)
+    if kv_split:
+        memory = tp.copy_in(memory)
+
+    def whole(y, split):
+        return tp.gather(y) if split and not local else y
+    q = whole(x @ params["wq"].to(dt), q_split)
+    k = whole(_promoted_matmul(memory, params["wk"], dt), kv_split)
+    v = whole(_promoted_matmul(memory, params["wv"], dt), kv_split)
+    if local:
+        H, Hkv = H // tp.size, Hkv // tp.size
+    o = _sdpa(q.reshape(B, S, H, hd), k.reshape(B, M, Hkv, hd),
+              v.reshape(B, M, Hkv, hd), None, hd ** -0.5)
+    o = o.reshape(B, S, H * hd)
+    if not q_split:
+        return _promoted_matmul(o, params["wo"], dt)
+    if not local:
+        o = tp.split(o)
+    return tp.reduce_out(_promoted_matmul(o, params["wo"], dt))
 
 
 # ---------------------------------------------------------------------------

@@ -88,12 +88,26 @@ def init_rmsnorm(gen, d: int, dtype=torch.float32, lead: tuple = ()):
     return {"scale": _full(gen, (*lead, d), 1.0, dtype)}
 
 
-def rmsnorm(params, x, eps: float = 1e-5):
+def rmsnorm(params, x, eps: float = 1e-5, tp=None):
+    """RMS norm over the last dimension. ``tp`` (a ``core/shmap.
+    ModelAxis``): ``x`` is this column's equal part of the normed width
+    (its heads' channels); the mean square is the columns' sums of
+    squares model-summed over the whole width (``copy_in`` after
+    ``reduce_out``: each column uses the sum for its own part, so its
+    gradient is summed too), and the whole ``scale`` leaf is cut to this
+    column's part (``split``, so its gradient is whole on every
+    column)."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if tp is None:
+        var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+        scale = params["scale"]
+    else:
+        ss = torch.sum(torch.square(x), dim=-1, keepdim=True)
+        var = tp.copy_in(tp.reduce_out(ss)) / (x.shape[-1] * tp.size)
+        scale = tp.split(params["scale"])
     y = x * torch.rsqrt(var + eps)
-    return (y * params["scale"].float()).to(dtype)
+    return (y * scale.float()).to(dtype)
 
 
 def init_layernorm(gen, d: int, dtype=torch.float32, lead: tuple = ()):

@@ -31,6 +31,30 @@ place and returns the same cache, as the port's KV decode does.
 
 ``gen=None`` in the init functions gives meta tensors (the layout only);
 ``lead`` puts leading stack axes on every leaf.
+
+Tensor parallelism (``tp``, a ``core/shmap.ModelAxis``; the leaves are
+this column's shards by ``launch/sharding.py``'s rules). Where the heads
+divide the columns (and Mamba2's group-shared B/C width does), each
+column runs its own heads: the packed input projections (Mamba2's
+``in_proj`` [z | x | B | C | dt], mLSTM's ``up_proj`` [x | z] and
+``w_gates`` [i | f]), cut by the rules across their segments, are
+computed from this column's columns and their activations gathered
+whole with ``gather_in`` (the gradient summed over the columns, then this
+column's part); so are the depthwise conv's small leaves. Each column
+then takes its heads' channels (Mamba2's B and C whole), runs the
+recurrence on its heads with no collective inside the chunk or token
+loops, norms over the whole width (``rmsnorm(..., tp=)``), gates with its
+channels of z and feeds its rows of the output projection, whose partial
+outputs are model-summed. Where the heads do not divide, every column
+runs every head: each split projection's output is gathered plain over a
+``copy_in`` input, the split small leaves are gathered, and the output
+projection takes ``split`` rows then the sum. sLSTM always runs that way:
+its recurrent term, reshaped as the reference reshapes it, feeds head h's
+outputs into every head's gates, so no column can run its heads alone
+without a collective each token (``r`` is gathered once a call). The
+caches hold this column's heads of the states (and Mamba2's conv window
+its heads' x channels and the whole B and C); mLSTM's conv window and
+sLSTM's states are whole on every column.
 """
 from __future__ import annotations
 
@@ -74,6 +98,37 @@ def _tril(n: int, device) -> torch.Tensor:
     return torch.ones((n, n), dtype=torch.bool, device=device).tril()
 
 
+def _columns(tp) -> int:
+    return 1 if tp is None else tp.size
+
+
+def _whole(tp, t, width: int, dim: int = -1):
+    """``t`` whole along ``dim``: where the rules split it (it holds not
+    ``width`` but width / M there), the columns' parts gathered, each
+    column's gradient its own part (every column uses the whole alike)."""
+    if tp is None or t.shape[dim] == width:
+        return t
+    return tp.gather(t, dim)
+
+
+def _col_proj(x, w, tp, width: int):
+    """``x @ w`` whole on every column: where the rules split ``w``'s
+    ``width`` columns, this column's product over ``copy_in(x)``, gathered
+    plain."""
+    if tp is None or w.shape[-1] == width:
+        return x @ w
+    return tp.gather(tp.copy_in(x) @ w)
+
+
+def _rows_out(y, w, tp):
+    """``y @ w`` for an output projection: where the rules split ``w``'s
+    rows, this column's part of the whole ``y`` (``split``) through them,
+    the partial outputs model-summed."""
+    if tp is None or w.shape[0] == y.shape[-1]:
+        return y @ w
+    return tp.reduce_out(tp.split(y) @ w)
+
+
 # ---------------------------------------------------------------------------
 # Mamba2
 # ---------------------------------------------------------------------------
@@ -114,19 +169,71 @@ def _split_proj(cfg, proj):
     return torch.split(proj, [d_inner, conv_dim, H], dim=-1)
 
 
-def mamba_fwd(params, x, cfg: ModelConfig):
-    """Chunked SSD. x: (B, L, d) -> (B, L, d); L a multiple of the chunk
-    size."""
+def mamba_local(cfg: ModelConfig, M: int) -> bool:
+    """Whether each of M > 1 model columns runs its own H / M heads of
+    Mamba2: H and the group-shared B/C width 2 G N divide M (so every
+    packed leaf splits)."""
     s = cfg.ssm
-    d_inner, H, _ = mamba_dims(cfg)
+    H = mamba_dims(cfg)[1]
+    return M > 1 and H % M == 0 and (2 * s.n_groups * s.d_state) % M == 0
+
+
+def _own_x(tp, t, d_inner: int):
+    """[x | B | C] along the last axis -> [this column's x channels | B |
+    C]."""
+    return torch.cat([tp.slice(t[..., :d_inner]), t[..., d_inner:]], dim=-1)
+
+
+def _mamba_in(params, x, cfg: ModelConfig, tp):
+    """The input side as this column runs it: (z, the conv's input, dt
+    before its bias, the leaves as this column uses them, local). Local
+    heads: z, x and dt this column's heads' channels, B and C whole, the
+    conv's leaves [its x | B | C] (``A_log``, ``D``, ``dt_bias`` are its
+    heads' shards already). Otherwise every head, whole."""
+    d_inner, H, conv_dim = mamba_dims(cfg)
+    w = params["in_proj"].to(x.dtype)
+    p = dict(params)
+    local = mamba_local(cfg, _columns(tp))
+    if local:
+        proj = tp.gather_in(tp.copy_in(x) @ w)
+    else:
+        proj = _col_proj(x, w, tp, d_inner + conv_dim + H)
+    z, conv_in, dt_raw = _split_proj(cfg, proj)
+    if local:
+        z, dt_raw = tp.slice(z), tp.slice(dt_raw)
+        conv_in = _own_x(tp, conv_in, d_inner)
+        for name in ("conv_w", "conv_b"):
+            p[name] = _own_x(tp, tp.gather_in(params[name]), d_inner)
+    elif tp is not None:
+        for name, width in (("conv_w", conv_dim), ("conv_b", conv_dim),
+                            ("A_log", H), ("D", H), ("dt_bias", H)):
+            p[name] = _whole(tp, params[name], width)
+    return z, conv_in, dt_raw, p, local
+
+
+def _mamba_out(p, y, z, cfg: ModelConfig, tp, local: bool):
+    """The norm over the whole d_inner, the gate and ``out_proj``."""
+    dt_ = y.dtype
+    if local:
+        y = rmsnorm(p["norm"], y, cfg.norm_eps, tp=tp) * F.silu(z)
+        return tp.reduce_out(y @ p["out_proj"].to(dt_))
+    y = rmsnorm(p["norm"], y, cfg.norm_eps) * F.silu(z)
+    return _rows_out(y, p["out_proj"].to(dt_), tp)
+
+
+def mamba_fwd(params, x, cfg: ModelConfig, tp=None):
+    """Chunked SSD. x: (B, L, d) -> (B, L, d); L a multiple of the chunk
+    size. ``tp``: the model axis (module docstring)."""
+    s = cfg.ssm
     N, G, Q, P = s.d_state, s.n_groups, s.chunk_size, HEAD_P
     B_, L, _ = x.shape
     if L % Q:
         raise ValueError(f"mamba_fwd: the sequence length {L} is not a "
                          f"multiple of the chunk size {Q}")
     dt_ = x.dtype
-    proj = x @ params["in_proj"].to(dt_)
-    z, conv_in, dt_raw = _split_proj(cfg, proj)
+    z, conv_in, dt_raw, params, local = _mamba_in(params, x, cfg, tp)
+    H = params["A_log"].shape[-1]                 # this column's heads
+    d_inner = H * P
     conv_out = F.silu(_causal_conv(conv_in, params["conv_w"].to(dt_),
                                    params["conv_b"].to(dt_)))
     xi, Bm, Cm = torch.split(conv_out, [d_inner, G * N, G * N], dim=-1)
@@ -170,14 +277,19 @@ def mamba_fwd(params, x, cfg: ModelConfig):
     y = (y_intra + y_state).transpose(2, 3).reshape(B_, L, H, P)
     y = y + params["D"].to(dt_)[:, None] * xh
     y = y.reshape(B_, L, d_inner)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps) * F.silu(z)
-    return y @ params["out_proj"].to(dt_)
+    return _mamba_out(params, y, z, cfg, tp, local)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
-                     device=None, lead: tuple = ()):
+                     device=None, lead: tuple = (), model_parallel: int = 1):
+    """The conv window and the f32 state; over ``model_parallel`` columns
+    with local heads (``mamba_local``), this column's heads of the state
+    and its heads' x channels of the window beside the whole B and C."""
     s = cfg.ssm
-    _, H, conv_dim = mamba_dims(cfg)
+    d_inner, H, conv_dim = mamba_dims(cfg)
+    if mamba_local(cfg, model_parallel):
+        H //= model_parallel
+        conv_dim -= d_inner - d_inner // model_parallel
     return {
         "conv": torch.zeros((*lead, batch, s.d_conv - 1, conv_dim),
                             dtype=dtype, device=device),
@@ -186,16 +298,17 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype=torch.float32,
     }
 
 
-def mamba_decode_step(params, x, cache, cfg: ModelConfig):
+def mamba_decode_step(params, x, cache, cfg: ModelConfig, tp=None):
     """x: (B, 1, d). O(1) decode; writes the conv window and the state into
-    ``cache`` in place. Returns (y, cache)."""
+    ``cache`` in place (``init_mamba_cache``'s layout for ``tp``). Returns
+    (y, cache)."""
     s = cfg.ssm
-    d_inner, H, _ = mamba_dims(cfg)
     N, G = s.d_state, s.n_groups
     B_ = x.shape[0]
     dt_ = x.dtype
-    proj = x @ params["in_proj"].to(dt_)
-    z, conv_in, dt_raw = _split_proj(cfg, proj)                 # (B, 1, C)
+    z, conv_in, dt_raw, params, local = _mamba_in(params, x, cfg, tp)
+    H = params["A_log"].shape[-1]
+    d_inner = H * HEAD_P
     window = torch.cat([cache["conv"].to(dt_), conv_in], dim=1)
     conv_out = (_window_conv(window, params["conv_w"].to(dt_))
                 + params["conv_b"].to(dt_))
@@ -213,8 +326,7 @@ def mamba_decode_step(params, x, cache, cfg: ModelConfig):
     y = (h @ Cv.float()[:, None, :, None])[..., 0].to(dt_)      # (B, H, P)
     y = y + params["D"].to(dt_)[:, None] * xh
     y = y.reshape(B_, 1, d_inner)
-    y = rmsnorm(params["norm"], y, cfg.norm_eps) * F.silu(z)
-    y = y @ params["out_proj"].to(dt_)
+    y = _mamba_out(params, y, z, cfg, tp, local)
     cache["conv"].copy_(window[:, 1:])
     return y, cache
 
@@ -248,46 +360,94 @@ def init_mlstm(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
     }
 
 
-def mlstm_fwd(params, x, cfg: ModelConfig):
+def mlstm_fwd(params, x, cfg: ModelConfig, tp=None):
     """mLSTM forward. The chunkwise form for long sequences (linear memory
-    in L), the quadratic parallel form otherwise. x: (B, L, d)."""
+    in L), the quadratic parallel form otherwise. x: (B, L, d). ``tp``:
+    the model axis (module docstring)."""
     Q = min(cfg.ssm.chunk_size, 256)
     if x.shape[1] >= 2 * Q and x.shape[1] % Q == 0:
-        return mlstm_fwd_chunked(params, x, cfg)
-    return _mlstm_fwd_quadratic(params, x, cfg)
+        return mlstm_fwd_chunked(params, x, cfg, tp)
+    return _mlstm_fwd_quadratic(params, x, cfg, tp)
 
 
-def _mlstm_inputs(params, x, cfg: ModelConfig):
-    """The projections both forms share: z (B, L, di); q, k, v (B, L, H,
-    P) in the compute dtype; the f32 input gate and log forget gate (B, L,
-    H)."""
-    _, H, P = xlstm_dims(cfg)
-    B_, L, _ = x.shape
+def heads_local(n_heads: int, M: int) -> bool:
+    """Whether each of M > 1 model columns runs its own heads of an
+    xLSTM block (the heads divide M)."""
+    return M > 1 and n_heads % M == 0
+
+
+def _mlstm_up(params, x, cfg: ModelConfig, tp):
+    """``up_proj``'s two halves: xi whole on every column, z this
+    column's heads' channels where the heads are local, else whole."""
+    d_inner, H, _ = xlstm_dims(cfg)
+    w = params["up_proj"].to(x.dtype)
+    if heads_local(H, _columns(tp)):
+        xi, z = torch.chunk(tp.gather_in(tp.copy_in(x) @ w), 2, dim=-1)
+        return xi, tp.slice(z)
+    return torch.chunk(_col_proj(x, w, tp, 2 * d_inner), 2, dim=-1)
+
+
+def _mlstm_conv(params, cfg: ModelConfig, tp):
+    """The conv's taps and bias, whole on every column."""
+    d_inner, H, _ = xlstm_dims(cfg)
+    w, b = params["conv_w"], params["conv_b"]
+    if heads_local(H, _columns(tp)):
+        return tp.gather_in(w), tp.gather_in(b)
+    return _whole(tp, w, d_inner), _whole(tp, b, d_inner)
+
+
+def _mlstm_proj(params, xc, xi, cfg: ModelConfig, tp):
+    """q, k (scaled), v (B, L, H', P) in the compute dtype and the input
+    and forget gates' pre-activations (B, L, H') in f32, from the whole
+    conv output ``xc`` and input ``xi``: H' this column's heads where they
+    are local, else every head."""
+    d_inner, H, P = xlstm_dims(cfg)
+    B_, L, _ = xc.shape
+    dt_ = xc.dtype
+    wq, wk, wv, wg = (params[n].to(dt_) for n in ("wq", "wk", "wv",
+                                                   "w_gates"))
+    if heads_local(H, _columns(tp)):
+        q, k, v = xc @ wq, xc @ wk, xi @ wv
+        gates = (tp.gather_in(xi @ wg).float()
+                 + tp.copy_in(params["gate_bias"]).float())
+        ig, fg = (tp.slice(g) for g in torch.chunk(gates, 2, dim=-1))
+        H //= tp.size
+    else:
+        q, k = _col_proj(xc, wq, tp, d_inner), _col_proj(xc, wk, tp, d_inner)
+        v = _col_proj(xi, wv, tp, d_inner)
+        gates = (_col_proj(xi, wg, tp, 2 * H).float()
+                 + params["gate_bias"].float())
+        ig, fg = torch.chunk(gates, 2, dim=-1)                  # (B, L, H)
+    return (q.reshape(B_, L, H, P), k.reshape(B_, L, H, P) / (P ** 0.5),
+            v.reshape(B_, L, H, P), ig, fg)
+
+
+def _mlstm_inputs(params, x, cfg: ModelConfig, tp=None):
+    """The projections both forms share: z (B, L, di'); q, k, v (B, L,
+    H', P) in the compute dtype; the f32 input gate and log forget gate
+    (B, L, H'); H' and di' this column's heads and channels under ``tp``
+    where the heads are local."""
     dt_ = x.dtype
-    up = x @ params["up_proj"].to(dt_)
-    xi, z = torch.chunk(up, 2, dim=-1)
-    xc = F.silu(_causal_conv(xi, params["conv_w"].to(dt_),
-                             params["conv_b"].to(dt_)))
-    q = (xc @ params["wq"].to(dt_)).reshape(B_, L, H, P)
-    k = (xc @ params["wk"].to(dt_)).reshape(B_, L, H, P) / (P ** 0.5)
-    v = (xi @ params["wv"].to(dt_)).reshape(B_, L, H, P)
-    gates = ((xi @ params["w_gates"].to(dt_)).float()
-             + params["gate_bias"].float())
-    ig, fg = torch.chunk(gates, 2, dim=-1)                      # (B, L, H)
+    xi, z = _mlstm_up(params, x, cfg, tp)
+    w, b = _mlstm_conv(params, cfg, tp)
+    xc = F.silu(_causal_conv(xi, w.to(dt_), b.to(dt_)))
+    q, k, v, ig, fg = _mlstm_proj(params, xc, xi, cfg, tp)
     return z, q, k, v, ig, F.logsigmoid(fg)
 
 
-def _mlstm_out(params, h, z, cfg):
+def _mlstm_out(params, h, z, cfg, tp=None):
+    if heads_local(cfg.n_heads, _columns(tp)):
+        h = rmsnorm(params["norm"], h, cfg.norm_eps, tp=tp) * F.silu(z)
+        return tp.reduce_out(h @ params["down_proj"].to(h.dtype))
     h = rmsnorm(params["norm"], h, cfg.norm_eps) * F.silu(z)
-    return h @ params["down_proj"].to(h.dtype)
+    return _rows_out(h, params["down_proj"].to(h.dtype), tp)
 
 
-def _mlstm_fwd_quadratic(params, x, cfg: ModelConfig):
+def _mlstm_fwd_quadratic(params, x, cfg: ModelConfig, tp=None):
     """Parallel (quadratic) mLSTM forward. x: (B, L, d)."""
-    d_inner = xlstm_dims(cfg)[0]
     B_, L, _ = x.shape
     dt_ = x.dtype
-    z, q, k, v, ig, logf = _mlstm_inputs(params, x, cfg)
+    z, q, k, v, ig, logf = _mlstm_inputs(params, x, cfg, tp)
     cumf = torch.cumsum(logf, dim=1)
     # D[t, s] = cumf_t - cumf_s + i_s  (s <= t)
     Dm = cumf[:, :, None, :] - cumf[:, None, :, :] + ig[:, None, :, :]
@@ -298,21 +458,21 @@ def _mlstm_fwd_quadratic(params, x, cfg: ModelConfig):
     scores = torch.einsum("bthp,bshp->btsh", q, k).float() * w
     norm = torch.maximum(scores.sum(2, keepdim=True).abs(), torch.exp(-m))
     scores = (scores / norm).to(dt_)
-    h = torch.einsum("btsh,bshp->bthp", scores, v).reshape(B_, L, d_inner)
-    return _mlstm_out(params, h, z, cfg)
+    h = torch.einsum("btsh,bshp->bthp", scores, v).reshape(B_, L, -1)
+    return _mlstm_out(params, h, z, cfg, tp)
 
 
-def mlstm_fwd_chunked(params, x, cfg: ModelConfig):
+def mlstm_fwd_chunked(params, x, cfg: ModelConfig, tp=None):
     """Chunkwise-stabilized mLSTM: the matrix memory (C, n, m) carried
     across chunks of length Q, (B, Q, Q, H) blocks within one. Position
     tau combines the inter-chunk term exp(F_tau + m - M) (C q) with the
     intra-chunk terms under the running max M = max(F_tau + m,
     max_s D[tau, s]); the chunk-end update mirrors the decode recurrence."""
-    d_inner, H, P = xlstm_dims(cfg)
     Q = min(cfg.ssm.chunk_size, 256)
     B_, L, _ = x.shape
     dt_ = x.dtype
-    z, q, k, v, ig, logf = _mlstm_inputs(params, x, cfg)
+    z, q, k, v, ig, logf = _mlstm_inputs(params, x, cfg, tp)
+    H, P = q.shape[2], q.shape[3]                 # this column's heads
     nc = L // Q
     if nc * Q != L:
         raise ValueError(f"mlstm_fwd_chunked: the sequence length {L} is "
@@ -353,13 +513,18 @@ def mlstm_fwd_chunked(params, x, cfg: ModelConfig):
              + torch.einsum("bsh,bshp,bshq->bhpq", decay, vv, kk))
         n = keep[:, :, None] * n + torch.einsum("bsh,bshp->bhp", decay, kk)
         m = m_new
-    h = torch.stack(hs, dim=1).reshape(B_, L, d_inner).to(dt_)
-    return _mlstm_out(params, h, z, cfg)
+    h = torch.stack(hs, dim=1).reshape(B_, L, H * P).to(dt_)
+    return _mlstm_out(params, h, z, cfg, tp)
 
 
 def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
-                     lead: tuple = ()):
+                     lead: tuple = (), model_parallel: int = 1):
+    """The conv window (whole on every column) and the f32 (C, n, m);
+    over ``model_parallel`` columns with local heads (``heads_local``),
+    this column's heads of C, n and m."""
     d_inner, H, P = xlstm_dims(cfg)
+    if heads_local(H, model_parallel):
+        H //= model_parallel
 
     def zeros(*shape):
         return torch.zeros((*lead, batch, *shape), dtype=torch.float32,
@@ -369,24 +534,20 @@ def init_mlstm_cache(cfg: ModelConfig, batch: int, device=None,
                             device=device)}
 
 
-def mlstm_decode_step(params, x, cache, cfg: ModelConfig):
+def mlstm_decode_step(params, x, cache, cfg: ModelConfig, tp=None):
     """x: (B, 1, d); writes the conv window and (C, n, m) into ``cache`` in
-    place. Returns (y, cache)."""
-    d_inner, H, P = xlstm_dims(cfg)
+    place (``init_mlstm_cache``'s layout for ``tp``). Returns (y,
+    cache)."""
     B_ = x.shape[0]
     dt_ = x.dtype
-    up = x @ params["up_proj"].to(dt_)
-    xi, z = torch.chunk(up, 2, dim=-1)                          # (B, 1, di)
+    xi, z = _mlstm_up(params, x, cfg, tp)                       # (B, 1, di)
     window = torch.cat([cache["conv"], xi.float()], dim=1)
-    xc = (_window_conv(window.to(dt_), params["conv_w"].to(dt_))
-          + params["conv_b"].to(dt_))
+    w, b = _mlstm_conv(params, cfg, tp)
+    xc = _window_conv(window.to(dt_), w.to(dt_)) + b.to(dt_)
     xc = F.silu(xc)[:, None, :]
-    q = (xc @ params["wq"].to(dt_)).reshape(B_, H, P).float()
-    k = ((xc @ params["wk"].to(dt_)).reshape(B_, H, P) / (P ** 0.5)).float()
-    v = (xi @ params["wv"].to(dt_)).reshape(B_, H, P).float()
-    gates = ((xi @ params["w_gates"].to(dt_)).float()[:, 0]
-             + params["gate_bias"].float())
-    ig, fg = torch.chunk(gates, 2, dim=-1)                      # (B, H)
+    q, k, v, ig, fg = _mlstm_proj(params, xc, xi, cfg, tp)
+    q, k, v = (t[:, 0].float() for t in (q, k, v))              # (B, H, P)
+    ig, fg = ig[:, 0], fg[:, 0]                                 # (B, H)
     logf = F.logsigmoid(fg)
     m = cache["m"]
     m_new = torch.maximum(logf + m, ig)
@@ -399,9 +560,9 @@ def mlstm_decode_step(params, x, cache, cfg: ModelConfig):
     num = torch.einsum("bhpq,bhq->bhp", C, q)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", n, q).abs(),
                         torch.exp(-m_new))[:, :, None]
-    h = (num / den).reshape(B_, 1, d_inner).to(dt_)
+    h = (num / den).reshape(B_, 1, -1).to(dt_)
     cache["conv"].copy_(window[:, 1:])
-    return _mlstm_out(params, h, z, cfg), cache
+    return _mlstm_out(params, h, z, cfg, tp), cache
 
 
 def init_slstm(gen, cfg: ModelConfig, dtype=torch.float32, lead: tuple = ()):
@@ -436,14 +597,16 @@ def _slstm_cell(carry, xt, r, one, H, P):
     return c_new, n_new, m_new, h_new
 
 
-def slstm_fwd(params, x, cfg: ModelConfig, carry=None):
+def slstm_fwd(params, x, cfg: ModelConfig, carry=None, tp=None):
     """Recurrent sLSTM over the sequence, a loop over tokens. x: (B, L, d)
-    -> (y, carry)."""
+    -> (y, carry). ``tp``: every head on every column (module
+    docstring)."""
     H = cfg.n_heads
     B_, L, d = x.shape
     P = d // H
     dt_ = x.dtype
-    pre = x @ params["w_in"].to(dt_) + params["bias"].to(dt_)  # (B, L, 4d)
+    pre = (_col_proj(x, params["w_in"].to(dt_), tp, 4 * d)
+           + params["bias"].to(dt_))                            # (B, L, 4d)
     if carry is None:
         def zero():
             return torch.zeros((B_, H, P), dtype=torch.float32,
@@ -451,7 +614,7 @@ def slstm_fwd(params, x, cfg: ModelConfig, carry=None):
         carry = (zero(), zero(), torch.full((B_, H, P), -1e9,
                                             dtype=torch.float32,
                                             device=x.device), zero())
-    r = params["r"].to(dt_).float()
+    r = _whole(tp, params["r"], H, dim=0).to(dt_).float()
     one = torch.ones((), dtype=torch.float32, device=x.device)
     hs = []
     for t in range(L):
@@ -459,7 +622,7 @@ def slstm_fwd(params, x, cfg: ModelConfig, carry=None):
         hs.append(carry[3])
     h = torch.stack(hs, dim=1).reshape(B_, L, d).to(dt_)
     h = rmsnorm(params["norm"], h, cfg.norm_eps)
-    return h @ params["out_proj"].to(dt_), carry
+    return _rows_out(h, params["out_proj"].to(dt_), tp), carry
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, device=None,
@@ -472,11 +635,12 @@ def init_slstm_cache(cfg: ModelConfig, batch: int, device=None,
     return out
 
 
-def slstm_decode_step(params, x, cache, cfg: ModelConfig):
-    """x: (B, 1, d); writes (c, n, m, h) into ``cache`` in place. Returns
-    (y, cache)."""
+def slstm_decode_step(params, x, cache, cfg: ModelConfig, tp=None):
+    """x: (B, 1, d); writes (c, n, m, h) into ``cache`` in place (whole on
+    every column under ``tp``). Returns (y, cache)."""
     y, carry = slstm_fwd(params, x, cfg, carry=(cache["c"], cache["n"],
-                                                 cache["m"], cache["h"]))
+                                                 cache["m"], cache["h"]),
+                         tp=tp)
     for key, t in zip(("c", "n", "m", "h"), carry):
         cache[key].copy_(t)
     return y, cache

@@ -28,20 +28,24 @@ when the config has one; with ``cfg.remat`` each layer of a training
 forward is recomputed in the backward (``torch.utils.checkpoint``), as the
 reference's ``_maybe_remat``.
 
-Tensor parallelism (the dense and MoE decoders): given a ``mesh`` whose
-'model' axis has M > 1 columns, one rank a column, ``forward``,
-``loss_fn``, ``init_cache`` and ``decode_step`` run on this rank's shards
-of the parameters (``launch/sharding.py``'s tp rules): the embedding
-split over d_model and its columns gathered, the MLP, GQA and MLA
-Megatron-style (column-split in, row-split out, one model-axis sum each),
-the MoE layers expert-parallel (``moe.moe_fwd``), the logits split over
-the vocabulary with a vocab-parallel cross-entropy (MTP's masked one
-too). The norms, the router and MTP's ``proj`` stay whole on every
-column, and ``core/shmap``'s autograd crossings make their gradients the
-same on all columns. A stacked leaf the rules split along its layer axis
-(the shared expert and the dense residual where the MoE layers divide by
-M) is gathered whole at use. The other families over a 'model' axis
-raise ``NotImplementedError``.
+Tensor parallelism (every family): given a ``mesh`` whose 'model' axis
+has M > 1 columns, one rank a column, ``forward``, ``loss_fn``,
+``init_cache``, ``decode_step`` and ``memory_of`` run on this rank's
+shards of the parameters (``launch/sharding.py``'s tp rules): the
+embedding split over d_model and its columns gathered, the MLP, GQA,
+cross-attention and MLA Megatron-style (column-split in, row-split out,
+one model-axis sum each), the MoE layers expert-parallel
+(``moe.moe_fwd``), the Mamba2 and mLSTM blocks on each column's heads and
+sLSTM on every head (``models/ssm.py``), the vision decoder's
+``vision_proj`` by column with the projected patches gathered, the
+logits split over the vocabulary with a vocab-parallel cross-entropy
+(MTP's masked one too). The norms, the router, the tanh gates and MTP's
+``proj`` stay whole on every column, and ``core/shmap``'s autograd
+crossings make their gradients the same on all columns: each gradient is
+summed over the columns once, where the columns start to differ. A
+stacked leaf the rules split along its layer axis (the shared expert and
+the dense residual where the MoE layers divide by M) is gathered whole at
+use.
 
 Public API:
 
@@ -52,8 +56,8 @@ Public API:
   decode_step(params, cache, tokens, pos, cfg, memory=None, mesh=None)
                                                  -> (logits, cache)
   argmax_logits(logits, cfg, mesh=None)          -> greedy tokens
-  whisper_encode(params, frames, cfg)            -> memory
-  memory_of(params, batch, cfg)                  -> memory or None
+  whisper_encode(params, frames, cfg, mesh=None) -> memory
+  memory_of(params, batch, cfg, mesh=None)       -> memory or None
 """
 from __future__ import annotations
 
@@ -106,28 +110,13 @@ def _family(cfg: ModelConfig) -> str:
 def _check_ported(cfg: ModelConfig, mesh=None):
     """Refuse attention kinds other than GQA and MLA outside xLSTM (which
     has none): the reference builds no other. Returns the mesh's
-    ``ModelAxis`` (None with one model column), which only the dense and
-    MoE decoders take: the other families over a 'model' axis are
-    ROADMAP.md A7's second half."""
+    ``ModelAxis`` (None with one model column)."""
     if _family(cfg) != "xlstm" and cfg.attention not in ("gqa", "mla"):
         raise NotImplementedError(
             f"{cfg.name}: attention {cfg.attention!r} outside xLSTM is not "
             f"a kind the reference builds; repro_torch runs GQA and MLA "
             f"(ROADMAP.md queue A)")
-    tp = model_axis(mesh)
-    if tp is not None and not _tp_ported(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism over a 'model' axis runs the "
-            "dense and MoE decoders (GQA, MLA, MTP); TP for the SSM "
-            "blocks, whisper and the vision decoder is ROADMAP.md A7's "
-            "second half")
-    return tp
-
-
-def _tp_ported(cfg: ModelConfig) -> bool:
-    """The dense and MoE decoders (GQA or MLA, MTP): what runs over a
-    'model' axis."""
-    return _family(cfg) == "decoder"
+    return model_axis(mesh)
 
 
 def _split_over(tp, width: int):
@@ -158,11 +147,12 @@ def init_block(gen, cfg: ModelConfig, *, use_moe: bool = False,
 
 def block_fwd(p, x, cfg: ModelConfig, positions, *, use_moe: bool = False,
               cache=None, cache_pos=None, causal: bool = True,
-              rope: bool = True, tp=None):
+              rope: bool = True, d_ff: int = 0, tp=None):
     """-> (x, cache, aux): the block's output, its cache (written in place)
-    and its MoE auxiliary loss (an f32 zero without MoE). ``tp``: the
-    model axis its attention, MLP and experts are split over (the norms
-    stay whole)."""
+    and its MoE auxiliary loss (an f32 zero without MoE). ``d_ff``: the
+    dense MLP's width, as ``init_block`` took it (the decoders' dense
+    width by default). ``tp``: the model axis its attention, MLP and
+    experts are split over (the norms stay whole)."""
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         h, new_cache = mla_fwd(p["attn"], h, cfg, positions, cache=cache,
@@ -176,9 +166,8 @@ def block_fwd(p, x, cfg: ModelConfig, positions, *, use_moe: bool = False,
     if use_moe:
         h, aux = moe_fwd(p["moe"], h, cfg, tp=tp)
     else:
-        # under tp only the decoders run: their dense blocks' own width
         h = mlp_fwd(p["mlp"], h, cfg.mlp,
-                    tp=_split_over(tp, _dense_ff(cfg)))
+                    tp=_split_over(tp, d_ff or _dense_ff(cfg)))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, new_cache, aux
 
@@ -240,19 +229,23 @@ def _gather_layers(stack, n: int, tp):
                     stack)
 
 
-def _block_out(layer, x, cfg, positions, use_moe, causal, rope, tp=None):
+def _block_out(layer, x, cfg, positions, use_moe, causal, rope, tp=None,
+               d_ff: int = 0):
     x, _, aux = block_fwd(layer, x, cfg, positions, use_moe=use_moe,
-                          causal=causal, rope=rope, tp=tp)
+                          causal=causal, rope=rope, d_ff=d_ff, tp=tp)
     return x, aux
 
 
 def _stacked_cache(cfg, n, batch, length, device, dtype,
                    model_parallel: int = 1):
+    """The KV caches of ``n`` stacked layers (a tuple: several leading
+    axes)."""
+    lead = n if isinstance(n, tuple) else (n,)
     if cfg.attention == "mla":
         return init_mla_cache(cfg, batch, length, dtype=dtype, device=device,
-                              lead=(n,))
+                              lead=lead)
     return init_gqa_cache(cfg, batch, length, dtype=dtype, device=device,
-                          lead=(n,), model_parallel=model_parallel)
+                          lead=lead, model_parallel=model_parallel)
 
 
 def _dense_ff(cfg: ModelConfig) -> int:
@@ -398,37 +391,41 @@ def _init_zamba(gen, cfg: ModelConfig):
     return params
 
 
-def _mamba_layer(lp, x, cfg):
+def _mamba_layer(lp, x, cfg, tp=None):
     hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
-    return x + ssm_lib.mamba_fwd(lp["m"], hn, cfg)
+    return x + ssm_lib.mamba_fwd(lp["m"], hn, cfg, tp)
 
 
-def _zamba_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
+def _zamba_trunk(params, x, cfg, positions, caches=None, cache_pos=None,
+                 tp=None):
     """Each group's Mamba2 layers, then the shared block (the same weights
-    after every group; with caches, group g's own KV cache)."""
+    after every group, its MLP ``shared_block_d_ff`` wide; with caches,
+    group g's own KV cache)."""
     every = cfg.hybrid.shared_attn_every
+    d_ff = cfg.hybrid.shared_block_d_ff
     remat = caches is None and _remat(cfg)
     for j, lp in enumerate(_layers(params["mamba_layers"], 2)):
         g, i = divmod(j, every)
         if caches is None:
-            x = _apply(_mamba_layer, remat, lp, x, cfg)
+            x = _apply(_mamba_layer, remat, lp, x, cfg, tp)
         else:
             hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
             y, _ = ssm_lib.mamba_decode_step(
                 lp["m"], hn, tree_map(lambda t: t[g, i], caches["mamba"]),
-                cfg)
+                cfg, tp)
             x = x + y
         if i < every - 1:
             continue
         if remat:
             x, _ = checkpoint(_block_out, params["shared_block"], x, cfg,
-                              positions, False, True, True,
+                              positions, False, True, True, tp, d_ff,
                               use_reentrant=False)
         else:
             cache = (None if caches is None
                      else tree_map(lambda t: t[g], caches["attn"]))
             x, _, _ = block_fwd(params["shared_block"], x, cfg, positions,
-                                cache=cache, cache_pos=cache_pos)
+                                cache=cache, cache_pos=cache_pos, d_ff=d_ff,
+                                tp=tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
@@ -467,17 +464,18 @@ def _init_xlstm(gen, cfg: ModelConfig):
     return params
 
 
-def _mlstm_layer(lp, x, cfg):
+def _mlstm_layer(lp, x, cfg, tp=None):
     return x + ssm_lib.mlstm_fwd(lp["m"], rmsnorm(lp["ln"], x, cfg.norm_eps),
-                                 cfg)
+                                 cfg, tp)
 
 
-def _slstm_layer(lp, x, cfg):
+def _slstm_layer(lp, x, cfg, tp=None):
     hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
-    return x + ssm_lib.slstm_fwd(lp["s"], hn, cfg)[0]
+    return x + ssm_lib.slstm_fwd(lp["s"], hn, cfg, tp=tp)[0]
 
 
-def _xlstm_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
+def _xlstm_trunk(params, x, cfg, positions, caches=None, cache_pos=None,
+                 tp=None):
     n_groups, n_m = params["mlstm_layers"]["ln"]["scale"].shape[:2]
     remat = caches is None and _remat(cfg)
     m_layers = _layers(params["mlstm_layers"], 2)
@@ -487,22 +485,23 @@ def _xlstm_trunk(params, x, cfg, positions, caches=None, cache_pos=None):
         for i in range(n_m):
             lp = m_layers[g * n_m + i]
             if caches is None:
-                x = _apply(_mlstm_layer, remat, lp, x, cfg)
+                x = _apply(_mlstm_layer, remat, lp, x, cfg, tp)
             else:
                 hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
                 y, _ = ssm_lib.mlstm_decode_step(
                     lp["m"], hn,
-                    tree_map(lambda t: t[g, i], caches["mlstm"]), cfg)
+                    tree_map(lambda t: t[g, i], caches["mlstm"]), cfg, tp)
                 x = x + y
         if s_layers is None:
             continue
         lp = s_layers[g]
         if caches is None:
-            x = _apply(_slstm_layer, remat, lp, x, cfg)
+            x = _apply(_slstm_layer, remat, lp, x, cfg, tp)
         else:
             hn = rmsnorm(lp["ln"], x, cfg.norm_eps)
             y, _ = ssm_lib.slstm_decode_step(
-                lp["s"], hn, tree_map(lambda t: t[g], caches["slstm"]), cfg)
+                lp["s"], hn, tree_map(lambda t: t[g], caches["slstm"]), cfg,
+                tp)
             x = x + y
     return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
@@ -549,17 +548,17 @@ def _init_cross_block(gen, cfg, pd, lead: tuple = ()):
     }
 
 
-def _cross_block_fwd(p, x, memory, cfg):
+def _cross_block_fwd(p, x, memory, cfg, tp=None):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    h = cross_attn_fwd(p["xattn"], h, memory, cfg)
+    h = cross_attn_fwd(p["xattn"], h, memory, cfg, tp)
     x = x + torch.tanh(p["gate_attn"].to(h.dtype)) * h
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    h = mlp_fwd(p["mlp"], h, cfg.mlp)
+    h = mlp_fwd(p["mlp"], h, cfg.mlp, tp=_split_over(tp, cfg.d_ff))
     return x + torch.tanh(p["gate_mlp"].to(h.dtype)) * h
 
 
 def _vlm_trunk(params, x, cfg, positions, memory, caches=None,
-               cache_pos=None):
+               cache_pos=None, tp=None):
     """Each group's self-attention layers (the stack's (n_groups, n_self)
     axes in order; with caches, each layer's own KV cache), then the
     group's cross layer over ``memory``."""
@@ -572,13 +571,14 @@ def _vlm_trunk(params, x, cfg, positions, memory, caches=None,
             lp = self_layers[g * n_self + i]
             if caches is None:
                 x, _ = _apply(_block_out, remat, lp, x, cfg, positions,
-                              False, True, True)
+                              False, True, True, tp)
             else:
                 x, _, _ = block_fwd(
                     lp, x, cfg, positions,
                     cache=tree_map(lambda t: t[g, i], caches["self"]),
-                    cache_pos=cache_pos)
-        x = _apply(_cross_block_fwd, remat, cross_layers[g], x, memory, cfg)
+                    cache_pos=cache_pos, tp=tp)
+        x = _apply(_cross_block_fwd, remat, cross_layers[g], x, memory, cfg,
+                   tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
@@ -616,19 +616,20 @@ def _init_decdec_block(gen, cfg, pd, lead: tuple = ()):
 
 
 def _decdec_block_fwd(p, x, memory, cfg, positions, cache=None,
-                      cache_pos=None):
+                      cache_pos=None, tp=None):
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     h, nc = gqa_fwd(p["attn"], h, cfg, positions, cache=cache,
-                    cache_pos=cache_pos, causal=True)
+                    cache_pos=cache_pos, causal=True, tp=tp)
     x = x + h
     h = rmsnorm(p["ln_x"], x, cfg.norm_eps)
-    x = x + cross_attn_fwd(p["xattn"], h, memory, cfg)
+    x = x + cross_attn_fwd(p["xattn"], h, memory, cfg, tp)
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp_fwd(p["mlp"], h, cfg.mlp), nc
+    return x + mlp_fwd(p["mlp"], h, cfg.mlp,
+                       tp=_split_over(tp, cfg.d_ff)), nc
 
 
-def _decdec_out(p, x, memory, cfg, positions):
-    return _decdec_block_fwd(p, x, memory, cfg, positions)[0]
+def _decdec_out(p, x, memory, cfg, positions, tp=None):
+    return _decdec_block_fwd(p, x, memory, cfg, positions, tp=tp)[0]
 
 
 def _sinusoid(n: int, d: int, dtype, device=None) -> torch.Tensor:
@@ -638,33 +639,35 @@ def _sinusoid(n: int, d: int, dtype, device=None) -> torch.Tensor:
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
-def whisper_encode(params, frames, cfg: ModelConfig):
+def whisper_encode(params, frames, cfg: ModelConfig, mesh=None):
     """frames: (B, F, d_model) precomputed conv/mel embeddings (the
     frontend is stubbed, as in the reference) -> the encoder's output (B,
     F, d_model) in the compute dtype. Full, non-causal self-attention
-    without RoPE (``_sdpa``), sinusoidal positions added to the frames."""
+    without RoPE (``_sdpa``), sinusoidal positions added to the frames. On
+    a ``mesh`` with a 'model' axis, from this rank's shards: the output is
+    whole on every column."""
     B, F, _ = frames.shape
     cd = _cdtype(cfg)
     x = frames.to(cd) + _sinusoid(F, cfg.d_model, cd, frames.device)
     positions = torch.arange(F, device=frames.device).expand(B, F)
     x, _, _ = _scan_blocks(params["enc_layers"], x, cfg, positions,
-                           causal=False, rope=False)
+                           causal=False, rope=False, tp=model_axis(mesh))
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
 def _whisper_trunk(params, x, cfg, positions, memory, caches=None,
-                   cache_pos=None):
+                   cache_pos=None, tp=None):
     """The decoder blocks over the encoder's output ``memory``; with
     caches, each block's own self-attention KV cache."""
     remat = caches is None and _remat(cfg)
     for i, lp in enumerate(_layers(params["dec_layers"], 1)):
         if caches is None:
-            x = _apply(_decdec_out, remat, lp, x, memory, cfg, positions)
+            x = _apply(_decdec_out, remat, lp, x, memory, cfg, positions, tp)
         else:
             x, _ = _decdec_block_fwd(
                 lp, x, memory, cfg, positions,
                 cache=tree_map(lambda t: t[i], caches["self"]),
-                cache_pos=cache_pos)
+                cache_pos=cache_pos, tp=tp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device), caches
 
 
@@ -726,17 +729,22 @@ def _leaf_tensor(a: np.ndarray, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def memory_of(params, batch, cfg: ModelConfig):
+def memory_of(params, batch, cfg: ModelConfig, mesh=None):
     """The memory the decoder attends to, as ``forward`` builds it: whisper
     encodes ``batch["frames"]`` (B, n_frames, d_model); the vision decoder
     projects ``batch["patches"]`` (B, n_patches, d_vision) in the compute
-    dtype. None for the other families."""
+    dtype. None for the other families. On a ``mesh`` with a 'model' axis,
+    from this rank's shards, whole on every column: a column-split
+    ``vision_proj``'s outputs are gathered plain (each cross-attention's
+    ``copy_in`` on the memory sums its gradient over the columns)."""
     family = _family(cfg)
     if family == "encoder":
-        return whisper_encode(params, batch["frames"], cfg)
+        return whisper_encode(params, batch["frames"], cfg, mesh)
     if family == "vision":
         cd = _cdtype(cfg)
-        return batch["patches"].to(cd) @ params["vision_proj"].to(cd)
+        m = batch["patches"].to(cd) @ params["vision_proj"].to(cd)
+        tp = model_axis(mesh)
+        return m if m.shape[-1] == cfg.d_model else tp.gather(m)
     return None
 
 
@@ -752,19 +760,14 @@ def _memory_arg(family: str, memory) -> tuple:
     return (memory,)
 
 
-def _trunk_kw(family: str, tp) -> dict:
-    """The trunk's ``tp`` keyword: only the decoder trunk takes one."""
-    return {"tp": tp} if family == "decoder" else {}
-
-
 def forward(params, batch, cfg: ModelConfig, mesh=None):
     """Training / prefill forward. batch: tokens (B, S) [+ labels (B, S),
     which add the MTP loss to the aux loss where the config has MTP;
     whisper's frames (B, n_frames, d_model), the vision decoder's patches
     (B, n_patches, d_vision)]. On a ``mesh`` with a 'model' axis of M > 1
-    columns (the dense and MoE decoders only), ``params`` are this rank's
-    shards (``launch/sharding.shard_params``, ``params_from_numpy(...,
-    mesh=)``) and the logits this column's V / M of the vocabulary
+    columns, ``params`` are this rank's shards
+    (``launch/sharding.shard_params``, ``params_from_numpy(..., mesh=)``)
+    and the logits this column's V / M of the vocabulary
     (``vocab_split``)."""
     tp = _check_ported(cfg, mesh)
     tokens = batch["tokens"]
@@ -775,8 +778,7 @@ def forward(params, batch, cfg: ModelConfig, mesh=None):
     family = _family(cfg)
     x, aux, _ = _TRUNKS[family](
         params, x, cfg, positions,
-        *_memory_arg(family, memory_of(params, batch, cfg)),
-        **_trunk_kw(family, tp))
+        *_memory_arg(family, memory_of(params, batch, cfg, mesh)), tp=tp)
     if family == "decoder" and cfg.mtp_depth and "labels" in batch:
         aux = aux + _mtp_loss(params, x, batch, cfg, positions, tp=tp)
     return _logits(params, x, cfg, tp), aux
@@ -863,32 +865,42 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     block's KV cache, of min(length, max_decoder_len) positions; the
     vision decoder: each self-attention layer's, stacked (n_groups,
     cross_attn_every - 1). Cross-attention keeps no cache: each step
-    projects the memory again, as in the reference. On a ``mesh`` with a
-    'model' axis each rank's GQA cache holds its local kv heads where the
-    heads split whole over the columns (``attention.tp_split``), else
-    every head; MLA's latent cache is whole on every column."""
+    projects the memory again, as in the reference.
+
+    On a ``mesh`` with a 'model' axis of M columns, each rank's cache
+    holds what its column runs: the GQA caches its local kv heads where
+    the heads split whole over the columns (``attention.tp_split``), else
+    every head; MLA's latent cache whole; Mamba2's state its local heads
+    and its conv window their x channels beside the whole B and C
+    (``ssm.mamba_local``), mLSTM's C, n and m its local heads
+    (``ssm.heads_local``) and its conv window whole, sLSTM's states whole.
+    The reference splits caches only by batch
+    (``repro/launch/sharding.py::cache_shardings``) and leaves the heads
+    to XLA, so this local-head layout is the port's own."""
     _check_ported(cfg, mesh)
     dev = resolve_device(device)
     family = _family(cfg)
+    M = model_columns(mesh)
     if family == "encoder":
         L = min(length, cfg.encoder.max_decoder_len)
         return {"self": _stacked_cache(cfg, cfg.n_layers, batch, L, dev,
-                                       dtype)}
+                                       dtype, M)}
     if family == "vision":
-        init = init_mla_cache if cfg.attention == "mla" else init_gqa_cache
-        return {"self": init(cfg, batch, length, dtype=dtype, device=dev,
-                             lead=_vlm_groups(cfg))}
+        return {"self": _stacked_cache(cfg, _vlm_groups(cfg), batch, length,
+                                       dev, dtype, M)}
     if family == "hybrid":
         every = cfg.hybrid.shared_attn_every
         n_groups = cfg.n_layers // every
-        return {"mamba": ssm_lib.init_mamba_cache(cfg, batch, device=dev,
-                                                  lead=(n_groups, every)),
+        return {"mamba": ssm_lib.init_mamba_cache(
+                    cfg, batch, device=dev, lead=(n_groups, every),
+                    model_parallel=M),
                 "attn": _stacked_cache(cfg, n_groups, batch, length, dev,
-                                       dtype)}
+                                       dtype, M)}
     if family == "xlstm":
         n_groups, n_m = _xlstm_groups(cfg)
         out = {"mlstm": ssm_lib.init_mlstm_cache(cfg, batch, device=dev,
-                                                 lead=(n_groups, n_m))}
+                                                 lead=(n_groups, n_m),
+                                                 model_parallel=M)}
         if cfg.ssm.slstm_every:
             out["slstm"] = ssm_lib.init_slstm_cache(cfg, batch, device=dev,
                                                     lead=(n_groups,))
@@ -897,8 +909,7 @@ def init_cache(cfg: ModelConfig, batch: int, length: int, device=None,
     out = {}
     for name, n in (("dense", n_dense), ("moe", cfg.n_layers - n_dense)):
         if n:
-            out[name] = _stacked_cache(cfg, n, batch, length, dev, dtype,
-                                       model_columns(mesh))
+            out[name] = _stacked_cache(cfg, n, batch, length, dev, dtype, M)
     return out
 
 
@@ -922,7 +933,7 @@ def decode_step(params, cache, tokens, pos, cfg: ModelConfig, memory=None,
                  if family == "encoder" else pos)
     x, _, nc = _TRUNKS[family](params, x, cfg, positions,
                                *_memory_arg(family, memory), caches=cache,
-                               cache_pos=cache_pos, **_trunk_kw(family, tp))
+                               cache_pos=cache_pos, tp=tp)
     return _logits(params, x, cfg, tp), nc
 
 

@@ -8,9 +8,10 @@ on PyTorch's fake process-group backend, whose record has the reference's
 keys, a ``useful_flops_ratio`` in (0.01, 1] and the model axis's
 collectives; the MoE decoders at full width with their depth cut
 (deepseek-v3-671b's prefill under its default engine, arctic-480b's
-exact_tp training step), traced the same way; the records of combos
-outside the tensor-parallel slice; and ``run_online`` on two gloo ranks
-of a ('pod', 'data') mesh."""
+exact_tp training step), traced the same way, and so are whisper-medium's
+prefill and zamba2-2.7b's decode steps (32k, and 500k: it is
+sub-quadratic); the records of combos outside the tensor-parallel slice;
+and ``run_online`` on two gloo ranks of a ('pod', 'data') mesh."""
 import dataclasses
 import functools
 import importlib
@@ -164,11 +165,58 @@ def test_moe_default_engine_waits_on_fsdp(tmp_path, arch, shape):
     assert "roofline" not in rec
 
 
+# the recurrent and cross-attention families' depth cut for their traced
+# records: one group of zamba2's 6 Mamba2 layers and its shared block;
+# whisper's 2 encoder and 2 decoder blocks
+FAMILY_DEPTH = {"zamba2-2.7b": dict(n_layers=6),
+                "whisper-medium": dict(n_layers=2)}
+
+
+def _family_cut(name):
+    cfg = get_config(name)
+    kw = dict(FAMILY_DEPTH.get(name, {}))
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder,
+                                            n_layers=kw["n_layers"])
+    return dataclasses.replace(cfg, **kw)
+
+
+@pytest.mark.parametrize("arch, shape", (
+    ("whisper-medium", "prefill_32k"), ("zamba2-2.7b", "decode_32k"),
+    ("zamba2-2.7b", "long_500k")))
+def test_recurrent_and_cross_families_trace_at_full_width(monkeypatch,
+                                                          tmp_path, arch,
+                                                          shape):
+    """Full width, depth cut to ``FAMILY_DEPTH``, as rank 0 of (16, 16)
+    under the default engine (exact_tp): whisper's prefill of 448 tokens
+    over 1,500 frames and zamba2's decode step (its local Mamba2 heads and
+    kv heads), each layer's attention, Mamba2 block and MLP summing over
+    the model axis. The record has a useful-FLOPs ratio in (0.01, 1];
+    the 500k decode's is only held to (0, 1]: its batch of one sequence
+    is whole on all 16 rows, whose useful FLOPs are that one sequence's
+    (0.0055 at full depth)."""
+    monkeypatch.setattr(dryrun, "get_config", _family_cut)
+    rec = dryrun.run_one(arch, shape, out_dir=tmp_path, verbose=False)
+    assert "skipped" not in rec
+    assert rec["engine"] == "exact_tp"
+    assert rec["mesh"] == {"data": 16, "model": 16}
+    assert 0.0 < rec["useful_flops_ratio"] <= 1.0
+    if shape != "long_500k":
+        assert rec["useful_flops_ratio"] > 0.01
+    per = rec["per_device"]
+    assert per["flops"] > 0 and per["traffic_bytes"] > 0
+    assert per["memory"]["peak_bytes"] >= per["memory"]["argument_bytes"] > 0
+    n = _family_cut(arch).n_layers
+    assert per["collective_counts"]["all-reduce"] >= 2 * n
+    assert rec["total_params"] == dryrun.total_params(_family_cut(arch))
+
+
 def test_combos_outside_the_slice_write_what_they_need(tmp_path):
-    """MoE (recompute on FSDP by default), whisper, and the 500k decode
-    of a full-attention arch: a record saying why, no trace."""
+    """MoE (recompute on FSDP by default, training and decode), and the
+    500k decode of a full-attention arch: a record saying why, no
+    trace."""
     for arch, shape, word in (("arctic-480b", "train_4k", "A7"),
-                              ("whisper-medium", "prefill_32k", "A7"),
+                              ("deepseek-v3-671b", "decode_32k", "A7"),
                               ("qwen1.5-4b", "train_4k", "A7"),
                               ("deepseek-coder-33b", "long_500k",
                                "unbounded")):

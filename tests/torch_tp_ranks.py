@@ -1,10 +1,12 @@
 """What each rank of ``tests/test_torch_tp.py``'s process groups runs: the
 port's dense decoders tensor-parallel over a 'model' axis, one process a
 (row, column) device, on the CPU under gloo. ``spawn(groups, payload,
-out)`` starts as many processes as the largest group and runs them through
-each group in turn (``groups``: ``(name, ranks, model_parallel)``, each
-made anew once the one before is destroyed; a process outside a group
-goes on to the next); every rank pickles what it computed to ``out``. This
+out)`` starts as many processes as the groups span and runs them through
+each group in turn (``groups``: ``(name, ranks, model_parallel,
+harness[, first process])``, each made anew once the one before is
+destroyed; a process outside a group goes on to the next, so groups on
+disjoint processes run at once); every rank pickles what it computed to
+``out``. This
 module imports torch and the port only (the ranks never load JAX).
 """
 from __future__ import annotations
@@ -37,7 +39,7 @@ def spawn(groups, payload: dict, out: Path, meanwhile=None, job=None):
     M)`` (a module-level function) is what each rank runs, ``run_cases``
     by default."""
     out = Path(out)
-    nprocs = max(g[1] for g in groups)
+    nprocs = max(_first(g) + g[1] for g in groups)
     ports = [free_port() for _ in groups]
     ctx = mp.start_processes(
         _process, args=(groups, ports, payload, str(out), job or run_cases),
@@ -49,24 +51,33 @@ def spawn(groups, payload: dict, out: Path, meanwhile=None, job=None):
     for name, n, *_ in groups:
         results[name] = []
         for r in range(n):
-            with open(out / f"{name}.rank{r}.pkl", "rb") as f:
+            path = out / f"{name}.rank{r}.pkl"
+            with open(path, "rb") as f:
                 results[name].append(pickle.load(f))
+            path.unlink()           # the trees are in memory now
     return results, done
+
+
+def _first(group) -> int:
+    """The first process of a group (0 unless its fifth entry says)."""
+    return group[4] if len(group) > 4 else 0
 
 
 def _process(proc: int, groups, ports, payload: dict, out: str,
              job) -> None:
     torch.set_num_threads(1)
-    for (name, n, M, harness), port in zip(groups, ports):
-        if proc >= n:
+    for group, port in zip(groups, ports):
+        name, n, M, harness = group[:4]
+        rank = proc - _first(group)
+        if not 0 <= rank < n:
             continue
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                                world_size=n, rank=proc)
+                                world_size=n, rank=rank)
         try:
             res = job(payload if harness else dict(payload, harness=()), M)
         finally:
             dist.destroy_process_group()
-        with open(Path(out) / f"{name}.rank{proc}.pkl", "wb") as f:
+        with open(Path(out) / f"{name}.rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
 
 
@@ -173,16 +184,14 @@ def _refusals(mesh) -> dict:
     cfg = get_config("qwen1.5-4b").reduced()
     fl = FLConfig(num_clients=mesh.shape["data"], **FL)
     ssm = get_config("zamba2-2.7b").reduced()
-    tokens = torch.zeros((1, 32), dtype=torch.int32)
     out = {}
     for what, call in (
             ("recompute", lambda: pod.make_recompute_train_step(
                 cfg, fl, mesh, mesh.shape["data"])),
             ("stale", lambda: pod.make_stale_score_train_step(
                 cfg, fl, mesh, mesh.shape["data"])),
-            ("ssm forward", lambda: T.forward(
-                T.init_model(torch.Generator().manual_seed(0), ssm),
-                {"tokens": tokens}, ssm, mesh))):
+            ("ssm stale", lambda: pod.make_stale_score_train_step(
+                ssm, fl, mesh, mesh.shape["data"]))):
         try:
             call()
             out[what] = "ran"
